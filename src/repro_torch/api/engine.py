@@ -1,0 +1,144 @@
+"""Engine protocol + registry (counterpart of ``repro.api.engine``).
+
+An engine is one execution strategy for exact kNN.  It declares its
+capabilities (``EngineCaps``) so the planner selects by constraint, and
+implements ``build(points, spec, plan)``, ``query(state, queries, k)`` and
+``resident_bytes(plan, state)``.  Engines of the reference that are not
+ported yet raise a ``KeyError`` saying so from ``get_engine``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple, Type
+
+import numpy as np
+
+from repro_torch.core.lazysearch import SearchStats
+
+__all__ = [
+    "Engine",
+    "EngineBase",
+    "EngineCaps",
+    "KNOWN_OPS",
+    "MutabilityError",
+    "OpUnsupported",
+    "StreamingUnsupported",
+    "register_engine",
+    "get_engine",
+    "available_engines",
+    "NOT_PORTED",
+]
+
+KNOWN_OPS = frozenset({"knn", "radius", "kde", "pair_count"})
+
+# engines of the reference not ported yet -> the ROADMAP item that ports them
+NOT_PORTED = {
+    "host": "Queue 1 item 17",
+    "kdtree": "Queue 1 item 17",
+    "jit": "Queue 1 item 11",
+    "streaming": "Queue 1 item 12",
+    "dynamic": "Queue 1 item 14",
+    "sharded": "Queue 1 item 18",
+    "forest": "Queue 1 item 18",
+    "ring": "Queue 1 item 18",
+}
+
+
+class MutabilityError(TypeError):
+    """``insert``/``delete`` on an engine with ``caps.mutable=False``."""
+
+
+class StreamingUnsupported(TypeError):
+    """``query_stream`` on an engine with ``caps.streaming=False``."""
+
+
+class OpUnsupported(TypeError):
+    """``radius``/``kde``/``pair_count`` on an engine that does not declare
+    the op in ``caps.ops``."""
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineCaps:
+    """Static capability declaration used by the planner."""
+
+    exact: bool = True
+    out_of_core: bool = False
+    multi_device: bool = False
+    needs_build: bool = True
+    stateful_query: bool = False  # query mutates state: one batch at a time
+    mutable: bool = False
+    streaming: bool = False
+    ops: frozenset = frozenset({"knn"})
+    description: str = ""
+
+
+class EngineBase:
+    """Base class for registered engines."""
+
+    name: str = ""
+    caps: EngineCaps = EngineCaps()
+
+    def build(self, points: np.ndarray, spec, plan):
+        raise NotImplementedError
+
+    def query(
+        self, state, queries: np.ndarray, k: int
+    ) -> Tuple[np.ndarray, np.ndarray, SearchStats]:
+        raise NotImplementedError
+
+    def resident_bytes(self, plan, state=None) -> int:
+        """Device bytes of the reference structure under ``plan`` (measured
+        from ``state`` where the engine can)."""
+        return plan.slab_bytes
+
+
+Engine = EngineBase
+
+_REGISTRY: Dict[str, EngineBase] = {}
+
+
+def register_engine(cls: Type[EngineBase]) -> Type[EngineBase]:
+    """Class decorator: instantiate and register under ``cls.name``."""
+    if not cls.name:
+        raise ValueError(f"{cls.__name__} must set a non-empty .name")
+    if cls.name in _REGISTRY:
+        raise ValueError(f"engine {cls.name!r} already registered")
+    _REGISTRY[cls.name] = cls()
+    return cls
+
+
+def get_engine(name: str) -> EngineBase:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        if name in NOT_PORTED:
+            raise KeyError(
+                f"engine {name!r} is not yet ported to repro_torch "
+                f"(ROADMAP {NOT_PORTED[name]}); registered: {sorted(_REGISTRY)}"
+            ) from None
+        raise KeyError(
+            f"unknown engine {name!r}; registered: {sorted(_REGISTRY)}"
+        ) from None
+
+
+def available_engines(
+    *, exact: Optional[bool] = None, out_of_core: Optional[bool] = None,
+    multi_device: Optional[bool] = None, op: Optional[str] = None,
+) -> Dict[str, EngineCaps]:
+    """Registered engines, optionally filtered by capability or op."""
+    if op is not None and op not in KNOWN_OPS:
+        raise ValueError(f"unknown op {op!r}; known: {sorted(KNOWN_OPS)}")
+    out = {}
+    for name, eng in sorted(_REGISTRY.items()):
+        c = eng.caps
+        if exact is not None and c.exact != exact:
+            continue
+        if out_of_core is not None and c.out_of_core != out_of_core:
+            continue
+        if multi_device is not None and c.multi_device != multi_device:
+            continue
+        if op is not None and op not in c.ops:
+            continue
+        out[name] = c
+    return out

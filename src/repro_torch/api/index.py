@@ -1,0 +1,184 @@
+"""``KNNIndex``: the front door (counterpart of ``repro.api.index``).
+
+    from repro_torch.api import KNNIndex
+
+    index = KNNIndex.build(points)            # planner picks the engine
+    dists, idx = index.query(queries, k=10)   # QueryResult, tuple-unpackable
+
+With ``IndexSpec.devices`` unset the index runs on ``cuda:0`` and raises
+without a card; pass ``devices=(torch.device("cpu"),)`` for the CPU.
+Persistence, mutation, streaming and the dual-tree ops wait for their
+ROADMAP items; their entry points raise the reference's typed errors.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.api.engine import (
+    EngineBase,
+    MutabilityError,
+    OpUnsupported,
+    StreamingUnsupported,
+    available_engines,
+    get_engine,
+)
+from repro_torch.api.planner import Plan, default_devices, plan as make_plan
+from repro_torch.api.spec import IndexSpec, QueryResult, SearchStats
+
+__all__ = ["KNNIndex"]
+
+
+class KNNIndex:
+    """A built kNN index: points + a planned engine + its opaque state."""
+
+    def __init__(self, *, spec: IndexSpec, plan: Plan, engine: EngineBase,
+                 state, n: int, d: int):
+        self.spec = spec
+        self.plan = plan
+        self._engine = engine
+        self._state = state
+        self.n = n
+        self.d = d
+        self._last_stats: Optional[SearchStats] = None
+        # engines declaring stateful_query stream chunk slots during a
+        # query: one batch at a time per index
+        self._qlock = threading.Lock() if engine.caps.stateful_query else None
+
+    def _serialized(self, fn, *args):
+        if self._qlock is None:
+            return fn(*args)
+        with self._qlock:
+            return fn(*args)
+
+    @classmethod
+    def build(
+        cls, points: np.ndarray, spec: Optional[IndexSpec] = None, **overrides
+    ) -> "KNNIndex":
+        """Plan + build an index over ``points``."""
+        spec = spec or IndexSpec()
+        if overrides:
+            spec = spec.replace(**overrides)
+        points = np.asarray(points, dtype=np.float32)
+        if points.ndim != 2:
+            raise ValueError(f"points must be [n, d], got {points.shape}")
+        n, d = points.shape
+        if spec.devices is None:
+            spec = spec.replace(devices=default_devices())
+        pl = make_plan(
+            n, d,
+            m=spec.m_hint,
+            k=spec.k_hint,
+            devices=spec.devices,
+            memory_budget=spec.memory_budget,
+            engine=spec.engine,
+            height=spec.height,
+            n_chunks=spec.n_chunks,
+            n_shards=spec.n_shards,
+            buffer_size=spec.buffer_size,
+            tile_q=spec.tile_q,
+            backend=spec.backend,
+            precision=spec.precision,
+            strict_budget=spec.strict_budget,
+            op=spec.op,
+        )
+        engine = get_engine(pl.engine)
+        state = engine.build(points, spec, pl)
+        return cls(spec=spec, plan=pl, engine=engine, state=state, n=n, d=d)
+
+    def _check_queries(self, queries) -> np.ndarray:
+        queries = np.asarray(queries, dtype=np.float32)
+        if queries.ndim != 2 or queries.shape[1] != self.d:
+            raise ValueError(f"queries must be [m, {self.d}], got {queries.shape}")
+        return queries
+
+    def query(self, queries: np.ndarray, k: Optional[int] = None) -> QueryResult:
+        """k nearest neighbors of every query row (``k`` defaults to the
+        spec's ``k_hint``)."""
+        k = int(k) if k is not None else self.spec.k_hint
+        queries = self._check_queries(queries)
+        if k > self.n:
+            raise ValueError(f"k={k} > n={self.n}")
+        dists, idx, stats = self._serialized(
+            self._engine.query, self._state, queries, k
+        )
+        self._last_stats = stats
+        return QueryResult(dists=dists, idx=idx, stats=stats,
+                           engine=self.plan.engine, k=k)
+
+    def _require_op(self, op: str) -> None:
+        if op not in self._engine.caps.ops:
+            raise OpUnsupported(
+                f"engine {self.engine_name!r} does not declare op {op!r} "
+                f"(caps.ops={sorted(self._engine.caps.ops)}; engines that "
+                f"do: {sorted(available_engines(op=op))}); the dual-tree ops "
+                "are ROADMAP Queue 1 item 13"
+            )
+
+    def radius(self, queries: np.ndarray, r: float):
+        self._require_op("radius")
+
+    def kde(self, queries: np.ndarray, bandwidth: float, **kw):
+        self._require_op("kde")
+
+    def pair_count(self, edges):
+        self._require_op("pair_count")
+
+    def insert(self, points: np.ndarray):
+        raise MutabilityError(
+            f"engine {self.engine_name!r} is immutable; the mutable engine "
+            "is ROADMAP Queue 1 item 14"
+        )
+
+    def delete(self, ids):
+        raise MutabilityError(
+            f"engine {self.engine_name!r} is immutable; the mutable engine "
+            "is ROADMAP Queue 1 item 14"
+        )
+
+    def query_stream(self, queries, k=None, *, on_complete):
+        raise StreamingUnsupported(
+            f"engine {self.engine_name!r} cannot stream per-row completions; "
+            "the streaming engine is ROADMAP Queue 1 item 12"
+        )
+
+    def warm(self, m: Optional[int] = None, k: Optional[int] = None) -> None:
+        """Run the execution path once for batches of ``m`` queries (the
+        chunked engine's round at the full shape and every ladder rung),
+        which builds the kernel before the first query."""
+        k = int(k) if k is not None else self.spec.k_hint
+        mm = int(m) if m is not None else (self.spec.m_hint or self.spec.tile_q)
+        warm = getattr(self._state, "warm", None)
+        if warm is not None:
+            self._serialized(warm, mm, k)
+
+    @property
+    def engine_name(self) -> str:
+        return self.plan.engine
+
+    @property
+    def height(self) -> int:
+        return self.plan.height
+
+    @property
+    def stats(self) -> SearchStats:
+        """Stats of the most recent ``query`` (empty before the first)."""
+        return self._last_stats if self._last_stats is not None else SearchStats()
+
+    def resident_bytes(self) -> int:
+        """Per-device bytes the reference structure occupies."""
+        return self._engine.resident_bytes(self.plan, self._state)
+
+    def describe(self) -> str:
+        """Human-readable plan summary (engine, parameters, reasons)."""
+        pl = self.plan
+        lines = [
+            f"KNNIndex: n={self.n} d={self.d} engine={pl.engine} "
+            f"h={pl.height} n_chunks={pl.n_chunks} n_shards={pl.n_shards} "
+            f"B={pl.buffer_size} resident~{pl.resident_bytes / 1e6:.1f}MB",
+        ]
+        lines += [f"  - {r}" for r in pl.reasons]
+        return "\n".join(lines)

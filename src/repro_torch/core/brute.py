@@ -1,0 +1,81 @@
+"""Tiled brute-force kNN: the exact ground truth (paper baseline (3)).
+
+Counterpart of ``repro.core.brute``.  Query tiles stay resident while
+reference tiles stream through ``_tile_step`` (direct (q - x)^2 distances,
+then a stable-sort merge into the running top-k).  Runs on whatever device
+it is given; the last reference tile is simply shorter (no jit shapes to
+keep fixed, so no padding rows).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.ref import smallest_k
+
+__all__ = ["knn_brute"]
+
+
+def _tile_step(
+    q: torch.Tensor,        # f32[TQ, d]
+    x: torch.Tensor,        # f32[TX, d]
+    base: int,              # global offset of this reference tile
+    best_d: torch.Tensor,   # f32[TQ, k]
+    best_i: torch.Tensor,   # i64[TQ, k]
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    # direct (q - x)^2: this is the oracle, so exactness beats the
+    # decomposed form
+    diff = q[:, None, :] - x[None, :, :]
+    dist = torch.einsum("qxd,qxd->qx", diff, diff)
+    idx = torch.arange(base, base + x.shape[0], device=q.device).expand_as(dist)
+    cd = torch.cat([best_d, dist], dim=1)
+    ci = torch.cat([best_i, idx], dim=1)
+    sd, sel = smallest_k(cd, k)
+    return sd, torch.gather(ci, 1, sel)
+
+
+def knn_brute(
+    queries,
+    points,
+    k: int,
+    *,
+    device=None,
+    tile_q: int = 1024,
+    tile_x: int = 16384,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact kNN; returns (Euclidean dists f32[m, k], idx i64[m, k]).
+
+    ``queries``/``points`` are numpy arrays or tensors; ``device`` defaults
+    to the device of ``points`` when it is a tensor, else to ``cuda:0``.
+    """
+    from repro_torch.kernels.ops import resolve_device
+
+    if device is None and isinstance(points, torch.Tensor):
+        device = points.device
+    dev = resolve_device(device)
+    qs = torch.as_tensor(queries, dtype=torch.float32, device=dev)
+    pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
+    m, d = qs.shape
+    n, d2 = pts.shape
+    if d != d2:
+        raise ValueError(f"dim mismatch {d} vs {d2}")
+    if k > n:
+        raise ValueError(f"k={k} > n={n}")
+
+    out_d = np.empty((m, k), np.float32)
+    out_i = np.empty((m, k), np.int64)
+    for qs0 in range(0, m, tile_q):
+        q = qs[qs0 : qs0 + tile_q]
+        best_d = torch.full((q.shape[0], k), float("inf"), device=dev)
+        best_i = torch.full((q.shape[0], k), -1, dtype=torch.int64, device=dev)
+        for xs in range(0, n, tile_x):
+            best_d, best_i = _tile_step(
+                q, pts[xs : xs + tile_x], xs, best_d, best_i, k
+            )
+        out_d[qs0 : qs0 + q.shape[0]] = torch.sqrt(best_d).cpu().numpy()
+        out_i[qs0 : qs0 + q.shape[0]] = best_i.cpu().numpy()
+    return out_d, out_i

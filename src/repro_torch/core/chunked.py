@@ -1,0 +1,185 @@
+"""Chunked leaf-structure processing (paper §3): two device chunk buffers.
+
+Counterpart of ``repro.core.chunked`` (fp32 store).  The leaf structure
+stays on the host, in pinned memory; only two chunk-sized device slots
+exist.  The paper's 3-phase pipeline per chunk j —
+
+  (1) Brute: launch the scan on chunk j (non-blocking),
+  (2) Copy : transfer chunk j+1 host->device into the slot not in use,
+  (3) Wait : block on (1),
+
+maps onto two CUDA streams: the consumer's compute runs on the current
+stream, the copy of the next chunk on a side stream.  The ordering is
+explicit in both directions, with events:
+
+  * compute on a slot waits for that slot's copy (``ready`` event);
+  * a copy into a slot waits until the compute that last read the slot
+    has finished (``free`` event, recorded when the consumer asks for the
+    next chunk).  JAX's immutable buffers gave this for free; on CUDA it
+    is a write-after-read race without the event.
+
+Chunks are leaf-aligned: chunk j owns leaves [chunk_lo[j], chunk_hi[j]).
+``uniform=True`` pads the host array with PAD_COORD leaves so every slab
+has the same shape.  The host slabs are pinned when they are streamed
+(N >= 2); on the CPU the copies are plain copies.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.ops import PAD_COORD, resolve_device
+
+__all__ = ["ChunkedLeafStore"]
+
+
+@dataclasses.dataclass
+class _Slot:
+    chunk_id: int = -1
+    buf: Optional[torch.Tensor] = None
+    ready: Optional[torch.cuda.Event] = None   # copy into buf finished
+    free: Optional[torch.cuda.Event] = None    # last compute reading buf finished
+
+
+class ChunkedLeafStore:
+    """Host-resident padded leaf structure streamed through two device
+    slots; ``n_chunks == 1`` keeps the whole structure device-resident."""
+
+    def __init__(
+        self,
+        leaf_slabs: np.ndarray,
+        n_chunks: int = 1,
+        *,
+        device=None,
+        uniform: bool = False,
+        precision: str = "fp32",
+    ):
+        if precision != "fp32":
+            raise NotImplementedError(
+                f"precision={precision!r}: the port's leaf store runs fp32 "
+                "only; the quantized (fp16/int8) scan path is ROADMAP "
+                "Queue 1 item 10"
+            )
+        if leaf_slabs.ndim != 3:
+            raise ValueError(
+                f"leaf_slabs must be [n_leaves, leaf_pad, d], got {leaf_slabs.shape}"
+            )
+        self.precision = precision
+        host = np.ascontiguousarray(leaf_slabs, np.float32)
+        self.n_leaves = host.shape[0]
+        self.device = resolve_device(device)
+        n_chunks = int(n_chunks)
+        if not 1 <= n_chunks <= self.n_leaves:
+            raise ValueError(f"n_chunks={n_chunks} out of range [1, {self.n_leaves}]")
+        self.n_chunks = n_chunks
+        self.uniform = bool(uniform)
+        if self.uniform:
+            c = -(-self.n_leaves // n_chunks)
+            extra = c * n_chunks - self.n_leaves
+            if extra:
+                pad = np.full((extra,) + host.shape[1:], np.float32(PAD_COORD))
+                host = np.concatenate([host, pad], axis=0)
+            self.chunk_leaves = c
+            lo = np.arange(n_chunks, dtype=np.int64) * c
+            self.chunk_lo = lo
+            self.chunk_hi = np.minimum(lo + c, self.n_leaves)
+        else:
+            bounds = np.ceil(
+                np.arange(n_chunks + 1) * self.n_leaves / n_chunks
+            ).astype(np.int64)
+            self.chunk_lo = bounds[:-1]
+            self.chunk_hi = bounds[1:]
+            self.chunk_leaves = int((self.chunk_hi - self.chunk_lo).max())
+        self._cuda = self.device.type == "cuda"
+        self.host = torch.from_numpy(host)
+        if self._cuda and n_chunks > 1:
+            self.host = self.host.pin_memory()
+        self._slots = (_Slot(), _Slot())
+        self._copy_stream = (
+            torch.cuda.Stream(self.device) if self._cuda and n_chunks > 1 else None
+        )
+        self.copies = 0   # host->device chunk transfers issued (lifetime)
+        self._resident: Optional[torch.Tensor] = None
+        if n_chunks == 1:
+            self._resident = self.host.to(self.device)
+
+    # -- chunk metadata -----------------------------------------------------
+    def chunk_of_leaf(self, leaf: np.ndarray) -> np.ndarray:
+        """Chunk id owning each leaf (leaf-aligned chunks)."""
+        return np.searchsorted(self.chunk_hi, np.asarray(leaf), side="right").astype(np.int32)
+
+    def chunk_leaf_range(self, j: int) -> Tuple[int, int]:
+        """Real leaves owned by chunk j (traversal targets)."""
+        return int(self.chunk_lo[j]), int(self.chunk_hi[j])
+
+    def _slab_range(self, j: int) -> Tuple[int, int]:
+        lo = int(self.chunk_lo[j])
+        if self.uniform:
+            return lo, lo + self.chunk_leaves
+        return lo, int(self.chunk_hi[j])
+
+    @property
+    def chunk_bytes(self) -> int:
+        lo, hi = self._slab_range(0)
+        return int((hi - lo) * self.host.shape[1] * self.host.shape[2]
+                   * self.host.element_size())
+
+    # -- streaming ----------------------------------------------------------
+    def _copy_chunk(self, j: int, slot: _Slot) -> None:
+        """Phase (2): host->device transfer of chunk j into ``slot``, on the
+        side stream, after the last compute that read the slot."""
+        lo, hi = self._slab_range(j)
+        src = self.host[lo:hi]
+        if slot.buf is None or slot.buf.shape != src.shape:
+            slot.buf = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+        if self._copy_stream is None:
+            slot.buf.copy_(src)
+        else:
+            if slot.free is not None:
+                self._copy_stream.wait_event(slot.free)
+            with torch.cuda.stream(self._copy_stream):
+                slot.buf.copy_(src, non_blocking=True)
+                slot.ready = torch.cuda.Event()
+                slot.ready.record(self._copy_stream)
+        slot.chunk_id = j
+        self.copies += 1
+
+    def stream(self, chunk_ids: Sequence[int]) -> Iterator[Tuple[int, torch.Tensor, int]]:
+        """Yield ``(chunk_id, device_slab, leaf_lo)`` per requested chunk,
+        double-buffered: the copy of chunk_ids[i+1] is issued before the
+        consumer computes on chunk_ids[i]."""
+        if self.n_chunks == 1:
+            for j in chunk_ids:
+                yield j, self._resident, 0
+            return
+        chunk_ids = list(chunk_ids)
+        if not chunk_ids:
+            return
+        if self._slots[0].chunk_id != chunk_ids[0]:
+            self._copy_chunk(chunk_ids[0], self._slots[0])
+        cur = 0
+        for i, j in enumerate(chunk_ids):
+            slot = self._slots[cur]
+            nxt = self._slots[1 - cur]
+            if i + 1 < len(chunk_ids) and nxt.chunk_id != chunk_ids[i + 1]:
+                self._copy_chunk(chunk_ids[i + 1], nxt)
+            if self._cuda and slot.ready is not None:
+                torch.cuda.current_stream(self.device).wait_event(slot.ready)
+            lo, _ = self.chunk_leaf_range(j)
+            try:
+                yield j, slot.buf, lo
+            finally:
+                if self._cuda:
+                    slot.free = torch.cuda.Event()
+                    slot.free.record(torch.cuda.current_stream(self.device))
+            cur = 1 - cur
+
+    def resident_bytes(self) -> int:
+        """Device bytes held by the store (two slots, or full structure)."""
+        if self.n_chunks == 1:
+            return int(self.host.numel() * self.host.element_size())
+        return 2 * self.chunk_bytes
