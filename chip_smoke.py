@@ -12,8 +12,9 @@ Phases, each printing its own lines:
   3. kernel   the CUDA leaf scan against its plain torch version on the
               card: the reference's kernel sweep, pad rows, exact ties, the
               indexed form, and the main-path shape (W=4096 units, TQ=128,
-              L_pad=4096, d_pad=16, k=10), timed beside the plain version
-              and beside torch.baddbmm + torch.topk;
+              L_pad=4096, d=10 unpadded as the main path passes it, k=10),
+              timed beside the plain version and beside torch.baddbmm +
+              torch.topk;
   4. main     KNNIndex.build(points).query(q, 10) with no spec: n points,
               m queries, d=10, from a seeded clustered Gaussian mixture;
               the plan must be the chunked engine with N=1, the kernel must
@@ -55,7 +56,8 @@ SWEEP = [
     (1, 16, 1024, 7, 8, 10),
     (5, 64, 96, 2, 8, 3),
 ]
-MAIN_SHAPE = dict(w=4096, tq=128, l_pad=4096, d=10, d_pad=16, k=10)
+# the main path's rows are the points' own width d: the kernel pads them
+MAIN_SHAPE = dict(w=4096, tq=128, l_pad=4096, d=10, k=10)
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -164,23 +166,27 @@ def phase_kernel(torch, dev, seed: int) -> dict:
         err = check_scan(torch, q, x, kd, ki, rd, ri, exact_ties=lattice)
         log("kernel", case=name, shape=(w, tq, lp, d_pad), k=k, max_abs_err=err, ok=True)
 
-    # the indexed form the chunk round calls: empty slots, rows past n_units
-    qpad = torch.randn((5000, 16), device=dev, generator=gen)
-    slab = torch.randn((40, 256, 16), device=dev, generator=gen)
+    # the indexed form the chunk round calls: empty slots, rows past n_units;
+    # indices are checked on the gathered tiles (an empty slot scans zeros)
+    qpad = torch.randn((5000, 10), device=dev, generator=gen)
+    slab = torch.randn((40, 256, 10), device=dev, generator=gen)
     unit_leaf = torch.randint(0, 40, (64,), device=dev, generator=gen).int()
     unit_query = torch.randint(-1, 5000, (64, 128), device=dev, generator=gen).int()
     n_units = torch.tensor(50, dtype=torch.int32, device=dev)
     kd, ki = knn_scan.leaf_scan_units(qpad, slab, unit_leaf, unit_query, n_units, k=10)
     rd, ri = knn_scan.leaf_scan_units_ref(qpad, slab, unit_leaf, unit_query, n_units, k=10)
     torch.cuda.synchronize()
-    torch.testing.assert_close(kd[:50], rd[:50], **TOL)
-    log("kernel", case="indexed_form", rows=64, n_units=50, ok=True)
+    uq = unit_query[:50]
+    q_tiles = torch.where((uq >= 0)[..., None], qpad[uq.clamp(min=0).long()], 0.0)
+    err = check_scan(torch, q_tiles, slab[unit_leaf[:50].long()],
+                     kd[:50], ki[:50], rd[:50], ri[:50])
+    log("kernel", case="indexed_form", rows=64, n_units=50, max_abs_err=err, ok=True)
 
     # main-path shape: time the kernel, its plain version, and the library
     s = MAIN_SHAPE
-    q, x = inputs(s["w"], s["tq"], s["l_pad"], s["d"], s["d_pad"])
-    w, tq, lp, d_pad, k = s["w"], s["tq"], s["l_pad"], s["d_pad"], s["k"]
-    qpad = q.reshape(w * tq, d_pad).contiguous()
+    w, tq, lp, d, k = s["w"], s["tq"], s["l_pad"], s["d"], s["k"]
+    q, x = inputs(w, tq, lp, d, d)
+    qpad = q.reshape(w * tq, d).contiguous()
     ul = torch.arange(w, dtype=torch.int32, device=dev)
     uq = torch.arange(w * tq, dtype=torch.int32, device=dev).reshape(w, tq)
     nu = torch.tensor(w, dtype=torch.int32, device=dev)
@@ -199,11 +205,14 @@ def phase_kernel(torch, dev, seed: int) -> dict:
 
     library_ms = cuda_ms(torch, library, reps=3)
     del xn, xt
-    bytes_moved = 4 * (w * tq * d_pad + w * lp * d_pad) + 8 * w * tq * k
-    ops = w * tq * lp * (2 * d_pad + 3)
+    # what the function needs at width d: queries, slabs and indices read
+    # once, the k-lists written once; per (query, row) pair d FMAs for q.x
+    # (2d operations) plus 3 to form, clamp and compare the distance
+    bytes_moved = 4 * (w * tq * d + w * lp * d + w + w * tq) + 8 * w * tq * k
+    ops = w * tq * lp * (2 * d + 3)
     bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_FLOPS)
     bound_by = "operations" if ops / FP32_FLOPS >= bytes_moved / HBM_BYTES_PER_S else "bytes"
-    log("kernel", case="main_shape", shape=(w, tq, lp, d_pad), k=k, max_abs_err=err,
+    log("kernel", case="main_shape", shape=(w, tq, lp, d), k=k, max_abs_err=err,
         kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
         gflops=f"{ops / kernel_ms / 1e6:.1f}")
@@ -262,6 +271,7 @@ def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
     from repro_torch.kernels import knn_scan
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     index = KNNIndex.build(points, spec)
     torch.cuda.synchronize()
@@ -271,6 +281,8 @@ def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
     res = index.query(queries, 10)
     query_s = time.perf_counter() - t0
     launches = knn_scan.leaf_scan_units.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9   # this build + query
+    assert index._state._engine.backend == "cuda", index._state._engine.backend
     assert np.isfinite(res.dists).all() and res.dists.shape == (queries.shape[0], 10)
     assert (res.idx >= 0).all()
     ties = check_exact(torch, res, points, queries, dev, n_check)
@@ -285,7 +297,7 @@ def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
         sync_wait_s=f"{st.sync_wait_s:.3f}", steady_s=f"{st.steady_s:.3f}",
         tail_s=f"{st.tail_s:.3f}", kernel_launches=launches,
         checked=n_check, tie_swaps=ties,
-        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        peak_mem_gb=f"{peak_gb:.3f}")
     for r in index.plan.reasons:
         print(f"[{phase}]   plan: {r}", flush=True)
     if profile:

@@ -79,17 +79,20 @@ def _pad_dims(n, d, height, leaf_pad_multiple, d_pad_multiple):
 
 def estimate_slab_bytes(
     n: int, d: int, height: int, *, leaf_pad_multiple: int = 8,
-    d_pad_multiple: int = 8, precision: str = "fp32",
+    d_pad_multiple: int = 1, precision: str = "fp32",
 ) -> int:
     """Device bytes of the padded leaf structure at tree height ``height``
-    (2**h leaves of ceil(n / 2**h) points, padded like ``build_top_tree``)."""
+    (2**h leaves of ceil(n / 2**h) points, rows padded like
+    ``build_top_tree``).  The port stores features unpadded
+    (``d_pad_multiple=1``; the kernel pads rows itself), where the
+    reference pads them to a multiple of 8."""
     n_leaves, leaf_pad, d_pad = _pad_dims(n, d, height, leaf_pad_multiple, d_pad_multiple)
     return n_leaves * leaf_pad * d_pad * BYTES_PER_ELEM[precision]
 
 
 def estimate_meta_bytes(
     n: int, d: int, height: int, *, leaf_pad_multiple: int = 8,
-    d_pad_multiple: int = 8, precision: str = "fp32",
+    d_pad_multiple: int = 1, precision: str = "fp32",
 ) -> int:
     """Device bytes of a quantized store's dequantize metadata (0 for fp32):
     the bit-packed dead mask, plus per-leaf scale/offset for int8."""

@@ -121,8 +121,8 @@ def _chunk_round(
     leaf,          # i32[m]   pending leaf per query, -1 done (read only)
     knn_d,         # f32[m+1, k] running top-k sq-dists    (updated in place)
     knn_i,         # i32[m+1, k] reordered-global indices  (updated in place)
-    qpad,          # f32[m, d_pad] zero-padded queries
-    dev_slab,      # f32[C, L_pad, d_pad] resident chunk slab
+    qpad,          # f32[m, d] queries
+    dev_slab,      # f32[C, L_pad, d] resident chunk slab
     lo: int,       # first leaf id of the chunk
     leaf_start,    # i32[n_leaves]
     leaf_size,     # i32[n_leaves]
@@ -216,7 +216,7 @@ class ChunkResidentEngine:
         leaf_size: torch.Tensor,
         first_leaf_heap: int,
         *,
-        backend: str = "ref",
+        backend: str = "auto",
         starvation_deadline: int = DEFAULT_STARVATION_DEADLINE,
     ):
         if store.n_chunks > 1 and not store.uniform:
@@ -227,7 +227,8 @@ class ChunkResidentEngine:
         self._leaf_start = leaf_start
         self._leaf_size = leaf_size
         self.first_leaf_heap = int(first_leaf_heap)
-        self.backend = backend
+        # the kernel on a CUDA store, the plain version on a CPU store
+        self.backend = kops.resolve_backend(backend, store.device)
         self.starvation_deadline = max(1, int(starvation_deadline))
         self._leaf_chunk = store.chunk_of_leaf(
             np.arange(store.n_leaves, dtype=np.int64)
@@ -239,7 +240,7 @@ class ChunkResidentEngine:
         shape a batch of ``m`` can reach).  Returns the number of shapes."""
         shapes = [int(m), *compaction_ladder(int(m))]
         dev = self.store.device
-        d_pad = self.store.host.shape[2]
+        d = self.store.host.shape[2]
 
         def state_at(ms: int):
             return (
@@ -248,7 +249,7 @@ class ChunkResidentEngine:
                 torch.full((ms,), -1, dtype=torch.int32, device=dev),       # leaf
                 torch.full((ms + 1, k), kops.INVALID_DIST, device=dev),
                 torch.full((ms + 1, k), -1, dtype=torch.int32, device=dev),
-                torch.zeros((ms, d_pad), device=dev),                       # qpad
+                torch.zeros((ms, d), device=dev),                           # qpad
             )
 
         for _cid, dev_slab, lo in self.store.stream([0]):
@@ -282,7 +283,7 @@ class ChunkResidentEngine:
 
     def run(
         self,
-        qpad: torch.Tensor,     # f32[m, d_pad] zero-padded queries
+        qpad: torch.Tensor,     # f32[m, d] queries
         k: int,
         tq: int,
         buffer_size: int,

@@ -34,8 +34,6 @@ from repro_torch.kernels import ops as kops
 
 __all__ = ["BufferKDTree", "SearchStats", "finalize_candidates"]
 
-_D_PAD_MULTIPLE = 8
-
 
 def finalize_candidates(
     tree: TopTree, queries: np.ndarray, gi: np.ndarray
@@ -130,15 +128,12 @@ class BufferKDTree:
             )
         h = self.tree.height
         self.tile_q = int(tile_q)
-        # feature padding for the kernel (pad dims add 0 to every distance)
-        self.d_pad = -(-d // _D_PAD_MULTIPLE) * _D_PAD_MULTIPLE
-        slabs = self.tree.points_padded
-        if self.d_pad != d:
-            pad = np.zeros(slabs.shape[:2] + (self.d_pad - d,), np.float32)
-            slabs = np.concatenate([slabs, pad], axis=-1)
+        # slabs keep the points' own width d: the kernel pads each row with
+        # zeros in registers and shared memory, so the device holds no pad
+        # columns
         self.store = ChunkedLeafStore(
-            slabs, n_chunks=n_chunks, device=self.device, uniform=True,
-            precision=precision,
+            self.tree.points_padded, n_chunks=n_chunks, device=self.device,
+            uniform=True, precision=precision,
         )
         self.precision = self.store.precision
         self.buffer_size = int(
@@ -146,7 +141,7 @@ class BufferKDTree:
         )
         self._last_stats = SearchStats()
 
-        resolved = kops.default_backend(self.device) if backend == "auto" else backend
+        resolved = kops.resolve_backend(backend, self.device)
         self.engine_tile_q = kops.engine_tile_q(self.tile_q, resolved)
 
         def dev(a: np.ndarray) -> torch.Tensor:
@@ -192,10 +187,9 @@ class BufferKDTree:
             raise ValueError(f"query dim {d} != reference dim {self.d}")
         if k > self.n:
             raise ValueError(f"k={k} > n={self.n}")
-        qpad = torch.zeros((m, self.d_pad), dtype=torch.float32, device=self.device)
-        qpad[:, :d] = torch.from_numpy(queries).to(self.device)
+        q = torch.from_numpy(np.ascontiguousarray(queries)).to(self.device)
         _d2, gi, info = self._engine.run(
-            qpad, k, self.engine_tile_q, self.buffer_size
+            q, k, self.engine_tile_q, self.buffer_size
         )
         self._last_stats = SearchStats(
             iterations=info["rounds"],

@@ -11,14 +11,18 @@
 // PAD_COORD rows (distance ~ d * 1e36) fill the tail in index order when a
 // leaf holds fewer than kl real rows, exactly like the plain reference.
 //
-// What bounds it on this card.  Per (query, slab row) pair the scan does
-// d_pad FFMAs plus a compare; every slab row is reused by all TQ queries of
-// the unit, so at the main-path shape (TQ=128, d_pad=16, L_pad=4096) the
-// kernel does ~35 fp32 operations per pair against ~0.5 byte of slab per
-// pair: it is bound by fp32 operations (67 TFLOP/s on the CUDA cores), not
-// by device memory (3.35 TB/s).  TF32 tensor cores would be faster but keep
-// only ~3 decimal digits, which can drop a true neighbour, so the distance
-// stays in full fp32 FFMA.
+// What bounds it on this card.  Per (query, slab row) pair the function
+// needs d FMAs for q.x plus a few operations to form, clamp and compare the
+// distance, 2d+3 fp32 operations; every slab row is reused by all TQ
+// queries of the unit, so at the main-path shape (TQ=128, d=10,
+// L_pad=4096) that is 23 operations against ~0.3 byte of slab per pair: it
+// is bound by fp32 operations (67 TFLOP/s on the CUDA cores), not by device
+// memory (3.35 TB/s).  Rows arrive at their own width d (the main path does
+// not pad them); the kernel pads them with zeros up to its template width
+// DPAD (8, 16, 32, 64 or 128), so it issues DPAD FMAs per pair, 16 for
+// d=10.  TF32 tensor cores would be faster but keep only ~3 decimal
+// digits, which can drop a true neighbour, so the distance stays in full
+// fp32 FFMA.
 //
 // What the design does about it.  One block per plan row, one thread per
 // query row: the query vector and the running top-k list live in registers

@@ -15,8 +15,9 @@ Two call forms, one kernel:
   ``leaf_scan_pallas`` (q f32[W, TQ, d_pad], leaf_pts f32[W, L_pad, d_pad]
   -> f32[W, TQ, k], i32[W, TQ, k]), the same kernel with identity indices.
 
-A tensor on the CPU goes to the plain version, ``leaf_scan_units_ref``; a
-CUDA tensor launches the kernel or raises.  ``_extract_topk`` and
+Both launch the kernel or raise: they take CUDA tensors only.  The plain
+version is ``leaf_scan_units_ref``; ``kernels/ops.py`` picks between the
+two by the tensors' device.  ``_extract_topk`` and
 ``_rank_merge`` are the Pallas kernel's selection helpers as plain torch
 functions; ``_rank_merge`` is also called on its own by the dynamic index.
 """
@@ -180,15 +181,17 @@ def leaf_scan_units(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Indexed leaf scan over a work plan.
 
-    qpad f32[m, d_pad]; slab f32[C, L_pad, d_pad]; unit_leaf i32[W] (leaf
+    qpad f32[m, d_pad]; slab f32[C, L_pad, d_pad] (any d_pad up to the
+    kernel's limit: it pads rows with zeros itself); unit_leaf i32[W] (leaf
     of ``slab``); unit_query i32[W, TQ] (row of ``qpad``, -1 = empty slot);
     n_units i32 scalar.  Returns (f32[W, TQ, k], i32[W, TQ, k]) for plan
     rows < n_units; rows beyond are left unwritten by the kernel.
     """
-    if qpad.device.type == "cpu":
-        return leaf_scan_units_ref(qpad, slab, unit_leaf, unit_query, n_units, k=k)
     if qpad.device.type != "cuda":
-        raise ValueError(f"no leaf-scan kernel for device {qpad.device}")
+        raise ValueError(
+            f"the CUDA leaf scan takes CUDA tensors, got {qpad.device} "
+            "(ops.leaf_scan_units runs the plain version on the CPU)"
+        )
     _check_cuda_args(qpad, slab, unit_leaf, unit_query, n_units, k)
     w, tq = unit_query.shape
     out_d = torch.empty((w, tq, k), dtype=torch.float32, device=qpad.device)

@@ -1,8 +1,9 @@
 """Dispatch for the kNN leaf-scan kernel, and device resolution.
 
-Counterpart of ``repro.kernels.ops``.  ``leaf_scan`` runs the CUDA kernel
-for CUDA tensors and the plain ``leaf_scan_ref`` for CPU tensors or
-``backend="ref"``.  ``resolve_device`` is the one place a missing device
+Counterpart of ``repro.kernels.ops``, and the one place that picks between
+the CUDA kernel and its plain version: by the tensors' device, the kernel
+for CUDA tensors and the plain ``leaf_scan_ref`` for CPU tensors
+(``resolve_backend``).  ``resolve_device`` is the one place a missing device
 choice becomes the card: entry points run on ``cuda:0`` unless the caller
 passes a CPU device, and without a card they raise instead of carrying on
 quietly on the CPU.
@@ -22,7 +23,7 @@ __all__ = [
     "leaf_scan_units",
     "pad_dim",
     "engine_tile_q",
-    "default_backend",
+    "resolve_backend",
     "resolve_device",
     "PAD_COORD",
     "INVALID_DIST",
@@ -47,9 +48,17 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", 0)
 
 
-def default_backend(device: torch.device) -> str:
-    """The CUDA kernel on a CUDA device, the plain reference elsewhere."""
-    return "cuda" if torch.device(device).type == "cuda" else "ref"
+def resolve_backend(backend: str, device) -> str:
+    """The CUDA kernel ("cuda") on a CUDA device, the plain reference
+    ("ref") elsewhere.  "auto" picks by device; naming the other one raises
+    (neither stands in for the other)."""
+    want = "cuda" if torch.device(device).type == "cuda" else "ref"
+    if backend not in ("auto", want):
+        raise ValueError(
+            f"backend={backend!r} cannot run on {torch.device(device)}: the "
+            "CUDA kernel takes CUDA tensors, the plain version CPU tensors"
+        )
+    return want
 
 
 def engine_tile_q(tile_q: int, backend: str) -> int:
@@ -67,9 +76,7 @@ def leaf_scan(
     backend: Backend = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Work-unit leaf scan (contract in ``kernels/knn_scan.py``)."""
-    if backend == "auto":
-        backend = default_backend(q.device)
-    if backend == "ref" or q.device.type == "cpu":
+    if resolve_backend(backend, q.device) == "ref":
         return _ref.leaf_scan_ref(q, leaf_pts, k=k)
     return _knn_scan.leaf_scan_cuda(q, leaf_pts, k=k)
 
@@ -79,9 +86,7 @@ def leaf_scan_units(
     backend: Backend = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Indexed leaf scan over a work plan (``knn_scan.leaf_scan_units``)."""
-    if backend == "auto":
-        backend = default_backend(qpad.device)
-    if backend == "ref" or qpad.device.type == "cpu":
+    if resolve_backend(backend, qpad.device) == "ref":
         return _knn_scan.leaf_scan_units_ref(
             qpad, slab, unit_leaf, unit_query, n_units, k=k
         )

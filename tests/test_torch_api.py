@@ -35,6 +35,7 @@ from repro_torch.api import (
     plan,
 )
 from repro_torch.core.lazysearch import BufferKDTree
+from repro_torch.core.quantize import PRECISIONS
 from repro_torch.core.toptree import tree_from_arrays
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
@@ -114,6 +115,8 @@ def test_carried_tree_from_reference():
     dict(n=200_000, d=10),
     dict(n=200_000, d=10, memory_budget=4 << 20, precision="fp32"),
     dict(n=200_000, d=10, memory_budget=4 << 20),
+    dict(n=200_000, d=16, memory_budget=4 << 20, precision="fp32"),
+    dict(n=200_000, d=16, memory_budget=4 << 20),
     dict(n=1000, d=3),
     dict(n=50_000, d=8, m=10),
     dict(n=50_000, d=8, engine="brute"),
@@ -121,15 +124,32 @@ def test_carried_tree_from_reference():
     dict(n=50_000, d=8, memory_budget=1),
 ])
 def test_plan_matches_reference(kw):
+    """The reference's plan on the port's leaf layout: features unpadded,
+    where the reference pads them to a multiple of 8.  Where d is such a
+    multiple the layouts coincide, and so must every field."""
     import jax
 
     port = plan(devices=CPU, **kw)
     ref = jax_api.plan(devices=jax.devices()[:1], **kw)
-    for f in ("engine", "height", "n_chunks", "buffer_size", "tile_q",
-              "precision", "slab_bytes", "over_budget"):
+    for f in ("engine", "height", "buffer_size", "tile_q"):
         assert getattr(port, f) == getattr(ref, f), f
-    if port.engine == "chunked":
-        assert port.resident_bytes == ref.resident_bytes
+    d = kw["d"]
+    d_pad = -(-d // 8) * 8
+    if d == d_pad or "memory_budget" not in kw:
+        for f in ("n_chunks", "precision", "over_budget"):
+            assert getattr(port, f) == getattr(ref, f), f
+    else:
+        # a smaller layout never needs more chunks or a coarser precision
+        assert port.n_chunks <= ref.n_chunks
+        assert PRECISIONS.index(port.precision) <= PRECISIONS.index(ref.precision)
+    if port.precision != ref.precision:
+        return
+    assert port.slab_bytes * d_pad == ref.slab_bytes * d
+    if port.engine == "chunked" and port.n_chunks == ref.n_chunks:
+        if port.precision == "fp32":
+            assert port.resident_bytes * d_pad == ref.resident_bytes * d
+        else:
+            assert d == d_pad and port.resident_bytes == ref.resident_bytes
 
 
 def test_planner_errors_and_limits():

@@ -21,7 +21,11 @@ from repro.core.toptree import build_top_tree as jax_build_top_tree
 from repro.core.toptree import tree_to_arrays as jax_tree_to_arrays
 from repro_torch.core import traversal
 from repro_torch.core.chunked import ChunkedLeafStore
-from repro_torch.core.chunked_jit import chunk_round_cache_size, compaction_ladder
+from repro_torch.core.chunked_jit import (
+    ChunkResidentEngine,
+    chunk_round_cache_size,
+    compaction_ladder,
+)
 from repro_torch.core.jitsearch import _build_plan
 from repro_torch.core.lazysearch import BufferKDTree
 from repro_torch.core.quantize import quantize_slabs
@@ -197,9 +201,8 @@ def test_round_shapes_bounded_and_on_retire_reports_each_row_once():
     def on_retire(rows, d2, gi):
         seen.append((rows.copy(), d2.copy(), gi.copy()))
 
-    qpad = torch.zeros((300, index.d_pad))
-    qpad[:, :4] = torch.from_numpy(rng.normal(size=(300, 4)).astype(np.float32))
-    d2, gi, info = index._engine.run(qpad, 5, index.engine_tile_q,
+    q = torch.from_numpy(rng.normal(size=(300, 4)).astype(np.float32))
+    d2, gi, info = index._engine.run(q, 5, index.engine_tile_q,
                                      index.buffer_size, on_retire=on_retire)
     rows = np.concatenate([s[0] for s in seen])
     assert np.array_equal(np.sort(rows), np.arange(300))
@@ -207,3 +210,20 @@ def test_round_shapes_bounded_and_on_retire_reports_each_row_once():
         np.testing.assert_array_equal(d, d2[r])
         np.testing.assert_array_equal(g, gi[r])
     assert info["early_retired"] > 0
+
+
+def test_engine_backend_follows_the_store_device():
+    """Built with no backend named, the round loop runs what the store's
+    device runs (the plain version on the CPU); naming the kernel for a
+    CPU store raises instead of running something else."""
+    rng = np.random.default_rng(11)
+    pts = rng.normal(size=(600, 5)).astype(np.float32)
+    index = BufferKDTree(pts, height=3, device=CPU)
+    eng = index._engine
+    bare = ChunkResidentEngine(eng.store, eng._split_dim, eng._split_val,
+                               eng._leaf_start, eng._leaf_size,
+                               eng.first_leaf_heap)
+    assert eng.backend == bare.backend == "ref"
+    assert index.store.host.shape[2] == 5      # slabs hold no pad columns
+    with pytest.raises(ValueError, match="cannot run on cpu"):
+        BufferKDTree(pts, height=3, device=CPU, backend="cuda")

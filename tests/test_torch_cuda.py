@@ -35,6 +35,7 @@ CASES = [
     (1, 16, 16, 10, 16, 8, 11),       # 5 real rows < k: pad rows fill the tail
     (2, 128, 300, 10, 16, 40, 0),     # shared-memory list, ragged last tile
     (1, 32, 64, 70, 72, 20, 0),       # d_pad 72 -> 128-wide template
+    (4, 128, 512, 10, 10, 10, 0),     # unpadded rows, as the main path passes them
 ]
 
 

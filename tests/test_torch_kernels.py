@@ -122,7 +122,7 @@ def test_leaf_scan_units_ref_matches_gathered_scan():
     slab = rng.normal(size=(5, 24, 8)).astype(np.float32)
     unit_leaf = np.array([3, 0, 4, 0], np.int32)
     unit_query = rng.integers(-1, 40, size=(4, 8)).astype(np.int32)
-    d, i = knn_scan.leaf_scan_units(
+    d, i = ops.leaf_scan_units(
         torch.from_numpy(qpad), torch.from_numpy(slab),
         torch.from_numpy(unit_leaf), torch.from_numpy(unit_query),
         torch.tensor(3, dtype=torch.int32), k=6,
@@ -143,6 +143,25 @@ def test_ops_dispatch_cpu_is_plain():
     assert ops.engine_tile_q(128, "ref") == 16
     padded = ops.pad_dim(torch.ones(3, 5), 8, fill=PAD_COORD)
     assert padded.shape == (3, 8) and (padded[:, 5:] == PAD_COORD).all()
+
+
+def test_backend_follows_the_device():
+    """The plain version never stands in for the kernel on a CUDA tensor,
+    and the kernel wrapper takes CUDA tensors only."""
+    assert ops.resolve_backend("auto", CPU) == "ref"
+    assert ops.resolve_backend("ref", CPU) == "ref"
+    with pytest.raises(ValueError, match="cannot run on cpu"):
+        ops.resolve_backend("cuda", CPU)
+    with pytest.raises(ValueError, match="cannot run on cuda"):
+        ops.resolve_backend("ref", torch.device("cuda", 0))
+    q, x = _np_inputs(1, 8, 16, 3, 8, seed=3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        knn_scan.leaf_scan_units(
+            torch.from_numpy(q[0]), torch.from_numpy(x),
+            torch.zeros(1, dtype=torch.int32),
+            torch.arange(8, dtype=torch.int32)[None],
+            torch.tensor(1, dtype=torch.int32), k=2,
+        )
 
 
 @pytest.mark.parametrize("k,width,seed", [(1, 8, 0), (5, 40, 1), (8, 64, 2)])
