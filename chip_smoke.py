@@ -3,18 +3,23 @@
 
     python3 chip_smoke.py              # full size: n = 2**24, m = 2**20
     python3 chip_smoke.py --shift 2    # n and m divided by 2**2 (a quick run)
+    python3 chip_smoke.py --shift 4    # phase 3 at full size, cells in little time
 
 Phases, each printing its own lines:
 
   1. env      torch / CUDA versions, the card, its name and power limit;
-  2. build    nvcc-builds the leaf-scan kernel from src/repro_torch/kernels/
-              csrc (build seconds, registers / shared memory per variant);
+  2. build    nvcc-builds the leaf-scan kernels from src/repro_torch/kernels/
+              csrc (build seconds, registers / spills per instance);
   3. kernel   the CUDA leaf scan against its plain torch version on the
-              card: the reference's kernel sweep, pad rows, exact ties, the
-              indexed form, and the main-path shape (W=4096 units, TQ=128,
-              L_pad=4096, d=10 unpadded as the main path passes it, k=10),
-              timed beside the plain version and beside torch.baddbmm +
-              torch.topk;
+              card: the reference's kernel sweep, one case per narrow
+              width, pad rows, exact ties (lattice, also at the main-path
+              width), lists in shared memory and in the output rows
+              (k = 40, 129, 300), the wide kernel (d = 130, 300), every
+              list placement bit-identical, the indexed form, and the
+              main-path shape (W=4096 units, TQ=128, L_pad=4096, d=10
+              unpadded as the main path passes it, k=10), timed beside the
+              plain version and beside torch.baddbmm + torch.topk; then
+              KNNIndex at k = 150 and at d = 130 against knn_brute;
   4. main     KNNIndex.build(points).query(q, 10) with no spec: n points,
               m queries, d=10, from a seeded clustered Gaussian mixture;
               the plan must be the chunked engine with N=1, the kernel must
@@ -109,28 +114,28 @@ def phase_env(torch) -> str:
 
 
 def phase_build():
-    from repro_torch.kernels import build
+    from repro_torch.kernels import knn_scan
 
-    lib = build.load("leaf_scan")
-    log("build", seconds=f"{lib.build_s:.3f}", library=os.path.relpath(lib.path, ROOT))
-    name, spill = None, ""
-    for line in lib.ptxas_log.splitlines():
-        m = re.search(r"leaf_scan_(reg|smem)_kernelI((?:Li\d+E)+)", line)
-        if "Compiling entry function" in line and m:
-            # reg<KMAX,DPAD> / smem<DPAD> template instances
-            name = f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
-        elif "spill stores" in line:
-            spill = line.strip()
-        elif "registers" in line and name:
-            # shared memory is dynamic (ptxas does not see it): a slab tile
-            # of 128 rows x DPAD floats plus their norms, and for smem<> the
-            # k x TQ list (8 bytes per entry) on top
-            dpad = int(re.findall(r"\d+", name)[-1])
-            print(f"[build] {name}: {line.split(':', 1)[-1].strip()}; {spill}; "
-                  f"dynamic smem {(128 * dpad + 128) * 4} B"
-                  + (" + 8*k*TQ B" if name.startswith("smem") else ""), flush=True)
-            name, spill = None, ""
-    return lib
+    wall, libs = knn_scan.build_all()
+    log("build", seconds=f"{wall:.3f}", libraries=len(libs),
+        slowest_nvcc_s=f"{max(lib.build_s for lib in libs):.3f}",
+        directory=os.path.relpath(libs[0].path.parent, ROOT))
+    for lib in libs:
+        name, spill = None, ""
+        for line in lib.ptxas_log.splitlines():
+            m = re.search(r"leaf_scan_(narrow|wide)_kernel(?:I((?:Li\d+E)+))?", line)
+            if "Compiling entry function" in line and m:
+                # narrow<DW,KMAX> template instances, and the wide kernel;
+                # shared memory is dynamic (choose_variant sizes it per call)
+                args = re.findall(r"Li(\d+)E", m.group(2) or "")
+                name = m.group(1) + (f"<{','.join(args)}>" if args else "")
+            elif "spill stores" in line:
+                spill = line.strip()
+            elif "registers" in line and name:
+                print(f"[build] {name}: {line.split(':', 1)[-1].strip()}; {spill}",
+                      flush=True)
+                name, spill = None, ""
+    return libs
 
 
 def phase_kernel(torch, dev, seed: int) -> dict:
@@ -153,18 +158,44 @@ def phase_kernel(torch, dev, seed: int) -> dict:
         return q, x
 
     cases = [(f"sweep{i}", *c, 0, False) for i, c in enumerate(SWEEP)]
+    cases += [(f"width{dw}_k10", 2, 128, 300, dw, dw, 10, 0, False)
+              for dw in knn_scan.NARROW_WIDTHS]
     cases += [
         ("pad_rows_lt_k", 1, 16, 16, 10, 16, 8, 11, False),   # 5 real rows, k=8
         ("exact_ties", 2, 128, 300, 3, 8, 9, 0, True),
+        ("odd_width_d9", 2, 128, 300, 9, 9, 10, 0, False),
         ("smem_list_k40", 2, 128, 300, 10, 16, 40, 0, False),
+        ("smem_list_k129", 2, 128, 600, 10, 10, 129, 0, False),
+        ("out_list_k300", 2, 128, 600, 10, 10, 300, 0, False),
+        ("wide_d130", 2, 128, 300, 130, 130, 10, 0, False),
+        ("wide_d300", 2, 128, 300, 300, 300, 10, 0, False),
+        ("wide_d300_k300", 1, 128, 320, 300, 300, 300, 37, False),
+        ("lattice_main_width", 4, 128, 4096, 10, 10, 10, 0, True),
     ]
     for name, w, tq, lp, d, d_pad, k, pad_rows, lattice in cases:
         q, x = inputs(w, tq, lp, d, d_pad, pad_rows, lattice)
+        v = knn_scan.choose_variant(d_pad, k, tq, lp)
         kd, ki = knn_scan.leaf_scan_cuda(q, x, k=k)
         rd, ri = leaf_scan_ref(q, x, k=k)
         torch.cuda.synchronize()
         err = check_scan(torch, q, x, kd, ki, rd, ri, exact_ties=lattice)
-        log("kernel", case=name, shape=(w, tq, lp, d_pad), k=k, max_abs_err=err, ok=True)
+        log("kernel", case=name, shape=(w, tq, lp, d_pad), k=k, variant=v.name,
+            max_abs_err=err, ok=True)
+
+    # every instance forms the same values: a register list (k=16), the first
+    # 16 entries of a shared-memory (k=17) and an output-row list (k=300),
+    # and the wide kernel on the rows with a zero 17th column agree bit for bit
+    q, x = inputs(2, 128, 1000, 16, 17)
+    q16, x16 = q[..., :16].contiguous(), x[..., :16].contiguous()
+    base = knn_scan.leaf_scan_cuda(q16, x16, k=16)
+    runs = [(knn_scan.choose_variant(16, k, 128, 1000), knn_scan.leaf_scan_cuda(q16, x16, k=k))
+            for k in (17, 300)]
+    runs.append((knn_scan.choose_variant(17, 16, 128, 1000), knn_scan.leaf_scan_cuda(q, x, k=16)))
+    torch.cuda.synchronize()
+    for v, (od, oi) in runs:
+        assert torch.equal(od[..., :16], base[0]) and torch.equal(oi[..., :16], base[1]), v.name
+    log("kernel", case="instances_agree",
+        variants=",".join(["narrow<16,16>/reg"] + [v.name for v, _ in runs]), ok=True)
 
     # the indexed form the chunk round calls: empty slots, rows past n_units;
     # indices are checked on the gathered tiles (an empty slot scans zeros)
@@ -218,6 +249,24 @@ def phase_kernel(torch, dev, seed: int) -> dict:
         gflops=f"{ops / kernel_ms / 1e6:.1f}")
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_facade(torch, dev, seed: int) -> None:
+    """KNNIndex on the card with a list longer than 128 and with rows wider
+    than 128 features, against knn_brute."""
+    from repro_torch.api import IndexSpec, KNNIndex
+    from repro_torch.core.brute import knn_brute
+
+    rng = np.random.default_rng(seed)
+    for d, k in ((10, 150), (130, 10)):
+        pts = rng.standard_normal((20000, d), dtype=np.float32)
+        q = rng.standard_normal((500, d), dtype=np.float32)
+        res = KNNIndex.build(pts, IndexSpec(height=5, devices=(dev,))).query(q, k)
+        bd, bi = knn_brute(q, pts, k, device=dev)
+        assert res.dists.shape == (500, k)
+        np.testing.assert_allclose(res.dists, bd, rtol=1e-5, atol=1e-6)
+        log("kernel", case=f"facade_d{d}_k{k}", ids_equal=f"{(res.idx == bi).mean():.6f}",
+            ok=True)
 
 
 def mixture(rng, n: int, d: int, centers: np.ndarray, scales: np.ndarray) -> np.ndarray:
@@ -312,8 +361,9 @@ def main(argv=None) -> int:
     ap.add_argument("--shift", type=int, default=0,
                     help="divide n and m by 2**shift (default: full size)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile", action="store_true",
-                    help="also run each cell's query once under torch.profiler")
+    ap.add_argument("--profile", nargs="?", const="main,ooc", default="",
+                    help="also run these cells' query once under torch.profiler "
+                         "(comma-separated; no value: main,ooc)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -329,6 +379,7 @@ def main(argv=None) -> int:
     phase_env(torch)
     phase_build()
     scan = phase_kernel(torch, dev, args.seed)
+    phase_facade(torch, dev, args.seed)
 
     n, m, d = 2 ** (24 - args.shift), 2 ** (20 - args.shift), 10
     rng = np.random.default_rng(args.seed)
@@ -339,8 +390,9 @@ def main(argv=None) -> int:
     queries = mixture(rng, m, d, centers, scales)
     log("main", n=n, m=m, d=d, k=10, data_s=f"{time.perf_counter() - t0:.3f}")
 
+    profiled = set(filter(None, args.profile.split(",")))
     index, res, launches = run_query(
-        torch, "main", points, queries, None, 1024, dev, args.profile)
+        torch, "main", points, queries, None, 1024, dev, "main" in profiled)
     assert index.plan.engine == "chunked", index.plan.engine
     assert index.plan.n_chunks == 1, index.plan.n_chunks
     assert launches > 0, "the leaf-scan kernel did not run on the main path"
@@ -350,7 +402,7 @@ def main(argv=None) -> int:
 
     spec = IndexSpec(precision="fp32", memory_budget=slab_bytes // 3)
     ooc, res2, launches2 = run_query(
-        torch, "ooc", points, queries, spec, 1024, dev, args.profile)
+        torch, "ooc", points, queries, spec, 1024, dev, "ooc" in profiled)
     assert ooc.plan.n_chunks >= 2, ooc.plan.n_chunks
     assert res2.stats.chunk_copies > 0
     assert launches2 > 0

@@ -1,4 +1,4 @@
-// Hopper (sm_90a) leaf-scan kernel: the buffered brute-force kNN scan of
+// Hopper (sm_90a) leaf-scan kernels: the buffered brute-force kNN scan of
 // the buffer k-d tree (the paper's ProcessAllBuffers step).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/knn_scan.py::
@@ -7,286 +7,553 @@
 // tile of TQ rows and one leaf slab of L_pad rows) the kl smallest squared
 // distances ||q||^2 - 2 q.x + ||x||^2 (clamped at 0), ascending, with their
 // local slab row indices.  Ties resolve to the lowest slab index, as
-// `lax.top_k` does, and the list starts at +inf with a maximal index so
+// `lax.top_k` does, and every list starts at +inf with a maximal index so
 // PAD_COORD rows (distance ~ d * 1e36) fill the tail in index order when a
 // leaf holds fewer than kl real rows, exactly like the plain reference.
+// Any kl <= L_pad and any width d >= 1 are taken.
 //
 // What bounds it on this card.  Per (query, slab row) pair the function
 // needs d FMAs for q.x plus a few operations to form, clamp and compare the
 // distance, 2d+3 fp32 operations; every slab row is reused by all TQ
 // queries of the unit, so at the main-path shape (TQ=128, d=10,
 // L_pad=4096) that is 23 operations against ~0.3 byte of slab per pair: it
-// is bound by fp32 operations (67 TFLOP/s on the CUDA cores), not by device
-// memory (3.35 TB/s).  Rows arrive at their own width d (the main path does
-// not pad them); the kernel pads them with zeros up to its template width
-// DPAD (8, 16, 32, 64 or 128), so it issues DPAD FMAs per pair, 16 for
-// d=10.  TF32 tensor cores would be faster but keep only ~3 decimal
-// digits, which can drop a true neighbour, so the distance stays in full
-// fp32 FFMA.
+// is bound by fp32 issue on the CUDA cores (67 TFLOP/s), not by device
+// memory (3.35 TB/s).  Everything below is about issue slots per pair.
 //
-// What the design does about it.  One block per plan row, one thread per
-// query row: the query vector and the running top-k list live in registers
-// (KMAX-wide, fully unrolled insertion with predicated selects, so no local
-// memory).  Slab rows are staged through shared memory in tiles of TILE
-// rows, with ||x||^2 computed once per row per block, and every thread
-// reads the same shared address in the inner loop (a broadcast, no bank
-// conflicts).  The block loads its own indices (unit_leaf, unit_query),
-// which replaces the TPU's BlockSpec index maps and keeps the query tiles
-// and slabs from being gathered into copies in device memory.  Plan rows at
-// or beyond *n_units (read from device memory) return at once, so the
-// caller launches over every plan row with no host read.  For kl > 32 the
-// list moves to shared memory (layout [kl][TQ], one column per thread).
+// What the design does about it (narrow kernel, d <= 16, the main path):
+//  * Exact widths.  Instances at d rounded up to an even width DW issue DW
+//    FMAs per pair (10 at d=10), with the query in registers.
+//  * Norm and -2 folded out of the pair loop.  Each slab row is staged once
+//    per block as [x, ||x||^2, 0 pad] (16-byte aligned, read with LDS.128
+//    broadcasts) and the query is held as -2q (the same exact products as
+//    staging -2x), so a pair is the FMA chain acc = ||x||^2 + sum_j (-2 q_j)
+//    x_j and one compare.  The distance max(acc + ||q||^2, 0) is only formed
+//    for rows that pass.
+//  * Two queries per thread share every shared-memory load of a row (1.5
+//    LDS.128 per pair at d=10 instead of 3) and give two independent FMA
+//    chains per row; 32 rows are unrolled per filter pass.
+//  * The compare is against a per-query bound derived from the list's
+//    current kl-th distance: acc < (thr - ||q||^2 rounded up) holds for
+//    every row whose exact clamped distance is < thr, so it never drops a
+//    row.  The list is sized to kl exactly (register lists of KMAX >= kl
+//    entries keep -inf sentinels in front, so the threshold is the kl-th).
+//  * Deferred inserts.  A 64-row tile is first filtered into two 32-bit
+//    masks per query; then each query inserts its passing rows in ascending
+//    row order with a strict `<`, each re-computed and re-checked against
+//    the list as it is then.  A warp pays the largest per-lane insert count
+//    per tile, not the union of the rows where any lane inserts, and the
+//    tie order stays exact (a later row never displaces an equal distance).
+//  * Slab tiles are double-buffered with cp.async: each thread copies its
+//    own rows of tile i+2 while the block computes tile i, waits for its
+//    own copies, writes the staged rows and meets the block at one
+//    __syncthreads per tile (staged rows are double-buffered too).
+//  * Registers over occupancy: 2 queries x (DW coordinates + a KMAX list)
+//    per thread take ~96 registers at d=10, k=10 (20 warps per SM).
+//    Variants measured slower on an H100 at the main-path shape: one query
+//    per thread (higher occupancy, twice the shared loads), four per
+//    thread, one warp per block, lane pairs that split a tile's rows (half
+//    the shared loads), short unrolled row loops, and both slots' inserts
+//    in one loop.
+// What still holds it back (H100, main-path shape): the filter, staging
+// included, takes more than half of the kernel's time below the issue
+// rate its instruction count allows, and the inserts the rest.  A warp's
+// insert loop runs once per passing row of its busiest lane, about twice
+// the average lane's count on random data at k=10, and each iteration is
+// ~90 instructions, most of them compares and selects of the register
+// list on the half-rate ALU pipe.
 //
-// Plain C interface, loaded with ctypes (src/repro_torch/kernels/build.py).
+// Tensor cores are not used.  TF32 alone keeps ~3 decimal digits and can
+// drop a true neighbour; a split (3xTF32) product keeps fp32 accuracy but
+// runs three MMA passes with K padded to 8/16: at d=10 that is 48 MMA
+// depth units per pair against 10 FFMAs, plus a round trip of every
+// distance tile through shared memory before selection.  3xTF32 runs at
+// 495/3 = 165 TFLOP/s against FFMA's 67, so it pays only once the product
+// dominates the per-pair selection work and K pads little: from d of about
+// 64 on (ROADMAP Queue 2).
+//
+// Every instance forms the same floating-point values (the FMA chain in
+// feature order from ||x||^2, zero columns adding exact zeros), so they
+// agree bit for bit with each other.  The Python wrapper
+// (src/repro_torch/kernels/knn_scan.py::choose_variant) picks the instance,
+// block width, list placement and dynamic shared memory; this file checks
+// the choice and launches it.  Plain C interface, loaded with ctypes.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
+#include <type_traits>
+
+// Each library holds the instances of one part: LEAF_SCAN_PART = a narrow
+// width (2, 4, ..., 16), or 0 for the wide kernel.  The parts build side by
+// side (build.py::build_all).
+#ifndef LEAF_SCAN_PART
+#error "compile with -DLEAF_SCAN_PART=<narrow width, or 0 for the wide kernel>"
+#endif
 
 namespace {
 
-constexpr int TILE = 128;       // slab rows staged in shared memory per pass
-constexpr int MAX_TQ = 128;     // threads per block = query rows per unit
-constexpr int MAX_K_SMEM = 128; // largest kl (shared-memory list)
-constexpr int MAX_DPAD = 128;   // largest feature width
+constexpr int MAX_TQ = 128;       // query rows per unit (one block)
+constexpr int QPT = 2;            // narrow: queries per thread
+constexpr int TILE = 64;          // narrow: slab rows per pipeline stage
+constexpr int PASS = 32;          // narrow: rows per filter mask word
+constexpr int WIDE_ROWS = 32;     // wide: slab rows per sub-tile
+constexpr int WIDE_DC = 16;       // wide: features per chunk
+constexpr int SMEM_LIMIT = 232448;
 
-// Stage slab rows [r0, r0 + rows) of one leaf into shared memory, padded
-// with zeros from d_pad up to DPAD columns, then compute ||x||^2 per row.
-template <int DPAD>
-__device__ __forceinline__ void stage_tile(const float* __restrict__ xl,
-                                           int r0, int rows, int d_pad,
-                                           float* xs, float* xn) {
-  __syncthreads();  // every thread is done with the previous tile
-  for (int e = threadIdx.x; e < rows * DPAD; e += blockDim.x) {
-    const int r = e / DPAD;
-    const int j = e % DPAD;
-    xs[e] = j < d_pad ? xl[(size_t)(r0 + r) * d_pad + j] : 0.f;
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPAD; ++j) s = fmaf(xs[r * DPAD + j], xs[r * DPAD + j], s);
-    xn[r] = s;
-  }
-  __syncthreads();
+enum Kind { NARROW = 0, WIDE = 1 };
+enum ListAt { LIST_REG = 0, LIST_SMEM = 1, LIST_OUT = 2 };
+
+// Floats per staged row: DW coordinates, the norm, zeros to 16 bytes.
+__host__ __device__ constexpr int row_stride(int dw) { return (dw + 4) / 4 * 4; }
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The query row this thread owns (zeros for an empty slot, as the plain
-// version's masked gather gives), and its squared norm.
-template <int DPAD>
-__device__ __forceinline__ float load_query(const float* __restrict__ qpad,
-                                            int qrow, int d_pad, float* q) {
-  float qn = 0.f;
+// The filter bound for a list whose kl-th distance is thr: fl(acc + qn) <
+// thr implies acc < thr - qn exactly, and rounding that up keeps every such
+// row.  thr <= 0 admits nothing (distances are clamped at 0, the test is
+// strict).
+__device__ __forceinline__ float filter_bound(float thr, float qn) {
+  return thr > 0.f ? __fsub_ru(thr, qn) : -INFINITY;
+}
+
+// Sorted list of kl <= KMAX entries in registers: entries [KMAX-kl, KMAX)
+// hold the list, the front holds -inf sentinels no distance displaces.
+template <int KMAX>
+struct RegList {
+  float d[KMAX > 0 ? KMAX : 1];
+  int i[KMAX > 0 ? KMAX : 1];
+
+  __device__ __forceinline__ void init(int kl) {
 #pragma unroll
-  for (int j = 0; j < DPAD; ++j) {
-    const float v = (qrow >= 0 && j < d_pad) ? qpad[(size_t)qrow * d_pad + j] : 0.f;
-    q[j] = v;
-    qn = fmaf(v, v, qn);
+    for (int j = 0; j < KMAX; ++j) {
+      const bool pad = j < KMAX - kl;
+      d[j] = pad ? -INFINITY : INFINITY;
+      i[j] = pad ? -1 : INT_MAX;
+    }
   }
-  return qn;
-}
-
-template <int DPAD>
-__device__ __forceinline__ float sq_dist(const float* q, float qn,
-                                         const float* xrow, float xn) {
-  float cross = 0.f;
+  __device__ __forceinline__ float worst() const { return d[KMAX - 1]; }
+  // dist < worst(): insert after every entry <= dist (an equal distance
+  // already held has the lower index)
+  __device__ __forceinline__ void insert(float dist, int idx) {
 #pragma unroll
-  for (int j = 0; j < DPAD; ++j) cross = fmaf(q[j], xrow[j], cross);
-  return fmaxf(qn - 2.f * cross + xn, 0.f);
+    for (int j = KMAX - 1; j > 0; --j) {
+      const bool shift = dist < d[j - 1];
+      const bool place = !shift && dist < d[j];
+      d[j] = shift ? d[j - 1] : (place ? dist : d[j]);
+      i[j] = shift ? i[j - 1] : (place ? idx : i[j]);
+    }
+    if (dist < d[0]) {
+      d[0] = dist;
+      i[0] = idx;
+    }
+  }
+  __device__ __forceinline__ void store(float* od, int* oi, int kl) const {
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      if (j >= KMAX - kl) {
+        od[j - (KMAX - kl)] = d[j];
+        oi[j - (KMAX - kl)] = i[j];
+      }
+    }
+  }
+};
+
+// Sorted list of kl entries in shared memory (stride = slots of the block)
+// or in the thread's own output row (stride 1).
+struct MemList {
+  float* d;
+  int* i;
+  int stride, kl;
+  float worst_;
+
+  __device__ __forceinline__ void init(float* d_, int* i_, int stride_, int kl_) {
+    d = d_;
+    i = i_;
+    stride = stride_;
+    kl = kl_;
+    for (int j = 0; j < kl; ++j) {
+      d[j * stride] = INFINITY;
+      i[j * stride] = INT_MAX;
+    }
+    worst_ = INFINITY;
+  }
+  __device__ __forceinline__ float worst() const { return worst_; }
+  __device__ __forceinline__ void insert(float dist, int idx) {
+    int j = kl - 1;
+    while (j > 0) {
+      const float prev = d[(j - 1) * stride];
+      if (!(dist < prev)) break;
+      d[j * stride] = prev;
+      i[j * stride] = i[(j - 1) * stride];
+      --j;
+    }
+    d[j * stride] = dist;
+    i[j * stride] = idx;
+    worst_ = d[(kl - 1) * stride];
+  }
+  __device__ __forceinline__ void store(float* od, int* oi, int) const {
+    if (d == od) return;  // the list is the output row
+    for (int j = 0; j < kl; ++j) {
+      od[j] = d[j * stride];
+      oi[j] = i[j * stride];
+    }
+  }
+};
+
+// Point a memory list of query slot `slot` at shared memory or its row.
+__device__ __forceinline__ void init_mem_list(MemList& l, int list_at, float* lsd,
+                                              int* lsi, int slots, float* out_d,
+                                              int* out_i, size_t o, int slot, int kl) {
+  if (list_at == LIST_SMEM)
+    l.init(lsd + slot, lsi + slot, slots, kl);
+  else
+    l.init(out_d + o, out_i + o, 1, kl);
 }
 
-// Register list: top-KMAX of the slab; the first kl entries are the top-kl.
-template <int KMAX, int DPAD>
-__global__ void __launch_bounds__(MAX_TQ)
-leaf_scan_reg_kernel(const float* __restrict__ qpad,
-                     const float* __restrict__ slab,
-                     const int* __restrict__ unit_leaf,
-                     const int* __restrict__ unit_query,
-                     const int* __restrict__ n_units,
-                     float* __restrict__ out_d, int* __restrict__ out_i,
-                     int tq, int l_pad, int d_pad, int kl) {
+// Narrow kernel, d <= DW <= 16: one block per plan row, QPT query slots per
+// thread (slot t + s * blockDim.x), KMAX > 0 a register list, KMAX == 0 a
+// memory list.
+template <int DW, int KMAX>
+__global__ void __launch_bounds__(MAX_TQ / QPT)
+leaf_scan_narrow_kernel(const float* __restrict__ qpad, const float* __restrict__ slab,
+                        const int* __restrict__ unit_leaf,
+                        const int* __restrict__ unit_query,
+                        const int* __restrict__ n_units, float* __restrict__ out_d,
+                        int* __restrict__ out_i, int tq, int l_pad, int d, int kl,
+                        int list_at) {
+  constexpr int S = row_stride(DW);
+  using List = typename std::conditional<(KMAX > 0), RegList<KMAX>, MemList>::type;
   const int w = blockIdx.x;
   if (w >= *n_units) return;  // uniform per block: before any barrier
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* xn = xs + TILE * DPAD;
+  extern __shared__ __align__(16) float smem[];
+  const int t = threadIdx.x, nt = blockDim.x;
+  float* raw = smem;                    // [2][TILE * d] rows as stored
+  float* xs = raw + 2 * TILE * d;       // [2][TILE * S] staged rows
+  float* lsd = xs + 2 * TILE * S;       // [kl][QPT * nt] list in shared memory
+  int* lsi = reinterpret_cast<int*>(lsd + (size_t)kl * QPT * nt);
 
-  const int t = threadIdx.x;
-  const float* xl = slab + (size_t)unit_leaf[w] * l_pad * d_pad;
-  float q[DPAD];
-  const float qn = load_query<DPAD>(qpad, unit_query[(size_t)w * tq + t], d_pad, q);
-
-  float bd[KMAX];
-  int bi[KMAX];
+  float q[QPT][DW], qn[QPT], bound[QPT];
+  List list[QPT];
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    bd[j] = INFINITY;
-    bi[j] = INT_MAX;
+  for (int s = 0; s < QPT; ++s) {
+    const int slot = t + s * nt;
+    const bool active = slot < tq;
+    // an empty slot (-1) scans a zero query, as the plain version's masked gather
+    const int qrow = active ? unit_query[(size_t)w * tq + slot] : -1;
+    float n = 0.f;
+#pragma unroll
+    for (int j = 0; j < DW; ++j) {
+      const float v = (qrow >= 0 && j < d) ? qpad[(size_t)qrow * d + j] : 0.f;
+      n = fmaf(v, v, n);
+      q[s][j] = -2.f * v;
+    }
+    qn[s] = n;
+    if constexpr (KMAX > 0) {
+      list[s].init(kl);
+    } else if (active) {
+      init_mem_list(list[s], list_at, lsd, lsi, QPT * nt, out_d, out_i,
+                    ((size_t)w * tq + slot) * kl, t + s * nt, kl);
+    }
+    bound[s] = active ? INFINITY : -INFINITY;  // an unused slot takes no row
   }
+  const float* xl = slab + (size_t)unit_leaf[w] * l_pad * d;
+  const int ntiles = (l_pad + TILE - 1) / TILE;
+  // each thread copies (and later stages) rows t, t + nt, ... of a tile
+  auto issue = [&](int it) {
+    if (it < ntiles) {
+      const int r0 = it * TILE, rows = min(TILE, l_pad - r0);
+      float* dst = raw + (it & 1) * TILE * d;
+      for (int r = t; r < rows; r += nt)
+        for (int j = 0; j < d; ++j)
+          cp_async4(dst + r * d + j, xl + (size_t)(r0 + r) * d + j);
+    }
+    cp_async_commit();  // one group per tile, empty past the end
+  };
+  issue(0);
+  issue(1);
 
-  for (int r0 = 0; r0 < l_pad; r0 += TILE) {
-    const int rows = min(TILE, l_pad - r0);
-    stage_tile<DPAD>(xl, r0, rows, d_pad, xs, xn);
-    for (int r = 0; r < rows; ++r) {
-      const float dist = sq_dist<DPAD>(q, qn, xs + r * DPAD, xn[r]);
-      if (dist < bd[KMAX - 1]) {
-        // insert at the first position p with dist < bd[p] (strict: an
-        // equal distance goes after the lower index already held)
-        const int idx = r0 + r;
+  for (int it = 0; it < ntiles; ++it) {
+    const int r0 = it * TILE, rows = min(TILE, l_pad - r0);
+    cp_async_wait<1>();  // this thread's copies of tile `it` have landed
+    const float* src = raw + (it & 1) * TILE * d;
+    float* xt = xs + (it & 1) * TILE * S;
+    for (int r = t; r < TILE; r += nt) {
+      float v[S];
+      float n = 0.f;
 #pragma unroll
-        for (int j = KMAX - 1; j > 0; --j) {
-          const bool shift = dist < bd[j - 1];
-          const bool place = !shift && dist < bd[j];
-          bd[j] = shift ? bd[j - 1] : (place ? dist : bd[j]);
-          bi[j] = shift ? bi[j - 1] : (place ? idx : bi[j]);
+      for (int j = 0; j < DW; ++j) {
+        v[j] = (r < rows && j < d) ? src[r * d + j] : 0.f;
+        n = fmaf(v[j], v[j], n);
+      }
+      v[DW] = r < rows ? n : INFINITY;  // a row past the leaf never passes
+#pragma unroll
+      for (int j = DW + 1; j < S; ++j) v[j] = 0.f;
+#pragma unroll
+      for (int j = 0; j < S; j += 4)
+        *reinterpret_cast<float4*>(xt + r * S + j) =
+            make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+    }
+    // tile `it` is staged by every thread, and every thread is done with
+    // tile it-1, whose staging buffer the next iteration overwrites
+    __syncthreads();
+    issue(it + 2);  // only this thread reads its rows of raw[it & 1]
+
+    // filter: which rows of the tile may enter each list
+    unsigned mask[QPT][TILE / PASS];
+#pragma unroll
+    for (int p = 0; p < TILE / PASS; ++p) {
+      unsigned m[QPT];
+#pragma unroll
+      for (int s = 0; s < QPT; ++s) m[s] = 0u;
+#pragma unroll
+      for (int r = 0; r < PASS; ++r) {
+        const float4* xr = reinterpret_cast<const float4*>(xt + (p * PASS + r) * S);
+        float x[S];
+#pragma unroll
+        for (int j = 0; j < S / 4; ++j) {
+          const float4 f = xr[j];
+          x[4 * j] = f.x;
+          x[4 * j + 1] = f.y;
+          x[4 * j + 2] = f.z;
+          x[4 * j + 3] = f.w;
         }
-        if (dist < bd[0]) {
-          bd[0] = dist;
-          bi[0] = idx;
+#pragma unroll
+        for (int s = 0; s < QPT; ++s) {
+          float a = x[DW];
+#pragma unroll
+          for (int j = 0; j < DW; ++j) a = fmaf(q[s][j], x[j], a);
+          if (a < bound[s]) m[s] |= 1u << r;
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < QPT; ++s) mask[s][p] = m[s];
+    }
+
+    // inserts in ascending row order, each re-checked against the list as
+    // it is then (the same FMA chain gives the same acc)
+#pragma unroll
+    for (int s = 0; s < QPT; ++s) {
+#pragma unroll
+      for (int p = 0; p < TILE / PASS; ++p) {
+        unsigned m = mask[s][p];
+        while (m) {
+          const int r = p * PASS + __ffs(m) - 1;
+          m &= m - 1;
+          const float* xr = xt + r * S;
+          float a = xr[DW];
+#pragma unroll
+          for (int j = 0; j < DW; ++j) a = fmaf(q[s][j], xr[j], a);
+          const float dist = fmaxf(a + qn[s], 0.f);
+          if (dist < list[s].worst()) {
+            list[s].insert(dist, r0 + r);
+            bound[s] = filter_bound(list[s].worst(), qn[s]);
+          }
         }
       }
     }
   }
-  const size_t o = ((size_t)w * tq + t) * kl;
+  cp_async_wait<0>();  // nothing left in flight (the last groups are empty)
+
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j < kl) {
-      out_d[o + j] = bd[j];
-      out_i[o + j] = bi[j];
+  for (int s = 0; s < QPT; ++s) {
+    const int slot = t + s * nt;
+    if (slot < tq) {
+      const size_t o = ((size_t)w * tq + slot) * kl;
+      list[s].store(out_d + o, out_i + o, kl);
     }
   }
 }
 
-// Shared-memory list of exactly kl entries per thread, for 32 < kl <= 128.
-template <int DPAD>
+#if LEAF_SCAN_PART == 0
+// Wide kernel, any d: one query per thread, rows in sub-tiles of WIDE_ROWS
+// whose features pass through shared memory WIDE_DC at a time, the list in
+// memory.  Same arithmetic as the narrow kernel.
 __global__ void __launch_bounds__(MAX_TQ)
-leaf_scan_smem_kernel(const float* __restrict__ qpad,
-                      const float* __restrict__ slab,
-                      const int* __restrict__ unit_leaf,
-                      const int* __restrict__ unit_query,
-                      const int* __restrict__ n_units,
-                      float* __restrict__ out_d, int* __restrict__ out_i,
-                      int tq, int l_pad, int d_pad, int kl) {
+leaf_scan_wide_kernel(const float* __restrict__ qpad, const float* __restrict__ slab,
+                      const int* __restrict__ unit_leaf, const int* __restrict__ unit_query,
+                      const int* __restrict__ n_units, float* __restrict__ out_d,
+                      int* __restrict__ out_i, int tq, int l_pad, int d, int kl,
+                      int list_at) {
   const int w = blockIdx.x;
   if (w >= *n_units) return;
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* xn = xs + TILE * DPAD;
-  float* ld = xn + TILE;                    // [kl][tq]
-  int* li = reinterpret_cast<int*>(ld + (size_t)kl * tq);
+  extern __shared__ __align__(16) float smem[];
+  const int t = threadIdx.x, nt = blockDim.x;
+  float* xc = smem;                       // [WIDE_ROWS][WIDE_DC] feature chunk
+  float* xn = xc + WIDE_ROWS * WIDE_DC;   // [WIDE_ROWS] row norms
+  float* lsd = xn + WIDE_ROWS;            // [kl][nt] list in shared memory
+  int* lsi = reinterpret_cast<int*>(lsd + (size_t)kl * nt);
 
-  const int t = threadIdx.x;
-  const float* xl = slab + (size_t)unit_leaf[w] * l_pad * d_pad;
-  float q[DPAD];
-  const float qn = load_query<DPAD>(qpad, unit_query[(size_t)w * tq + t], d_pad, q);
-  for (int j = 0; j < kl; ++j) {
-    ld[j * tq + t] = INFINITY;
-    li[j * tq + t] = INT_MAX;
-  }
+  const bool active = t < tq;
+  const int qrow = active ? unit_query[(size_t)w * tq + t] : -1;
+  const float* qr = qpad + (size_t)(qrow < 0 ? 0 : qrow) * d;
+  float qn = 0.f;
+  if (qrow >= 0)
+    for (int j = 0; j < d; ++j) qn = fmaf(qr[j], qr[j], qn);
+  MemList list;
+  if (active)
+    init_mem_list(list, list_at, lsd, lsi, nt, out_d, out_i, ((size_t)w * tq + t) * kl,
+                  t, kl);
+  float bound = active ? INFINITY : -INFINITY;
 
-  for (int r0 = 0; r0 < l_pad; r0 += TILE) {
-    const int rows = min(TILE, l_pad - r0);
-    stage_tile<DPAD>(xl, r0, rows, d_pad, xs, xn);
-    for (int r = 0; r < rows; ++r) {
-      const float dist = sq_dist<DPAD>(q, qn, xs + r * DPAD, xn[r]);
-      if (dist < ld[(kl - 1) * tq + t]) {
-        int j = kl - 1;
-        while (j > 0 && dist < ld[(j - 1) * tq + t]) {
-          ld[j * tq + t] = ld[(j - 1) * tq + t];
-          li[j * tq + t] = li[(j - 1) * tq + t];
-          --j;
+  const float* xl = slab + (size_t)unit_leaf[w] * l_pad * d;
+  for (int r0 = 0; r0 < l_pad; r0 += WIDE_ROWS) {
+    const int rows = min(WIDE_ROWS, l_pad - r0);
+    __syncthreads();  // every thread is done with the previous sub-tile
+    if (t < WIDE_ROWS) {
+      float n = INFINITY;  // a row past the leaf never passes
+      if (t < rows) {
+        const float* xr = xl + (size_t)(r0 + t) * d;
+        n = 0.f;
+        for (int j = 0; j < d; ++j) n = fmaf(xr[j], xr[j], n);
+      }
+      xn[t] = n;
+    }
+    float acc[WIDE_ROWS];
+    for (int c0 = 0; c0 < d; c0 += WIDE_DC) {
+      if (c0 > 0) __syncthreads();  // every thread is done with the last chunk
+      for (int e = t; e < WIDE_ROWS * WIDE_DC; e += nt) {
+        const int r = e / WIDE_DC, j = c0 + e % WIDE_DC;
+        xc[e] = (r < rows && j < d) ? xl[(size_t)(r0 + r) * d + j] : 0.f;
+      }
+      __syncthreads();
+      if (c0 == 0) {
+#pragma unroll
+        for (int r = 0; r < WIDE_ROWS; ++r) acc[r] = xn[r];
+      }
+      float qc[WIDE_DC];
+#pragma unroll
+      for (int j = 0; j < WIDE_DC; ++j)
+        qc[j] = (qrow >= 0 && c0 + j < d) ? -2.f * qr[c0 + j] : 0.f;
+#pragma unroll
+      for (int r = 0; r < WIDE_ROWS; ++r) {
+#pragma unroll
+        for (int j = 0; j < WIDE_DC; ++j) acc[r] = fmaf(qc[j], xc[r * WIDE_DC + j], acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < WIDE_ROWS; ++r) {
+      if (acc[r] < bound) {
+        const float dist = fmaxf(acc[r] + qn, 0.f);
+        if (dist < list.worst()) {
+          list.insert(dist, r0 + r);
+          bound = filter_bound(list.worst(), qn);
         }
-        ld[j * tq + t] = dist;
-        li[j * tq + t] = r0 + r;
       }
     }
   }
-  const size_t o = ((size_t)w * tq + t) * kl;
-  for (int j = 0; j < kl; ++j) {
-    out_d[o + j] = ld[j * tq + t];
-    out_i[o + j] = li[j * tq + t];
+  if (active) {
+    const size_t o = ((size_t)w * tq + t) * kl;
+    list.store(out_d + o, out_i + o, kl);
   }
 }
+#endif
+
+struct Launch {
+  const float* qpad;
+  const float* slab;
+  const int* unit_leaf;
+  const int* unit_query;
+  const int* n_units;
+  float* out_d;
+  int* out_i;
+  int w_rows, tq, l_pad, d, kl, list_at, threads, smem;
+  cudaStream_t stream;
+};
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int w_rows, int tq,
-                   cudaStream_t stream, const float* qpad, const float* slab,
-                   const int* unit_leaf, const int* unit_query,
-                   const int* n_units, float* out_d, int* out_i, int l_pad,
-                   int d_pad, int kl) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<w_rows, tq, smem, stream>>>(qpad, slab, unit_leaf, unit_query,
-                                       n_units, out_d, out_i, tq, l_pad,
-                                       d_pad, kl);
-  return cudaGetLastError();
+int launch(Kernel kernel, const Launch& a) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<a.w_rows, a.threads, a.smem, a.stream>>>(a.qpad, a.slab, a.unit_leaf,
+                                                     a.unit_query, a.n_units, a.out_d,
+                                                     a.out_i, a.tq, a.l_pad, a.d, a.kl,
+                                                     a.list_at);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <int DPAD>
-cudaError_t dispatch_k(int w_rows, int tq, cudaStream_t stream,
-                       const float* qpad, const float* slab,
-                       const int* unit_leaf, const int* unit_query,
-                       const int* n_units, float* out_d, int* out_i,
-                       int l_pad, int d_pad, int kl) {
-  const size_t tile = (size_t)(TILE * DPAD + TILE) * sizeof(float);
-#define LEAF_SCAN_REG(KMAX)                                                  \
-  return launch(leaf_scan_reg_kernel<KMAX, DPAD>, tile, w_rows, tq, stream,  \
-                qpad, slab, unit_leaf, unit_query, n_units, out_d, out_i,    \
-                l_pad, d_pad, kl)
-  if (kl <= 4) LEAF_SCAN_REG(4);
-  if (kl <= 8) LEAF_SCAN_REG(8);
-  if (kl <= 16) LEAF_SCAN_REG(16);
-  if (kl <= 32) LEAF_SCAN_REG(32);
-#undef LEAF_SCAN_REG
-  const size_t list = (size_t)kl * tq * (sizeof(float) + sizeof(int));
-  return launch(leaf_scan_smem_kernel<DPAD>, tile + list, w_rows, tq, stream,
-                qpad, slab, unit_leaf, unit_query, n_units, out_d, out_i,
-                l_pad, d_pad, kl);
+constexpr int NO_INSTANCE = -2;
+
+// The narrow instances of this library's width.
+int narrow(int dw, int kmax, const Launch& a) {
+#if LEAF_SCAN_PART > 0
+  constexpr int DW = LEAF_SCAN_PART;
+  if (dw == DW) {
+    switch (kmax) {
+      case 0: return launch(leaf_scan_narrow_kernel<DW, 0>, a);
+      case 4: return launch(leaf_scan_narrow_kernel<DW, 4>, a);
+      case 8: return launch(leaf_scan_narrow_kernel<DW, 8>, a);
+      case 10: return launch(leaf_scan_narrow_kernel<DW, 10>, a);
+      case 16: return launch(leaf_scan_narrow_kernel<DW, 16>, a);
+    }
+  }
+#endif
+  return NO_INSTANCE;
+}
+
+// Dynamic shared memory an instance needs (bytes); mirrors the wrapper.
+long smem_needed(int kind, int width, int qpt, int list_at, int threads, int d, int kl) {
+  long b = kind == NARROW ? 4L * (2L * TILE * d + 2L * TILE * row_stride(width))
+                          : 4L * (WIDE_ROWS * WIDE_DC + WIDE_ROWS);
+  if (list_at == LIST_SMEM) b += 8L * kl * qpt * threads;
+  return b;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Limits the wrapper checks before it calls leaf_scan_units.
-int leaf_scan_max_k() { return MAX_K_SMEM; }
-int leaf_scan_max_d_pad() { return MAX_DPAD; }
-int leaf_scan_max_tq() { return MAX_TQ; }
-
-// qpad f32[m, d_pad]; slab f32[C, l_pad, d_pad]; unit_leaf i32[w_rows]
-// (leaf index into slab); unit_query i32[w_rows, tq] (row of qpad, -1 for
-// an empty slot); n_units i32[1] on the device.  Writes out_d f32 and
-// out_i i32 [w_rows, tq, kl] for plan rows < *n_units only.  Returns 0 or a
-// cudaError_t; -1 for arguments outside the limits above.
-int leaf_scan_units(const float* qpad, const float* slab,
-                    const int* unit_leaf, const int* unit_query,
-                    const int* n_units, float* out_d, int* out_i, int w_rows,
-                    int tq, int l_pad, int d_pad, int kl, void* stream) {
+// qpad f32[m, d]; slab f32[C, l_pad, d]; unit_leaf i32[w_rows] (leaf index
+// into slab); unit_query i32[w_rows, tq] (row of qpad, -1 for an empty
+// slot); n_units i32[1] on the device.  Writes out_d f32 and out_i i32
+// [w_rows, tq, kl] for plan rows < *n_units only.  The variant (kind,
+// width, kmax, qpt, list_at, threads, smem_bytes) is the wrapper's choice.
+// Returns 0 or a cudaError_t; -1 for a choice that does not fit the
+// arguments, -2 for an instance this library does not hold.
+int leaf_scan_units(const float* qpad, const float* slab, const int* unit_leaf,
+                    const int* unit_query, const int* n_units, float* out_d, int* out_i,
+                    int w_rows, int tq, int l_pad, int d, int kl, int kind, int width,
+                    int kmax, int qpt, int list_at, int threads, int smem_bytes,
+                    void* stream) {
   if (w_rows <= 0) return 0;
-  if (tq < 1 || tq > MAX_TQ || kl < 1 || kl > MAX_K_SMEM || kl > l_pad ||
-      d_pad < 1 || d_pad > MAX_DPAD)
+  const bool reg = list_at == LIST_REG;
+  const bool list_ok = reg || list_at == LIST_SMEM || list_at == LIST_OUT;
+  if (tq < 1 || tq > MAX_TQ || d < 1 || kl < 1 || kl > l_pad || !list_ok ||
+      threads < 32 || threads % 32 != 0 || threads * qpt < tq ||
+      reg != (kmax > 0) || (reg && kl > kmax) || smem_bytes > SMEM_LIMIT ||
+      smem_bytes < smem_needed(kind, width, qpt, list_at, threads, d, kl))
     return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d_pad <= 8)
-    return dispatch_k<8>(w_rows, tq, s, qpad, slab, unit_leaf, unit_query,
-                         n_units, out_d, out_i, l_pad, d_pad, kl);
-  if (d_pad <= 16)
-    return dispatch_k<16>(w_rows, tq, s, qpad, slab, unit_leaf, unit_query,
-                          n_units, out_d, out_i, l_pad, d_pad, kl);
-  if (d_pad <= 32)
-    return dispatch_k<32>(w_rows, tq, s, qpad, slab, unit_leaf, unit_query,
-                          n_units, out_d, out_i, l_pad, d_pad, kl);
-  if (d_pad <= 64)
-    return dispatch_k<64>(w_rows, tq, s, qpad, slab, unit_leaf, unit_query,
-                          n_units, out_d, out_i, l_pad, d_pad, kl);
-  return dispatch_k<128>(w_rows, tq, s, qpad, slab, unit_leaf, unit_query,
-                         n_units, out_d, out_i, l_pad, d_pad, kl);
+  const Launch a{qpad,   slab, unit_leaf, unit_query, n_units, out_d,   out_i,
+                 w_rows, tq,   l_pad,     d,          kl,      list_at, threads,
+                 smem_bytes, static_cast<cudaStream_t>(stream)};
+  if (kind == NARROW) {
+    if (d > width || qpt != QPT || threads > MAX_TQ / QPT) return -1;
+    return narrow(width, kmax, a);
+  }
+  if (kind == WIDE) {
+    if (reg || qpt != 1 || width != WIDE_DC || threads > MAX_TQ) return -1;
+#if LEAF_SCAN_PART == 0
+    return launch(leaf_scan_wide_kernel, a);
+#else
+    return NO_INSTANCE;
+#endif
+  }
+  return -1;
 }
 
 const char* leaf_scan_error_string(int code) {
-  if (code == -1) return "argument outside the kernel's limits";
+  if (code == -1) return "variant does not fit the arguments";
+  if (code == NO_INSTANCE) return "no such kernel instance in this library";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,8 +1,8 @@
 """Leaf-scan kernel wrapper: the buffered brute-force kNN scan on Hopper.
 
 Counterpart of ``repro.kernels.knn_scan`` (the Pallas TPU kernel
-``leaf_scan_pallas``).  The CUDA kernel is ``csrc/leaf_scan.cu``; its
-source note says what bounds it and how it is laid out.
+``leaf_scan_pallas``).  The CUDA kernels are in ``csrc/leaf_scan.cu``; its
+source note says what bounds them and how they are laid out.
 
 Two call forms, one kernel:
 
@@ -12,19 +12,23 @@ Two call forms, one kernel:
   query tiles or slabs are made, and it skips plan rows at or beyond the
   device scalar ``n_units``.
 * ``leaf_scan_cuda(q, leaf_pts, k=)`` — the work-unit contract of
-  ``leaf_scan_pallas`` (q f32[W, TQ, d_pad], leaf_pts f32[W, L_pad, d_pad]
+  ``leaf_scan_pallas`` (q f32[W, TQ, d], leaf_pts f32[W, L_pad, d]
   -> f32[W, TQ, k], i32[W, TQ, k]), the same kernel with identity indices.
 
-Both launch the kernel or raise: they take CUDA tensors only.  The plain
-version is ``leaf_scan_units_ref``; ``kernels/ops.py`` picks between the
-two by the tensors' device.  ``_extract_topk`` and
-``_rank_merge`` are the Pallas kernel's selection helpers as plain torch
-functions; ``_rank_merge`` is also called on its own by the dynamic index.
+Both launch the kernel or raise: they take CUDA tensors only, any
+1 <= k <= L_pad, any d >= 1 and TQ <= 128.  ``choose_variant`` is the one
+place that picks the kernel instance, block width, list placement and
+shared memory for a call; it runs without a card.  The plain version is
+``leaf_scan_units_ref``; ``kernels/ops.py`` picks between the two by the
+tensors' device.  ``_extract_topk`` and ``_rank_merge`` are the Pallas
+kernel's selection helpers as plain torch functions; ``_rank_merge`` is
+also called on its own by the dynamic index.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -36,13 +40,83 @@ __all__ = [
     "leaf_scan_units",
     "leaf_scan_units_ref",
     "leaf_scan_cuda",
-    "kernel_limits",
+    "choose_variant",
+    "build_all",
+    "Variant",
     "DEFAULT_TQ",
 ]
 
 DEFAULT_TQ = 128
 _BIG_I = 2**30
 _REF_BLOCK = 256   # plan rows per step of the plain version (bounds memory)
+
+# The kernel library's instances and sizes (csrc/leaf_scan.cu).
+MAX_TQ = 128
+SMEM_LIMIT = 232_448             # dynamic shared memory one block may use
+NARROW_WIDTHS = (2, 4, 6, 8, 10, 12, 14, 16)
+REG_KMAX = (4, 8, 10, 16)        # register-list lengths
+TILE = 64                        # narrow: slab rows per pipeline stage
+WIDE_ROWS, WIDE_DC = 32, 16      # wide: rows per sub-tile, features per chunk
+_KINDS = {"narrow": 0, "wide": 1}
+_LIST_AT = {"reg": 0, "smem": 1, "out": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class Variant:
+    """One launch of the leaf-scan library: ``kind`` "narrow" (rows of
+    d <= ``width`` staged whole, ``qpt`` = 2 queries per thread) or "wide"
+    (features in chunks of ``width``, one query per thread); the list in
+    registers (``kmax`` entries), in shared memory or in the output rows
+    (``list_at``); ``threads`` per block, ``smem_bytes`` of dynamic shared
+    memory."""
+
+    kind: str
+    width: int
+    kmax: int
+    qpt: int
+    list_at: str
+    threads: int
+    smem_bytes: int
+
+    @property
+    def name(self) -> str:
+        if self.kind == "wide":
+            return f"wide/{self.list_at}"
+        return f"narrow<{self.width},{self.kmax}>/{self.list_at}"
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def choose_variant(d: int, k: int, tq: int, l_pad: int) -> Variant:
+    """The kernel launch for rows of width ``d``, lists of ``k``, ``tq``
+    query slots and ``l_pad`` slab rows.  Rows of d <= 16 take the narrow
+    kernel at d rounded up to even (two queries per thread), with a
+    register list when k <= 16; longer lists go to shared memory while
+    they fit, else to the output rows.  Wider rows take the wide kernel."""
+    if not 1 <= k <= l_pad:
+        raise ValueError(f"k={k}: the leaf scan takes 1 <= k <= L_pad={l_pad}")
+    if d < 1:
+        raise ValueError(f"d={d}: rows need at least one feature")
+    if not 1 <= tq <= MAX_TQ:
+        raise ValueError(f"TQ={tq}: the CUDA leaf scan takes 1 <= TQ <= {MAX_TQ} "
+                         "(one block per query tile)")
+    if d <= NARROW_WIDTHS[-1]:
+        kind, width, qpt = "narrow", d + d % 2, 2
+        threads = max(32, _round_up(-(-tq // qpt), 32))
+        base = 4 * (2 * TILE * d + 2 * TILE * _round_up(width + 1, 4))
+        kmax = next((km for km in REG_KMAX if km >= k), 0)
+    else:
+        kind, width, qpt, kmax = "wide", WIDE_DC, 1, 0
+        threads = _round_up(tq, 32)
+        base = 4 * (WIDE_ROWS * WIDE_DC + WIDE_ROWS)
+    if kmax:
+        return Variant(kind, width, kmax, qpt, "reg", threads, base)
+    in_smem = base + 8 * k * qpt * threads
+    if in_smem <= SMEM_LIMIT:
+        return Variant(kind, width, 0, qpt, "smem", threads, in_smem)
+    return Variant(kind, width, 0, qpt, "out", threads, base)
 
 
 def _extract_topk(cand_d, cand_i, k):
@@ -112,28 +186,33 @@ def leaf_scan_units_ref(
     return torch.cat(out_d), torch.cat(out_i)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("leaf_scan").lib
+def _part(v: Variant) -> Tuple[str, Tuple[str, ...]]:
+    """The library holding ``v``'s instance: one per narrow width, one for
+    the wide kernel (csrc/leaf_scan.cu, LEAF_SCAN_PART)."""
+    return "leaf_scan", (f"LEAF_SCAN_PART={v.width if v.kind == 'narrow' else 0}",)
+
+
+def build_all() -> Tuple[float, list]:
+    """Build every leaf-scan library at once (one nvcc each) and load them;
+    returns the wall seconds and the ``build.KernelLibrary``s."""
+    specs = [("leaf_scan", (f"LEAF_SCAN_PART={p}",)) for p in (*NARROW_WIDTHS, 0)]
+    wall = build.build_all(specs)
+    return wall, [build.load(*s) for s in specs]
+
+
+def _lib(v: Variant) -> ctypes.CDLL:
+    lib = build.load(*_part(v)).lib
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.leaf_scan_units.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.leaf_scan_units.argtypes = [p] * 7 + [i] * 12 + [p]
         lib.leaf_scan_units.restype = i
         lib.leaf_scan_error_string.argtypes = [i]
         lib.leaf_scan_error_string.restype = ctypes.c_char_p
-        for fn in ("leaf_scan_max_k", "leaf_scan_max_d_pad", "leaf_scan_max_tq"):
-            getattr(lib, fn).argtypes = []
-            getattr(lib, fn).restype = i
         lib._argtypes_set = True
     return lib
 
 
-def kernel_limits() -> Tuple[int, int, int]:
-    """(max k, max d_pad, max TQ) the CUDA kernel takes (builds it)."""
-    lib = _lib()
-    return lib.leaf_scan_max_k(), lib.leaf_scan_max_d_pad(), lib.leaf_scan_max_tq()
-
-
-def _check_cuda_args(qpad, slab, unit_leaf, unit_query, n_units, k) -> None:
+def _check_cuda_args(qpad, slab, unit_leaf, unit_query, n_units) -> None:
     dev = qpad.device
     for name, t, dtype, ndim in (
         ("qpad", qpad, torch.float32, 2),
@@ -153,21 +232,9 @@ def _check_cuda_args(qpad, slab, unit_leaf, unit_query, n_units, k) -> None:
     if n_units.numel() != 1:
         raise ValueError("n_units must hold one element")
     if slab.shape[2] != qpad.shape[1]:
-        raise ValueError(f"d_pad mismatch: qpad {tuple(qpad.shape)} slab {tuple(slab.shape)}")
+        raise ValueError(f"width mismatch: qpad {tuple(qpad.shape)} slab {tuple(slab.shape)}")
     if unit_query.shape[0] != unit_leaf.shape[0]:
         raise ValueError("unit_leaf and unit_query disagree on the plan rows")
-    max_k, max_d, max_tq = kernel_limits()
-    if not 1 <= k <= min(max_k, slab.shape[1]):
-        raise ValueError(
-            f"k={k}: the CUDA leaf scan takes 1 <= k <= min({max_k}, L_pad="
-            f"{slab.shape[1]})"
-        )
-    if qpad.shape[1] > max_d:
-        raise ValueError(f"d_pad={qpad.shape[1]} > {max_d}, the CUDA leaf scan's limit")
-    if not 1 <= unit_query.shape[1] <= max_tq:
-        raise ValueError(
-            f"TQ={unit_query.shape[1]}: the CUDA leaf scan takes 1 <= TQ <= {max_tq}"
-        )
 
 
 def leaf_scan_units(
@@ -181,31 +248,34 @@ def leaf_scan_units(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Indexed leaf scan over a work plan.
 
-    qpad f32[m, d_pad]; slab f32[C, L_pad, d_pad] (any d_pad up to the
-    kernel's limit: it pads rows with zeros itself); unit_leaf i32[W] (leaf
-    of ``slab``); unit_query i32[W, TQ] (row of ``qpad``, -1 = empty slot);
-    n_units i32 scalar.  Returns (f32[W, TQ, k], i32[W, TQ, k]) for plan
-    rows < n_units; rows beyond are left unwritten by the kernel.
+    qpad f32[m, d]; slab f32[C, L_pad, d] (rows at the points' own width);
+    unit_leaf i32[W] (leaf of ``slab``); unit_query i32[W, TQ] (row of
+    ``qpad``, -1 = empty slot); n_units i32 scalar.  Returns
+    (f32[W, TQ, k], i32[W, TQ, k]) for plan rows < n_units; rows beyond are
+    left unwritten by the kernel.  ``choose_variant`` picks the launch.
     """
     if qpad.device.type != "cuda":
         raise ValueError(
             f"the CUDA leaf scan takes CUDA tensors, got {qpad.device} "
             "(ops.leaf_scan_units runs the plain version on the CPU)"
         )
-    _check_cuda_args(qpad, slab, unit_leaf, unit_query, n_units, k)
+    _check_cuda_args(qpad, slab, unit_leaf, unit_query, n_units)
     w, tq = unit_query.shape
+    c, l_pad, d = slab.shape
+    v = choose_variant(d, k, tq, l_pad)
     out_d = torch.empty((w, tq, k), dtype=torch.float32, device=qpad.device)
     out_i = torch.empty((w, tq, k), dtype=torch.int32, device=qpad.device)
-    lib = _lib()
+    lib = _lib(v)
     err = lib.leaf_scan_units(
         qpad.data_ptr(), slab.data_ptr(), unit_leaf.data_ptr(),
         unit_query.data_ptr(), n_units.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), w, tq, slab.shape[1], slab.shape[2], k,
+        out_i.data_ptr(), w, tq, l_pad, d, k, _KINDS[v.kind], v.width,
+        v.kmax, v.qpt, _LIST_AT[v.list_at], v.threads, v.smem_bytes,
         torch.cuda.current_stream(qpad.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
-            f"leaf_scan kernel launch failed ({err}): "
+            f"leaf_scan kernel launch failed ({err}, {v.name}): "
             f"{lib.leaf_scan_error_string(err).decode()}"
         )
     leaf_scan_units.launches += 1
@@ -220,12 +290,12 @@ def leaf_scan_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``leaf_scan_pallas``'s work-unit contract: the kernel with identity
     indices (unit w scans query tile w against slab w)."""
-    w, tq, d_pad = q.shape
+    w, tq, d = q.shape
     dev = q.device
     unit_leaf = torch.arange(w, dtype=torch.int32, device=dev)
     unit_query = torch.arange(w * tq, dtype=torch.int32, device=dev).reshape(w, tq)
     n_units = torch.tensor([w], dtype=torch.int32, device=dev)
     return leaf_scan_units(
-        q.reshape(w * tq, d_pad).contiguous(), leaf_pts.contiguous(),
+        q.reshape(w * tq, d).contiguous(), leaf_pts.contiguous(),
         unit_leaf, unit_query, n_units, k=k,
     )

@@ -93,6 +93,24 @@ def test_knn_index_matches_reference(engine, n_chunks, n, m, d, k, height):
         assert (res.stats.chunk_copies > 0) == (n_chunks > 1)
 
 
+@pytest.mark.parametrize("n,m,d,k,height", [
+    pytest.param(3000, 64, 8, 150, 4, id="k150"),
+    pytest.param(2000, 48, 130, 10, 3, id="d130"),
+])
+def test_knn_index_long_lists_and_wide_rows(n, m, d, k, height):
+    """k above 128 and rows wider than 128 features: the leaf scan takes
+    every k <= L_pad and every d, so the port answers what the reference
+    answers (the CPU runs the plain version; the card test is in
+    test_torch_cuda.py)."""
+    pts, q = _data(n, m, d, seed=n + m)
+    ref_d, ref_i = _reference(n, m, d, k, height, "chunked", 1)
+    spec = IndexSpec(engine="chunked", height=height, k_hint=k, tile_q=64,
+                     n_chunks=1, devices=CPU)
+    res = KNNIndex.build(pts, spec=spec).query(q, k=k)
+    assert res.dists.shape == (m, k)
+    _assert_same_answers(res, ref_d, ref_i, pts, q)
+
+
 def test_carried_tree_from_reference():
     """The index's weights are its tree: a tree built by ``repro`` and
     carried over as arrays gives the reference's answers."""

@@ -9,7 +9,8 @@ dependencies:
 
 Distances are compared with rtol=atol=1e-5 (the kernel sums the
 decomposition with FFMA in another order than the plain matmul), indices
-permutation-aware against float64 distances.
+permutation-aware against float64 distances; on an integer lattice, where
+every value is exact, bit for bit.
 """
 
 import numpy as np
@@ -34,8 +35,18 @@ CASES = [
     (5, 64, 96, 2, 8, 3, 0),
     (1, 16, 16, 10, 16, 8, 11),       # 5 real rows < k: pad rows fill the tail
     (2, 128, 300, 10, 16, 40, 0),     # shared-memory list, ragged last tile
-    (1, 32, 64, 70, 72, 20, 0),       # d_pad 72 -> 128-wide template
+    (1, 32, 64, 70, 72, 20, 0),       # 72 features: the wide kernel
     (4, 128, 512, 10, 10, 10, 0),     # unpadded rows, as the main path passes them
+    # one row per narrow instance width, at k = 10
+    (2, 128, 300, 2, 2, 10, 0),
+    (2, 128, 300, 4, 4, 10, 0),
+    (2, 128, 300, 6, 6, 10, 0),
+    (2, 128, 300, 8, 8, 10, 0),
+    (2, 128, 300, 10, 10, 10, 0),
+    (2, 128, 300, 12, 12, 10, 0),
+    (2, 128, 300, 14, 14, 10, 0),
+    (2, 128, 300, 16, 16, 10, 0),
+    (2, 128, 300, 9, 9, 10, 0),       # odd d: the even instance's zero column
 ]
 
 
@@ -84,16 +95,19 @@ def test_kernel_vs_plain(case):
 
 
 @pytest.mark.cuda
-def test_kernel_exact_ties_lowest_index():
+@pytest.mark.parametrize("lp,d,d_pad,k", [(200, 3, 8, 9), (1024, 10, 10, 10)])
+def test_kernel_exact_ties_lowest_index(lp, d, d_pad, k):
+    """Integer lattice: every value is exact, so distances and the tie
+    order (lowest index first) must be bit-identical to the plain version."""
     dev = _device()
     rng = np.random.default_rng(5)
-    q = np.zeros((2, 16, 8), np.float32)
-    x = np.zeros((2, 200, 8), np.float32)
-    q[..., :3] = rng.integers(-2, 3, size=(2, 16, 3))
-    x[..., :3] = rng.integers(-2, 3, size=(2, 200, 3))
+    q = np.zeros((2, 128, d_pad), np.float32)
+    x = np.zeros((2, lp, d_pad), np.float32)
+    q[..., :d] = rng.integers(-2, 3, size=(2, 128, d))
+    x[..., :d] = rng.integers(-2, 3, size=(2, lp, d))
     kd, ki = knn_scan.leaf_scan_cuda(torch.from_numpy(q).to(dev),
-                                     torch.from_numpy(x).to(dev), k=9)
-    rd, ri = leaf_scan_ref(torch.from_numpy(q), torch.from_numpy(x), k=9)
+                                     torch.from_numpy(x).to(dev), k=k)
+    rd, ri = leaf_scan_ref(torch.from_numpy(q), torch.from_numpy(x), k=k)
     np.testing.assert_array_equal(kd.cpu().numpy(), rd.numpy())
     np.testing.assert_array_equal(ki.cpu().numpy(), ri.numpy())
 
@@ -116,14 +130,65 @@ def test_kernel_indexed_form_skips_rows_past_n_units():
 
 
 @pytest.mark.cuda
-def test_kernel_rejects_what_it_cannot_take():
+@pytest.mark.parametrize("lp,d,k,pad_rows", [
+    (600, 10, 129, 0),     # list in shared memory
+    (600, 10, 300, 0),     # list in the output rows
+    (300, 136, 10, 0),     # wide kernel
+    (320, 300, 300, 37),   # wide kernel, output-row list, pad rows in the tail
+])
+def test_kernel_takes_long_lists_and_wide_rows(lp, d, k, pad_rows):
     dev = _device()
-    q = torch.zeros((1, 8, 8), device=dev)
-    with pytest.raises(ValueError, match="k="):
-        knn_scan.leaf_scan_cuda(q, torch.zeros((1, 512, 8), device=dev), k=129)
-    with pytest.raises(ValueError, match="d_pad"):
-        knn_scan.leaf_scan_cuda(torch.zeros((1, 8, 136), device=dev),
-                                torch.zeros((1, 64, 136), device=dev), k=4)
+    q, x = _inputs(2, 128, lp, d, d, seed=lp + k, pad_rows=pad_rows)
+    qt, xt = torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
+    kd, ki = knn_scan.leaf_scan_cuda(qt, xt, k=k)
+    torch.cuda.synchronize()
+    rd, _ = leaf_scan_ref(qt, xt, k=k)
+    _assert_scan_matches(q, x, kd, ki, rd)
+
+
+@pytest.mark.cuda
+def test_kernel_instances_agree_bit_for_bit():
+    """Every instance forms the same values: a register list (k=16), the
+    first 16 entries of a shared-memory list (k=17) and of an output-row
+    list (k=300), and the wide kernel on the rows with a zero 17th column
+    are identical."""
+    dev = _device()
+    q, x = _inputs(3, 128, 1000, 16, 17, seed=11)
+    qt, xt = torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
+    base = knn_scan.leaf_scan_cuda(qt[..., :16].contiguous(), xt[..., :16].contiguous(), k=16)
+    others = [knn_scan.leaf_scan_cuda(qt[..., :16].contiguous(), xt[..., :16].contiguous(), k=k)
+              for k in (17, 300)]
+    others.append(knn_scan.leaf_scan_cuda(qt, xt, k=16))
+    torch.cuda.synchronize()
+    for od, oi in others:
+        assert torch.equal(od[..., :16], base[0]) and torch.equal(oi[..., :16], base[1])
+
+
+@pytest.mark.cuda
+def test_kernel_raises_on_malformed_calls():
+    dev = _device()
+    x = torch.zeros((1, 64, 8), device=dev)
+    with pytest.raises(ValueError, match="TQ=129"):
+        knn_scan.leaf_scan_cuda(torch.zeros((1, 129, 8), device=dev), x, k=4)
+    with pytest.raises(ValueError, match="k=65"):
+        knn_scan.leaf_scan_cuda(torch.zeros((1, 8, 8), device=dev), x, k=65)
+    with pytest.raises(ValueError, match="must be torch.float32"):
+        knn_scan.leaf_scan_cuda(torch.zeros((1, 8, 8), device=dev), x.double(), k=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k", [(10, 150), (130, 10)])
+def test_knn_index_on_card_long_lists_and_wide_rows(d, k):
+    from repro_torch.api import IndexSpec, KNNIndex
+
+    dev = _device()
+    rng = np.random.default_rng(d + k)
+    pts = rng.normal(size=(20000, d)).astype(np.float32)
+    q = rng.normal(size=(500, d)).astype(np.float32)
+    res = KNNIndex.build(pts, IndexSpec(height=5, devices=(dev,))).query(q, k)
+    bd, bi = knn_brute(q, pts, k, device=dev)
+    np.testing.assert_allclose(res.dists, bd, rtol=1e-5, atol=1e-6)
+    assert (res.idx == bi).mean() > 0.999
 
 
 @pytest.mark.cuda

@@ -202,3 +202,122 @@ def test_knn_brute_vs_reference(n, m, d, k):
     rd, ri = knn_brute_ref(torch.from_numpy(q), torch.from_numpy(pts), k=k)
     np.testing.assert_allclose(np.sqrt(rd.numpy()), jd, rtol=1e-5, atol=1e-6)
 
+
+
+# --- the CUDA kernel's launch choice and its selection scheme (no card) ---
+
+VARIANT_DS = list(range(1, 17)) + [31, 64, 130, 300]
+VARIANT_KS = [1, 10, 32, 33, 128, 129, 1000]
+
+
+@pytest.mark.parametrize("d", VARIANT_DS)
+def test_choose_variant_takes_every_k_and_d(d):
+    """Every k <= L_pad and every d get a launch that fits one block's
+    shared memory: no limit of the kernel is left for the caller."""
+    for k in VARIANT_KS:
+        for tq in (1, 8, 128):
+            v = knn_scan.choose_variant(d, k, tq, l_pad=4096)
+            assert v.smem_bytes <= knn_scan.SMEM_LIMIT == 232_448
+            assert v.threads % 32 == 0 and v.threads * v.qpt >= tq
+            if v.kind == "narrow":
+                assert d <= v.width <= d + 1 and v.width in knn_scan.NARROW_WIDTHS
+            else:
+                assert d > knn_scan.NARROW_WIDTHS[-1] and v.list_at != "reg"
+            if v.list_at == "reg":
+                assert k <= v.kmax in knn_scan.REG_KMAX
+            else:
+                assert v.kmax == 0
+            if v.list_at == "out":     # only when the list cannot be in shared memory
+                assert v.smem_bytes + 8 * k * v.qpt * v.threads > knn_scan.SMEM_LIMIT
+    # the main path's launch: exact width 10, a register list of exactly 10
+    main = knn_scan.choose_variant(10, 10, 128, 4096)
+    assert (main.kind, main.width, main.kmax, main.qpt, main.list_at, main.threads) == (
+        "narrow", 10, 10, 2, "reg", 64)
+
+
+def test_choose_variant_raises_only_on_malformed_calls():
+    with pytest.raises(ValueError, match="k=65"):
+        knn_scan.choose_variant(10, 65, 128, l_pad=64)
+    with pytest.raises(ValueError, match="k=0"):
+        knn_scan.choose_variant(10, 0, 128, l_pad=64)
+    with pytest.raises(ValueError, match="TQ=129"):
+        knn_scan.choose_variant(10, 10, 129, l_pad=64)
+    with pytest.raises(ValueError, match="d=0"):
+        knn_scan.choose_variant(0, 10, 128, l_pad=64)
+    # the placements the card tests compare bit for bit
+    assert [knn_scan.choose_variant(16, k, 128, 1000).list_at for k in (16, 17, 300)] == [
+        "reg", "smem", "out"]
+    assert knn_scan.choose_variant(17, 16, 128, 1000).kind == "wide"
+
+
+def _fma(a, b, c):
+    """fp32 fused multiply-add (exact product, one rounding; a model)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _round_up_sub(a, b):
+    """a - b rounded toward +inf in fp32 (``__fsub_ru``)."""
+    exact = np.float64(a) - np.float64(b)
+    r = np.float32(exact)
+    return np.nextafter(r, np.float32(np.inf)) if np.float64(r) < exact else r
+
+
+def _narrow_kernel_model(q, x, k, tile=64, use_filter=True):
+    """numpy model of the narrow kernel's selection for one unit: acc is the
+    FMA chain from ||x||^2 over -2q, a tile's rows are filtered by the
+    rounded-up bound first, then inserted in ascending row order with a
+    strict < against the list as it is then."""
+    tq, d = q.shape
+    qn = np.zeros(tq, np.float32)
+    xn = np.zeros(x.shape[0], np.float32)
+    for j in range(d):
+        qn = _fma(q[:, j], q[:, j], qn)
+        xn = _fma(x[:, j], x[:, j], xn)
+    acc = np.broadcast_to(xn, (tq, x.shape[0])).astype(np.float32)
+    for j in range(d):
+        acc = _fma(-2 * q[:, j, None], x[None, :, j], acc)
+    out_d = np.empty((tq, k), np.float32)
+    out_i = np.empty((tq, k), np.int32)
+    for t in range(tq):
+        lst, thr = [], np.float32(np.inf)
+        for r0 in range(0, x.shape[0], tile):
+            bound = (_round_up_sub(thr, qn[t]) if thr > 0 else -np.inf) if use_filter else np.inf
+            for r in range(r0, min(r0 + tile, x.shape[0])):
+                if not acc[t, r] < bound:
+                    continue
+                dist = max(np.float32(acc[t, r] + qn[t]), np.float32(0))
+                if dist < thr:
+                    pos = sum(1 for e in lst if e[0] <= dist)
+                    lst = (lst[:pos] + [(dist, r)] + lst[pos:])[:k]
+                    if len(lst) == k:
+                        thr = lst[-1][0]
+        out_d[t] = [e[0] for e in lst]
+        out_i[t] = [e[1] for e in lst]
+    return out_d, out_i
+
+
+@pytest.mark.parametrize("lp,d,k,lattice", [
+    (200, 10, 10, False), (150, 3, 1, False), (300, 7, 33, False),
+    (256, 10, 10, True), (100, 2, 16, True),
+])
+def test_kernel_selection_scheme_matches_reference(lp, d, k, lattice):
+    """The kernel's filter never drops a row the list would take (the
+    unfiltered scheme gives bit-identical lists), and its lists are the
+    reference's: within TOL, and bit-identical with exact ties on a
+    lattice, where every value is exact."""
+    rng = np.random.default_rng(lp + d + k)
+    if lattice:
+        q = rng.integers(-2, 3, size=(16, d)).astype(np.float32)
+        x = rng.integers(-2, 3, size=(lp, d)).astype(np.float32)
+    else:
+        q = rng.normal(size=(16, d)).astype(np.float32)
+        x = rng.normal(size=(lp, d)).astype(np.float32)
+    md, mi = _narrow_kernel_model(q, x, k)
+    ud, ui = _narrow_kernel_model(q, x, k, use_filter=False)
+    np.testing.assert_array_equal(md, ud)
+    np.testing.assert_array_equal(mi, ui)
+    rd, ri = jax_leaf_scan_ref(jnp.asarray(q[None]), jnp.asarray(x[None]), k=k)
+    _assert_scan_matches(q[None], x[None], k, md[None], mi[None], rd)
+    if lattice:
+        np.testing.assert_array_equal(md, np.asarray(rd)[0])
+        np.testing.assert_array_equal(mi, np.asarray(ri)[0])
