@@ -38,9 +38,11 @@
 //    row.  The list is sized to kl exactly (register lists of KMAX >= kl
 //    entries keep -inf sentinels in front, so the threshold is the kl-th).
 //  * Deferred inserts.  A 64-row tile is first filtered into two 32-bit
-//    masks per query; then each query inserts its passing rows in ascending
-//    row order with a strict `<`, each re-computed and re-checked against
-//    the list as it is then.  A warp pays the largest per-lane insert count
+//    masks per query (the mask bit is the sign of acc - bound, one FADD and
+//    one funnel shift per pair); then each query inserts its passing rows
+//    in ascending row order with a strict `<`, each re-computed and
+//    re-checked against the list as it is then (in the first tile, where
+//    the bound starts infinite, after each 32-row pass).  A warp pays the largest per-lane insert count
 //    per tile, not the union of the rows where any lane inserts, and the
 //    tie order stays exact (a later row never displaces an equal distance).
 //  * Slab tiles are double-buffered with cp.async: each thread copies its
@@ -48,7 +50,7 @@
 //    own copies, writes the staged rows and meets the block at one
 //    __syncthreads per tile (staged rows are double-buffered too).
 //  * Registers over occupancy: 2 queries x (DW coordinates + a KMAX list)
-//    per thread take ~96 registers at d=10, k=10 (20 warps per SM).
+//    per thread take ~106 registers at d=10, k=10 (18 warps per SM).
 //    Variants measured slower on an H100 at the main-path shape: one query
 //    per thread (higher occupancy, twice the shared loads), four per
 //    thread, one warp per block, lane pairs that split a tile's rows (half
@@ -58,9 +60,9 @@
 // included, takes more than half of the kernel's time below the issue
 // rate its instruction count allows, and the inserts the rest.  A warp's
 // insert loop runs once per passing row of its busiest lane, about twice
-// the average lane's count on random data at k=10, and each iteration is
-// ~90 instructions, most of them compares and selects of the register
-// list on the half-rate ALU pipe.
+// the average lane's count on random data at k=10, and each iteration
+// re-computes the row's chain and rewrites the whole register list with
+// compares, selects and min/max on the half-rate ALU pipe.
 //
 // Tensor cores are not used.  TF32 alone keeps ~3 decimal digits and can
 // drop a true neighbour; a split (3xTF32) product keeps fp32 accuracy but
@@ -143,19 +145,19 @@ struct RegList {
   }
   __device__ __forceinline__ float worst() const { return d[KMAX - 1]; }
   // dist < worst(): insert after every entry <= dist (an equal distance
-  // already held has the lower index)
+  // already held has the lower index).  c[j] = dist < d[j] holds from the
+  // insert position on; entry j becomes max(d[j-1], min(d[j], dist)).
   __device__ __forceinline__ void insert(float dist, int idx) {
+    bool c[KMAX];
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) c[j] = dist < d[j];
 #pragma unroll
     for (int j = KMAX - 1; j > 0; --j) {
-      const bool shift = dist < d[j - 1];
-      const bool place = !shift && dist < d[j];
-      d[j] = shift ? d[j - 1] : (place ? dist : d[j]);
-      i[j] = shift ? i[j - 1] : (place ? idx : i[j]);
+      i[j] = c[j - 1] ? i[j - 1] : (c[j] ? idx : i[j]);
+      d[j] = fmaxf(d[j - 1], fminf(d[j], dist));
     }
-    if (dist < d[0]) {
-      d[0] = dist;
-      i[0] = idx;
-    }
+    i[0] = c[0] ? idx : i[0];
+    d[0] = fminf(d[0], dist);
   }
   __device__ __forceinline__ void store(float* od, int* oi, int kl) const {
 #pragma unroll
@@ -308,7 +310,27 @@ leaf_scan_narrow_kernel(const float* __restrict__ qpad, const float* __restrict_
     __syncthreads();
     issue(it + 2);  // only this thread reads its rows of raw[it & 1]
 
-    // filter: which rows of the tile may enter each list
+    // inserts in ascending row order, each re-checked against the list as
+    // it is then (the same FMA chain gives the same acc)
+    auto flush = [&](int s, int p, unsigned m) {
+      while (m) {
+        const int r = p * PASS + __ffs(m) - 1;
+        m &= m - 1;
+        const float* xr = xt + r * S;
+        float a = xr[DW];
+#pragma unroll
+        for (int j = 0; j < DW; ++j) a = fmaf(q[s][j], xr[j], a);
+        const float dist = fmaxf(a + qn[s], 0.f);
+        if (dist < list[s].worst()) {
+          list[s].insert(dist, r0 + r);
+          bound[s] = filter_bound(list[s].worst(), qn[s]);
+        }
+      }
+    };
+    // filter: which rows of the tile may enter each list.  Bit r of a pass
+    // mask is the sign of acc - bound (set iff acc < bound, also for an
+    // infinite bound), shifted in with rows taken high to low.  The first
+    // tile, where every row passes an infinite bound, is flushed per pass.
     unsigned mask[QPT][TILE / PASS];
 #pragma unroll
     for (int p = 0; p < TILE / PASS; ++p) {
@@ -316,7 +338,7 @@ leaf_scan_narrow_kernel(const float* __restrict__ qpad, const float* __restrict_
 #pragma unroll
       for (int s = 0; s < QPT; ++s) m[s] = 0u;
 #pragma unroll
-      for (int r = 0; r < PASS; ++r) {
+      for (int r = PASS - 1; r >= 0; --r) {
         const float4* xr = reinterpret_cast<const float4*>(xt + (p * PASS + r) * S);
         float x[S];
 #pragma unroll
@@ -332,34 +354,21 @@ leaf_scan_narrow_kernel(const float* __restrict__ qpad, const float* __restrict_
           float a = x[DW];
 #pragma unroll
           for (int j = 0; j < DW; ++j) a = fmaf(q[s][j], x[j], a);
-          if (a < bound[s]) m[s] |= 1u << r;
+          m[s] = __funnelshift_l(__float_as_uint(a - bound[s]), m[s], 1);
         }
       }
 #pragma unroll
       for (int s = 0; s < QPT; ++s) mask[s][p] = m[s];
-    }
-
-    // inserts in ascending row order, each re-checked against the list as
-    // it is then (the same FMA chain gives the same acc)
+      if (it == 0) {
 #pragma unroll
-    for (int s = 0; s < QPT; ++s) {
-#pragma unroll
-      for (int p = 0; p < TILE / PASS; ++p) {
-        unsigned m = mask[s][p];
-        while (m) {
-          const int r = p * PASS + __ffs(m) - 1;
-          m &= m - 1;
-          const float* xr = xt + r * S;
-          float a = xr[DW];
-#pragma unroll
-          for (int j = 0; j < DW; ++j) a = fmaf(q[s][j], xr[j], a);
-          const float dist = fmaxf(a + qn[s], 0.f);
-          if (dist < list[s].worst()) {
-            list[s].insert(dist, r0 + r);
-            bound[s] = filter_bound(list[s].worst(), qn[s]);
-          }
-        }
+        for (int s = 0; s < QPT; ++s) flush(s, p, mask[s][p]);
       }
+    }
+    if (it > 0) {
+#pragma unroll
+      for (int s = 0; s < QPT; ++s)
+#pragma unroll
+        for (int p = 0; p < TILE / PASS; ++p) flush(s, p, mask[s][p]);
     }
   }
   cp_async_wait<0>();  // nothing left in flight (the last groups are empty)

@@ -262,11 +262,12 @@ def _round_up_sub(a, b):
     return np.nextafter(r, np.float32(np.inf)) if np.float64(r) < exact else r
 
 
-def _narrow_kernel_model(q, x, k, tile=64, use_filter=True):
+def _narrow_kernel_model(q, x, k, use_filter=True):
     """numpy model of the narrow kernel's selection for one unit: acc is the
-    FMA chain from ||x||^2 over -2q, a tile's rows are filtered by the
-    rounded-up bound first, then inserted in ascending row order with a
-    strict < against the list as it is then."""
+    FMA chain from ||x||^2 over -2q; the rows of a 64-row tile (of each
+    32-row pass in the first tile) are filtered by the rounded-up bound
+    first, then inserted in ascending row order with a strict < against
+    the list as it is then."""
     tq, d = q.shape
     qn = np.zeros(tq, np.float32)
     xn = np.zeros(x.shape[0], np.float32)
@@ -278,11 +279,13 @@ def _narrow_kernel_model(q, x, k, tile=64, use_filter=True):
         acc = _fma(-2 * q[:, j, None], x[None, :, j], acc)
     out_d = np.empty((tq, k), np.float32)
     out_i = np.empty((tq, k), np.int32)
+    n = x.shape[0]
+    flushes = sorted({0, min(32, n), *range(64, n, 64), n})
     for t in range(tq):
         lst, thr = [], np.float32(np.inf)
-        for r0 in range(0, x.shape[0], tile):
+        for r0, r1 in zip(flushes[:-1], flushes[1:]):
             bound = (_round_up_sub(thr, qn[t]) if thr > 0 else -np.inf) if use_filter else np.inf
-            for r in range(r0, min(r0 + tile, x.shape[0])):
+            for r in range(r0, r1):
                 if not acc[t, r] < bound:
                     continue
                 dist = max(np.float32(acc[t, r] + qn[t]), np.float32(0))
