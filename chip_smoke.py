@@ -2,6 +2,7 @@
 """Drive repro_torch's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py              # full size: n = 2**24, m = 2**20
+    python3 chip_smoke.py --ooc-shift 0   # the streamed cells at full depth too
     python3 chip_smoke.py --shift 2    # n and m divided by 2**2 (a quick run)
     python3 chip_smoke.py --shift 4    # phase 3 at full size, cells in little time
 
@@ -18,19 +19,44 @@ Phases, each printing its own lines:
               list placement bit-identical, the indexed form, and the
               main-path shape (W=4096 units, TQ=128, L_pad=4096, d=10
               unpadded as the main path passes it, k=10), timed beside the
-              plain version and beside torch.baddbmm + torch.topk; then
-              KNNIndex at k = 150 and at d = 130 against knn_brute;
+              plain version and beside torch.baddbmm + torch.topk; the
+              fp32 k = 18 shared-memory-list instance timed; then the
+              kernel reading uint8 and float16 codes (the budgeted store)
+              at the main-path shape at k = 18 (the overfetched k of a
+              k = 10 query) and k = 10, uint8 at d = 130, k = 150 (the wide
+              kernel), and integer-lattice codes with dead rows (tie order
+              bit for bit, dead rows last), the uint8 k = 18 instance timed
+              beside its plain version and beside a torch dequantize +
+              baddbmm + topk; then KNNIndex at k = 150 and at d = 130
+              against knn_brute;
   4. main     KNNIndex.build(points).query(q, 10) with no spec: n points,
               m queries, d=10, from a seeded clustered Gaussian mixture;
               the plan must be the chunked engine with N=1, the kernel must
               have launched, and 1024 queries must match knn_brute;
-  5. ooc      the same points under memory_budget = slab_bytes // 3
-              (planner rule 5): N >= 2 chunks streamed, same answers.
+  5. ooc      the first n / 2**ooc_shift points (--ooc-shift, default 2:
+              a smaller depth of the same mixture) under memory_budget =
+              slab_bytes // 3 with precision pinned to fp32 (planner rule
+              5): N >= 2 chunks streamed, exact against knn_brute (and the
+              same answers as main with --ooc-shift 0);
+  6. quant    main's points under memory_budget = slab_bytes // 3, the
+              precision left to the planner (rule 4): int8 codes, N = 1,
+              resident bytes within the budget, the kernel reading the
+              codes, 1024 queries against knn_brute, every query against
+              main (rows whose distances differ settled by knn_brute: the
+              quantized answer must be the exact one);
+  7. quant_ooc  ooc's points under memory_budget = slab_bytes // 12: int8
+              codes streamed in N >= 2 chunks, the same answers as ooc;
+  8. stream   IndexSpec(engine="streaming"), query_stream(q, 10) over the
+              first 2**16 queries: every row delivered once, rows equal
+              main's, times to the first and to the last completion;
+  9. fp16     precision pinned to fp16 on n / 4 points and m / 4 queries:
+              the kernel reading float16 codes end to end.
 
-Then one JSON line describing the kernel, and last the device line.  Any
-failed check raises (non-zero exit); without a CUDA device the script
-exits non-zero before printing any result.  Nothing here imports jax or
-the JAX package.
+Every cell sets the kernel's launch counts to 0 just before its query and
+reads them just after.  Then one JSON line describing the kernels, and
+last the device line.  Any failed check raises (non-zero exit); without a
+CUDA device the script exits non-zero before printing any result.  Nothing
+here imports jax or the JAX package.
 """
 
 from __future__ import annotations
@@ -63,6 +89,9 @@ SWEEP = [
 ]
 # the main path's rows are the points' own width d: the kernel pads them
 MAIN_SHAPE = dict(w=4096, tq=128, l_pad=4096, d=10, k=10)
+# the list a quantized store's k = 10 query scans at (k + QUANT_OVERFETCH)
+CODE_K = 18
+STREAM_M = 2 ** 16   # queries of the stream cell
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -247,8 +276,163 @@ def phase_kernel(torch, dev, seed: int) -> dict:
         kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
         gflops=f"{ops / kernel_ms / 1e6:.1f}")
-    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+    fp32 = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+    # the fp32 instance a k = 18 list takes (shared memory, not registers)
+    kd, ki = knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=CODE_K)
+    rd, ri = knn_scan.leaf_scan_units_ref(qpad, x, ul, uq, nu, k=CODE_K)
+    torch.cuda.synchronize()
+    err18 = check_scan(torch, q, x, kd, ki, rd, ri)
+    f32_k18_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=CODE_K),
+                         reps=10)
+    log("kernel", case="main_shape_f32_k18", k=CODE_K,
+        variant=knn_scan.choose_variant(d, CODE_K, tq, lp).name, max_abs_err=err18,
+        kernel_ms=f"{f32_k18_ms:.4f}")
+    del kd, ki, rd, ri
+    codes = phase_kernel_codes(torch, dev, gen, q, x, qpad, ul, uq, nu)
+    return fp32, codes
+
+
+def pack_rows(torch, dead):
+    """bool[W, L] -> u8[W, ceil(L/8)], row r in bit 7 - r % 8 of byte r // 8
+    (np.packbits order, as the store keeps its dead mask)."""
+    w, lp = dead.shape
+    b = torch.nn.functional.pad(dead.to(torch.uint8), (0, -lp % 8)).reshape(w, -1, 8)
+    weights = 2 ** torch.arange(7, -1, -1, device=dead.device)
+    return (b * weights).sum(-1).to(torch.uint8)
+
+
+def code_slab(torch, dev, gen, code, w, lp, d, lattice=False, dead_frac=0.05, x=None):
+    """A slab of ``code`` codes ("u8" or "f16") on the card with its
+    metadata: the fp32 slab ``x`` coded (u8 by each leaf's per-feature
+    range, as core/quantize.py does), random codes, or integer-lattice ones
+    (u8 0..4 with scale 1 and offset -2, f16 -2..2), where every dequantized
+    value is exact; rows dead at random."""
+    meta = {}
+    if x is not None and code == "u8":
+        lo, hi = x.amin(dim=1), x.amax(dim=1)
+        meta["scale"] = (hi - lo) / 255.0
+        meta["offset"] = lo
+        codes = torch.round((x - lo[:, None, :]) / meta["scale"][:, None, :])
+        codes = codes.clamp(0, 255).to(torch.uint8)
+    elif x is not None:
+        codes = x.half()
+    elif lattice:
+        lat = torch.randint(0, 5, (w, lp, d), device=dev, generator=gen)
+        codes = lat.to(torch.uint8) if code == "u8" else (lat - 2).half()
+        if code == "u8":
+            meta["scale"] = torch.ones((w, d), device=dev)
+            meta["offset"] = torch.full((w, d), -2.0, device=dev)
+    elif code == "u8":
+        codes = torch.randint(0, 256, (w, lp, d), device=dev, generator=gen).to(torch.uint8)
+        meta["scale"] = 0.01 + 0.02 * torch.rand((w, d), device=dev, generator=gen)
+        meta["offset"] = 3.0 * torch.randn((w, d), device=dev, generator=gen)
+    else:
+        codes = torch.randn((w, lp, d), device=dev, generator=gen).half()
+    dead = torch.rand((w, lp), device=dev, generator=gen) < dead_frac
+    meta["dead"] = pack_rows(torch, dead)
+    return codes, meta, dead
+
+
+def phase_kernel_codes(torch, dev, gen, q, x32, qpad, ul, uq, nu) -> dict:
+    """The kernel reading uint8 / float16 codes of the main-shape slab
+    ``x32`` against its plain version on the same codes, and the uint8
+    k = 18 instance timed."""
+    from repro_torch.kernels import knn_scan
+    from repro_torch.kernels.ref import PAD_COORD
+
+    def scan_both(q, codes, meta, k, qpad=None, ul=None, uq=None, nu=None):
+        w, tq, d = q.shape
+        if qpad is None:
+            qpad = q.reshape(w * tq, d).contiguous()
+            ul = torch.arange(w, dtype=torch.int32, device=dev)
+            uq = torch.arange(w * tq, dtype=torch.int32, device=dev).reshape(w, tq)
+            nu = torch.tensor(w, dtype=torch.int32, device=dev)
+        kd, ki = knn_scan.leaf_scan_units(qpad, codes, ul, uq, nu, k=k, **meta)
+        rd, ri = knn_scan.leaf_scan_units_ref(qpad, codes, ul, uq, nu, k=k, **meta)
+        torch.cuda.synchronize()
+        return kd, ki, rd, ri
+
+    def dead_last(dead, ki) -> bool:
+        sel = dead[torch.arange(dead.shape[0], device=dev)[:, None, None], ki.long()]
+        return bool((sel[..., 1:].int() >= sel[..., :-1].int()).all())
+
+    s = MAIN_SHAPE
+    w, tq, lp, d = s["w"], s["tq"], s["l_pad"], s["d"]
+    out = {}
+    for code in ("u8", "f16"):
+        codes, meta, dead = code_slab(torch, dev, gen, code, w, lp, d, x=x32)
+        x = knn_scan.dequantize(codes, meta.get("scale"), meta.get("offset"), meta["dead"])
+        for k in (CODE_K, MAIN_SHAPE["k"]):
+            kd, ki, rd, ri = scan_both(q, codes, meta, k, qpad, ul, uq, nu)
+            err = check_scan(torch, q, x, kd, ki, rd, ri)
+            assert dead_last(dead, ki), "a dead row was ranked before a live one"
+            v = knn_scan.choose_variant(d, k, tq, lp, code)
+            ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units(
+                qpad, codes, ul, uq, nu, k=k, **meta), reps=10)
+            log("kernel", case=f"main_shape_{code}_k{k}", variant=v.name, max_abs_err=err,
+                kernel_ms=f"{ms:.4f}", ok=True)
+            out[(code, k)] = dict(max_abs_err=err, ms=ms)
+        if code == "u8":
+            k = CODE_K
+            plain_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units_ref(
+                qpad, codes, ul, uq, nu, k=k, **meta), reps=3)
+            rows_dead = dead
+
+            def library():
+                xq = codes.float() * meta["scale"][:, None, :] + meta["offset"][:, None, :]
+                xq = torch.where(rows_dead[..., None], PAD_COORD, xq)
+                xn = (xq * xq).sum(-1)[:, None, :]
+                d2 = torch.baddbmm(xn, q, xq.transpose(1, 2), alpha=-2.0)
+                return torch.topk(d2, k, dim=-1, largest=False)
+
+            library_ms = cuda_ms(torch, library, reps=3)
+            # one byte per code, the leaf's scales, offsets and dead bits, the
+            # queries and plan read once, the k-lists written once; the
+            # operations are the fp32 scan's (dequantize is O(L d) per leaf
+            # against O(TQ L d) pairs)
+            bytes_moved = (w * lp * d + 8 * w * d + w * (-(-lp // 8))
+                           + 4 * (w * tq * d + w + w * tq) + 8 * w * tq * k)
+            ops = w * tq * lp * (2 * d + 3)
+            bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_FLOPS)
+            bound_by = ("operations" if ops / FP32_FLOPS >= bytes_moved / HBM_BYTES_PER_S
+                        else "bytes")
+            u8 = out[("u8", k)]
+            log("kernel", case="main_shape_u8_k18_timed", k=k, max_abs_err=u8["max_abs_err"],
+                kernel_ms=f"{u8['ms']:.4f}", plain_ms=f"{plain_ms:.4f}",
+                library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+                bound_by=bound_by, gflops=f"{ops / u8['ms'] / 1e6:.1f}")
+            timed = dict(max_abs_err=u8["max_abs_err"], ms=u8["ms"], plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del codes, meta, dead, x
+        torch.cuda.empty_cache()
+    del x32
+
+    # the wide kernel on uint8 codes, its list in shared memory
+    q130 = torch.randn((2, 128, 130), device=dev, generator=gen)
+    codes, meta, dead = code_slab(torch, dev, gen, "u8", 2, 600, 130)
+    kd, ki, rd, ri = scan_both(q130, codes, meta, 150)
+    x = knn_scan.dequantize(codes, meta["scale"], meta["offset"], meta["dead"])
+    err = check_scan(torch, q130, x, kd, ki, rd, ri)
+    assert dead_last(dead, ki)
+    log("kernel", case="wide_u8_d130_k150",
+        variant=knn_scan.choose_variant(130, 150, 128, 600, "u8").name, max_abs_err=err,
+        ok=True)
+
+    # integer lattices with 30 % dead rows: exact values, so the tie order
+    # (lowest index, dead rows last in index order) is the plain version's
+    for code in ("u8", "f16"):
+        for w_, lp_, d_, k_ in ((2, 300, 3, 9), (4, 4096, 10, CODE_K)):
+            ql = torch.randint(-2, 3, (w_, 128, d_), device=dev, generator=gen).float()
+            codes, meta, dead = code_slab(torch, dev, gen, code, w_, lp_, d_, lattice=True,
+                                          dead_frac=0.3)
+            kd, ki, rd, ri = scan_both(ql, codes, meta, k_)
+            assert torch.equal(kd, rd) and torch.equal(ki, ri), f"lattice {code} tie order"
+            assert dead_last(dead, ki)
+            log("kernel", case=f"lattice_{code}_dead_rows", shape=(w_, 128, lp_, d_), k=k_,
+                ok=True)
+    return dict(timed, by_code=out)
 
 
 def phase_facade(torch, dev, seed: int) -> None:
@@ -325,11 +509,11 @@ def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
     index = KNNIndex.build(points, spec)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    knn_scan.leaf_scan_units.launches = 0
+    knn_scan.reset_launches()
     t0 = time.perf_counter()
     res = index.query(queries, 10)
     query_s = time.perf_counter() - t0
-    launches = knn_scan.leaf_scan_units.launches
+    launches = dict(knn_scan.leaf_scan_units.launches_by_code)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9   # this build + query
     assert index._state._engine.backend == "cuda", index._state._engine.backend
     assert np.isfinite(res.dists).all() and res.dists.shape == (queries.shape[0], 10)
@@ -337,14 +521,16 @@ def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
     ties = check_exact(torch, res, points, queries, dev, n_check)
     st = res.stats
     log(phase, engine=index.plan.engine, n_chunks=index.plan.n_chunks,
-        height=index.plan.height, resident_bytes=index.resident_bytes(),
+        height=index.plan.height, precision=index.plan.precision,
+        resident_bytes=index.resident_bytes(),
         build_s=f"{build_s:.3f}", query_s=f"{query_s:.3f}",
         qps=f"{queries.shape[0] / query_s:.1f}", rounds=st.iterations,
         chunk_rounds=st.chunk_rounds, units=st.units_scanned,
         steady_rounds=st.steady_rounds, tail_rounds=st.tail_rounds,
         compactions=st.compactions, chunk_copies=st.chunk_copies,
         sync_wait_s=f"{st.sync_wait_s:.3f}", steady_s=f"{st.steady_s:.3f}",
-        tail_s=f"{st.tail_s:.3f}", kernel_launches=launches,
+        tail_s=f"{st.tail_s:.3f}", refined_rows=st.refined_rows, exact_rows=st.exact_rows,
+        kernel_launches=",".join(f"{c}:{n}" for c, n in launches.items()),
         checked=n_check, tie_swaps=ties,
         peak_mem_gb=f"{peak_gb:.3f}")
     for r in index.plan.reasons:
@@ -361,16 +547,23 @@ def main(argv=None) -> int:
     ap.add_argument("--shift", type=int, default=0,
                     help="divide n and m by 2**shift (default: full size)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ooc-shift", type=int, default=2,
+                    help="run the streamed cells (ooc, quant_ooc) on n / 2**ooc_shift "
+                         "points (default 2, which keeps the whole script within "
+                         "half of its time limit; 0 runs them at full depth)")
     ap.add_argument("--profile", nargs="?", const="main,ooc", default="",
                     help="also run these cells' query once under torch.profiler "
-                         "(comma-separated; no value: main,ooc)")
+                         "(comma-separated, of main, ooc, quant, quant_ooc; "
+                         "no value: main,ooc)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.api import IndexSpec
+    from repro_torch.api import IndexSpec, estimate_slab_bytes
+    from repro_torch.core.brute import knn_brute
+    from repro_torch.core.toptree import suggest_height
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -378,7 +571,7 @@ def main(argv=None) -> int:
 
     phase_env(torch)
     phase_build()
-    scan = phase_kernel(torch, dev, args.seed)
+    scan, codes = phase_kernel(torch, dev, args.seed)
     phase_facade(torch, dev, args.seed)
 
     n, m, d = 2 ** (24 - args.shift), 2 ** (20 - args.shift), 10
@@ -395,42 +588,156 @@ def main(argv=None) -> int:
         torch, "main", points, queries, None, 1024, dev, "main" in profiled)
     assert index.plan.engine == "chunked", index.plan.engine
     assert index.plan.n_chunks == 1, index.plan.n_chunks
-    assert launches > 0, "the leaf-scan kernel did not run on the main path"
+    assert launches["f32"] > 0, "the leaf-scan kernel did not run on the main path"
     slab_bytes = index.plan.slab_bytes
     del index
     torch.cuda.empty_cache()
 
-    spec = IndexSpec(precision="fp32", memory_budget=slab_bytes // 3)
+    def same_answers(phase, other, ref=res, ref_points=points):
+        """``other`` against the fp32 answers ``ref`` on every query: a
+        differing id must be a tie (the same distance at that rank).  Rows
+        whose distances differ are settled by knn_brute: ``other`` must be
+        exact there; ``ref`` (the fp32 path, whose selection carries the
+        decomposed form's rounding) may not be."""
+        same = other.idx == ref.idx
+        off = np.nonzero(~np.isclose(other.dists, ref.dists, rtol=1e-5, atol=1e-6).all(1))[0]
+        ref_missed = 0
+        if off.size:
+            bd, _ = knn_brute(queries[off], ref_points, 10, device=dev)
+            np.testing.assert_allclose(other.dists[off], bd, rtol=1e-5, atol=1e-6)
+            ref_missed = int((~np.isclose(ref.dists[off], bd, rtol=1e-5, atol=1e-6).all(1)).sum())
+        log(phase, rows_identical=f"{same.all(axis=1).mean():.6f}",
+            dists_identical=bool(np.array_equal(other.dists, ref.dists)),
+            rows_off=off.size, fp32_rows_missed=ref_missed)
+
+    # the streamed cells run on the first n / 2**ooc_shift points (a smaller
+    # depth of the same mixture); they compare with main at full depth, with
+    # the fp32 ooc cell otherwise
+    ooc_points = points[: n >> args.ooc_shift]
+    ooc_slab = estimate_slab_bytes(ooc_points.shape[0], d, suggest_height(ooc_points.shape[0]))
+    spec = IndexSpec(precision="fp32", memory_budget=ooc_slab // 3)
     ooc, res2, launches2 = run_query(
-        torch, "ooc", points, queries, spec, 1024, dev, "ooc" in profiled)
+        torch, "ooc", ooc_points, queries, spec, 1024, dev, "ooc" in profiled)
     assert ooc.plan.n_chunks >= 2, ooc.plan.n_chunks
     assert res2.stats.chunk_copies > 0
-    assert launches2 > 0
-    same = res2.idx == res.idx
-    if not same.all():
-        # a differing id must be a tie: the same distance at that rank
-        np.testing.assert_allclose(res2.dists, res.dists, rtol=1e-5, atol=1e-6)
-    log("ooc", rows_identical=f"{same.all(axis=1).mean():.6f}",
-        dists_identical=bool(np.array_equal(res2.dists, res.dists)))
+    assert launches2["f32"] > 0
+    ooc_ref = res if args.ooc_shift == 0 else res2
+    if args.ooc_shift == 0:
+        same_answers("ooc", res2)
+    del ooc
+    torch.cuda.empty_cache()
+
+    # planner rule 4 under a budget, the precision not pinned: int8, N = 1
+    budget = slab_bytes // 3
+    quant, res3, launches3 = run_query(
+        torch, "quant", points, queries, IndexSpec(memory_budget=budget), 1024, dev,
+        "quant" in profiled)
+    assert (quant.plan.precision, quant.plan.n_chunks) == ("int8", 1), quant.describe()
+    assert quant.resident_bytes() <= budget, (quant.resident_bytes(), budget)
+    assert launches3["u8"] > 0 and launches3["f32"] == 0, launches3
+    same_answers("quant", res3)
+    del quant, res3
+    torch.cuda.empty_cache()
+
+    quant_ooc, res4, launches4 = run_query(
+        torch, "quant_ooc", ooc_points, queries, IndexSpec(memory_budget=ooc_slab // 12),
+        1024, dev, "quant_ooc" in profiled)
+    assert quant_ooc.plan.precision == "int8" and quant_ooc.plan.n_chunks >= 2, (
+        quant_ooc.describe())
+    assert res4.stats.chunk_copies > 0 and launches4["u8"] > 0
+    same_answers("quant_ooc", res4, ooc_ref, ooc_points)
+    del quant_ooc, res2, res4
+    torch.cuda.empty_cache()
+
+    run_stream(torch, points, queries[: min(m, STREAM_M)], res, dev)
+    run_fp16(torch, points[: n // 4], queries[: m // 4], dev)
 
     kernels = [{
         "name": "leaf_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/leaf_scan.cu",
         "replaces": "src/repro/kernels/knn_scan.py:213",
-        "launches": launches,
+        "launches": launches["f32"],
         "max_abs_err": scan["max_abs_err"],
         "ms": scan["ms"],
         "plain_ms": scan["plain_ms"],
         "bound_ms": scan["bound_ms"],
         "bound_by": scan["bound_by"],
         "library_ms": scan["library_ms"],
+    }, {
+        # the same kernel reading uint8 codes (quant cell, k = 10 -> 18)
+        "name": "leaf_scan_codes",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/leaf_scan.cu",
+        "replaces": "src/repro/kernels/knn_scan.py:213",
+        "launches": launches3["u8"],
+        "max_abs_err": codes["max_abs_err"],
+        "ms": codes["ms"],
+        "plain_ms": codes["plain_ms"],
+        "bound_ms": codes["bound_ms"],
+        "bound_by": codes["bound_by"],
+        "library_ms": codes["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def run_stream(torch, points, queries, main_res, dev) -> None:
+    """query_stream on the streaming engine: every row delivered exactly
+    once, equal to main's query() rows up to ties, and the times to the
+    first and the last delivery."""
+    from repro_torch.api import IndexSpec, KNNIndex
+    from repro_torch.kernels import knn_scan
+
+    ms = queries.shape[0]
+    index = KNNIndex.build(points, IndexSpec(engine="streaming"))
+    seen = np.zeros(ms, np.int64)
+    got_d = np.zeros((ms, 10), np.float32)
+    got_i = np.zeros((ms, 10), np.int64)
+    at = []
+
+    def on_complete(rows, dists, idx):
+        at.append(time.perf_counter())
+        seen[rows] += 1
+        got_d[rows] = dists
+        got_i[rows] = idx
+
+    torch.cuda.synchronize()
+    knn_scan.reset_launches()
+    t0 = time.perf_counter()
+    r = index.query_stream(queries, 10, on_complete=on_complete)
+    total_s = time.perf_counter() - t0
+    launches = knn_scan.leaf_scan_units.launches_by_code["f32"]
+    assert index.plan.engine == "streaming" and launches > 0
+    assert (seen == 1).all(), "a row was not delivered exactly once"
+    assert np.array_equal(got_i, r.idx) and np.array_equal(got_d, r.dists)
+    ref_d, ref_i = main_res.dists[:ms], main_res.idx[:ms]
+    same = r.idx == ref_i
+    if not same.all():
+        np.testing.assert_allclose(r.dists, ref_d, rtol=1e-5, atol=1e-6)
+    log("stream", m=ms, emissions=len(at), early_retired=r.stats.early_retired,
+        first_s=f"{at[0] - t0:.3f}", last_s=f"{at[-1] - t0:.3f}",
+        query_stream_s=f"{total_s:.3f}", rounds=r.stats.iterations,
+        kernel_launches=launches, rows_identical=f"{same.all(axis=1).mean():.6f}",
+        ok=True)
+    del index
+    torch.cuda.empty_cache()
+
+
+def run_fp16(torch, points, queries, dev) -> None:
+    """precision pinned to fp16: the kernel reading float16 codes end to end."""
+    from repro_torch.api import IndexSpec
+
+    index, res, launches = run_query(
+        torch, "fp16", points, queries, IndexSpec(engine="chunked", precision="fp16"), 1024,
+        dev)
+    assert index.plan.precision == "fp16", index.plan.precision
+    assert launches["f16"] > 0 and launches["f32"] == 0, launches
+    del index
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

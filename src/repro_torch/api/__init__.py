@@ -5,7 +5,8 @@
     index = KNNIndex.build(points)             # planner picks the engine
     dists, idx = index.query(queries, k=10)    # exact kNN
 
-Counterpart of ``repro.api`` with the ``brute`` and ``chunked`` engines.
+Counterpart of ``repro.api`` with the ``brute``, ``chunked`` and
+``streaming`` engines.
 ``knn_brute`` is re-exported as the ground-truth oracle, and
 ``knn_round_cache_size`` counts the distinct chunk-round shapes run.
 """

@@ -37,7 +37,6 @@ NOT_PORTED = {
     "host": "Queue 1 item 17",
     "kdtree": "Queue 1 item 17",
     "jit": "Queue 1 item 11",
-    "streaming": "Queue 1 item 12",
     "dynamic": "Queue 1 item 14",
     "sharded": "Queue 1 item 18",
     "forest": "Queue 1 item 18",

@@ -1,9 +1,11 @@
 """Registered engines (counterpart of ``repro.api.engines``): kNN only.
 
-  brute    tiled brute-force (paper baseline (3); also the oracle)
-  chunked  chunk-resident bulk-synchronous LazySearch (§3 out-of-core path)
+  brute      tiled brute-force (paper baseline (3); also the oracle)
+  chunked    chunk-resident bulk-synchronous LazySearch (§3 out-of-core path)
+  streaming  the chunked engine plus per-row delivery (``query_stream``):
+             each query's result is emitted the round it retires
 
-Both translate their native conventions into the one ``QueryResult``
+All translate their native conventions into the one ``QueryResult``
 contract: ascending Euclidean f32[m, k] distances and i64[m, k] ids in the
 caller's original ordering.  They declare ``ops={"knn"}`` until the
 dual-tree ops are ported (ROADMAP Queue 1 item 13).
@@ -18,6 +20,7 @@ from repro_torch.api.engine import EngineBase, EngineCaps, register_engine
 from repro_torch.api.planner import chunked_resident_bytes
 from repro_torch.core.brute import knn_brute
 from repro_torch.core.lazysearch import BufferKDTree, SearchStats
+from repro_torch.core.streaming import stream_query
 from repro_torch.kernels.ops import resolve_device
 
 __all__ = []  # engines are reached through the registry, not imports
@@ -77,3 +80,22 @@ class ChunkedEngine(EngineBase):
         if state is not None:
             return state.store.resident_bytes()   # measured, not estimated
         return chunked_resident_bytes(plan)
+
+
+@register_engine
+class StreamingEngine(ChunkedEngine):
+    """The chunked engine plus per-row streaming delivery: the same build,
+    state and batch query, and ``query_stream``, which runs the same round
+    loop with the early-retirement hook attached.  Never picked by the
+    planner: callers that serve online traffic pin it."""
+
+    name = "streaming"
+    caps = EngineCaps(
+        exact=True, out_of_core=True, multi_device=False, stateful_query=True,
+        streaming=True,
+        description="chunked engine + per-row early-retirement streaming "
+                    "(the online serving engine)",
+    )
+
+    def query_stream(self, state: BufferKDTree, queries, k, emit):
+        return stream_query(state, queries, k, emit)

@@ -7,8 +7,10 @@
 
 With ``IndexSpec.devices`` unset the index runs on ``cuda:0`` and raises
 without a card; pass ``devices=(torch.device("cpu"),)`` for the CPU.
-Persistence, mutation, streaming and the dual-tree ops wait for their
-ROADMAP items; their entry points raise the reference's typed errors.
+``query_stream`` delivers per-row results on an index built with
+``IndexSpec(engine="streaming")``.  Persistence, mutation and the
+dual-tree ops wait for their ROADMAP items; their entry points raise the
+reference's typed errors.
 """
 
 from __future__ import annotations
@@ -139,11 +141,32 @@ class KNNIndex:
             "is ROADMAP Queue 1 item 14"
         )
 
-    def query_stream(self, queries, k=None, *, on_complete):
-        raise StreamingUnsupported(
-            f"engine {self.engine_name!r} cannot stream per-row completions; "
-            "the streaming engine is ROADMAP Queue 1 item 12"
+    def query_stream(self, queries, k=None, *, on_complete) -> QueryResult:
+        """k nearest neighbors with per-row streaming delivery.
+
+        ``on_complete(rows, dists, idx)`` is called from inside the round
+        loop as query rows retire, each row exactly once, with the values
+        ``query`` returns; the assembled ``QueryResult`` is returned after
+        the last delivery.  The callback runs on the calling thread.
+        Engines that do not declare ``caps.streaming`` raise the typed
+        ``StreamingUnsupported``: build with ``IndexSpec(engine="streaming")``.
+        """
+        if not self._engine.caps.streaming:
+            raise StreamingUnsupported(
+                f"engine {self.engine_name!r} cannot stream per-row "
+                "completions (caps.streaming=False); build with "
+                "IndexSpec(engine='streaming')"
+            )
+        k = int(k) if k is not None else self.spec.k_hint
+        queries = self._check_queries(queries)
+        if k > self.n:
+            raise ValueError(f"k={k} > n={self.n}")
+        dists, idx, stats = self._serialized(
+            self._engine.query_stream, self._state, queries, k, on_complete
         )
+        self._last_stats = stats
+        return QueryResult(dists=dists, idx=idx, stats=stats,
+                           engine=self.plan.engine, k=k)
 
     def warm(self, m: Optional[int] = None, k: Optional[int] = None) -> None:
         """Run the execution path once for batches of ``m`` queries (the
@@ -178,7 +201,8 @@ class KNNIndex:
         lines = [
             f"KNNIndex: n={self.n} d={self.d} engine={pl.engine} "
             f"h={pl.height} n_chunks={pl.n_chunks} n_shards={pl.n_shards} "
-            f"B={pl.buffer_size} resident~{pl.resident_bytes / 1e6:.1f}MB",
+            f"B={pl.buffer_size} precision={pl.precision} "
+            f"resident~{pl.resident_bytes / 1e6:.1f}MB",
         ]
         lines += [f"  - {r}" for r in pl.reasons]
         return "\n".join(lines)

@@ -6,8 +6,8 @@ Planning rules ported so far (numbering of ``docs/API.md``):
   3. (more than one device: ``forest``/``sharded`` — not ported yet,
      ROADMAP Queue 1 item 18; raises ``NotImplementedError``);
   4. under a ``memory_budget`` the slab precision is decided first
-     (fp32 -> fp16 -> int8, cheapest that fits device-resident); the port's
-     leaf store runs fp32 only, so a quantized plan raises at build time;
+     (fp32 -> fp16 -> int8, the first whose codes plus dequantize metadata
+     fit device-resident; int8 when none does);
   5. a budget below the resident bytes => ``chunked`` with the smallest N
      such that TWO chunk buffers fit (§3's double-buffered streaming);
   6. otherwise ``chunked`` with N=1, the device-resident workflow.

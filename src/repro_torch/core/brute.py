@@ -58,7 +58,11 @@ def knn_brute(
         device = points.device
     dev = resolve_device(device)
     qs = torch.as_tensor(queries, dtype=torch.float32, device=dev)
-    pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
+    if isinstance(points, torch.Tensor):
+        pts = points.to(device=dev, dtype=torch.float32)
+    else:
+        # host points go to the device one reference tile at a time
+        pts = np.asarray(points, dtype=np.float32)
     m, d = qs.shape
     n, d2 = pts.shape
     if d != d2:
@@ -73,9 +77,8 @@ def knn_brute(
         best_d = torch.full((q.shape[0], k), float("inf"), device=dev)
         best_i = torch.full((q.shape[0], k), -1, dtype=torch.int64, device=dev)
         for xs in range(0, n, tile_x):
-            best_d, best_i = _tile_step(
-                q, pts[xs : xs + tile_x], xs, best_d, best_i, k
-            )
+            x = torch.as_tensor(pts[xs : xs + tile_x], device=dev)
+            best_d, best_i = _tile_step(q, x, xs, best_d, best_i, k)
         out_d[qs0 : qs0 + q.shape[0]] = torch.sqrt(best_d).cpu().numpy()
         out_i[qs0 : qs0 + q.shape[0]] = best_i.cpu().numpy()
     return out_d, out_i

@@ -19,9 +19,18 @@ explicit in both directions, with events:
     is a write-after-read race without the event.
 
 Chunks are leaf-aligned: chunk j owns leaves [chunk_lo[j], chunk_hi[j]).
-``uniform=True`` pads the host array with PAD_COORD leaves so every slab
-has the same shape.  The host slabs are pinned when they are streamed
-(N >= 2); on the CPU the copies are plain copies.
+``uniform=True`` pads the host array with PAD_COORD leaves (quantized
+stores: code 0, scale 1, offset 0, dead) so every slab has the same shape.
+The host slabs are pinned when they are streamed (N >= 2); on the CPU the
+copies are plain copies.
+
+``precision="fp16"`` / ``"int8"`` keep the slabs as codes
+(``core/quantize.py``): float16, or uint8 with a per-leaf, per-feature
+scale and offset.  Chunks of codes stream like fp32 chunks, at 1/2 or 1/4
+of the bytes.  The dequantize metadata (int8 scale and offset, and the
+bit-packed dead-row mask of every leaf) is uploaded once and stays
+resident (``device_meta``); the leaf scan reads the codes and the metadata
+itself, so no fp32 copy of a chunk is ever made on the device.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.quantize import PRECISIONS, pack_dead, quantize_slabs
 from repro_torch.kernels.ops import PAD_COORD, resolve_device
 
 __all__ = ["ChunkedLeafStore"]
@@ -57,19 +67,24 @@ class ChunkedLeafStore:
         device=None,
         uniform: bool = False,
         precision: str = "fp32",
+        leaf_sizes: Optional[np.ndarray] = None,
     ):
-        if precision != "fp32":
-            raise NotImplementedError(
-                f"precision={precision!r}: the port's leaf store runs fp32 "
-                "only; the quantized (fp16/int8) scan path is ROADMAP "
-                "Queue 1 item 10"
-            )
         if leaf_slabs.ndim != 3:
             raise ValueError(
                 f"leaf_slabs must be [n_leaves, leaf_pad, d], got {leaf_slabs.shape}"
             )
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision={precision!r} not in {PRECISIONS}")
         self.precision = precision
-        host = np.ascontiguousarray(leaf_slabs, np.float32)
+        self.quantized = precision != "fp32"
+        if self.quantized:
+            qs = quantize_slabs(leaf_slabs, precision, leaf_sizes)
+            host, scale, offset, dead = qs.codes, qs.scale, qs.offset, qs.dead
+            self.quant_eps = float(qs.eps)
+        else:
+            host = np.ascontiguousarray(leaf_slabs, np.float32)
+            scale = offset = dead = None
+            self.quant_eps = 0.0
         self.n_leaves = host.shape[0]
         self.device = resolve_device(device)
         n_chunks = int(n_chunks)
@@ -81,8 +96,16 @@ class ChunkedLeafStore:
             c = -(-self.n_leaves // n_chunks)
             extra = c * n_chunks - self.n_leaves
             if extra:
-                pad = np.full((extra,) + host.shape[1:], np.float32(PAD_COORD))
+                fill = 0 if self.quantized else np.float32(PAD_COORD)
+                pad = np.full((extra,) + host.shape[1:], fill, host.dtype)
                 host = np.concatenate([host, pad], axis=0)
+                if self.quantized:
+                    scale = np.concatenate(
+                        [scale, np.ones((extra, scale.shape[1]), np.float32)])
+                    offset = np.concatenate(
+                        [offset, np.zeros((extra, offset.shape[1]), np.float32)])
+                    dead = np.concatenate(
+                        [dead, np.ones((extra, dead.shape[1]), bool)])
             self.chunk_leaves = c
             lo = np.arange(n_chunks, dtype=np.int64) * c
             self.chunk_lo = lo
@@ -98,6 +121,18 @@ class ChunkedLeafStore:
         self.host = torch.from_numpy(host)
         if self._cuda and n_chunks > 1:
             self.host = self.host.pin_memory()
+        # host copies of the dequantize metadata (None for fp32 stores)
+        self.q_scale, self.q_offset, self.dead = scale, offset, dead
+        self._meta: Optional[Tuple] = None
+        if self.quantized:
+            def up(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+            self._meta = (
+                up(scale) if self.affine else None,
+                up(offset) if self.affine else None,
+                up(pack_dead(dead)),
+            )
         self._slots = (_Slot(), _Slot())
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self._cuda and n_chunks > 1 else None
@@ -127,6 +162,44 @@ class ChunkedLeafStore:
         lo, hi = self._slab_range(0)
         return int((hi - lo) * self.host.shape[1] * self.host.shape[2]
                    * self.host.element_size())
+
+    # -- quantization metadata ---------------------------------------------
+    @property
+    def affine(self) -> bool:
+        """True when dequantize needs the per-leaf scale/offset (int8);
+        fp16 is a plain cast and keeps only the dead mask resident."""
+        return self.precision == "int8"
+
+    def device_meta(self) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], torch.Tensor]:
+        """Device-resident dequantize metadata ``(scale f32[L, d], offset
+        f32[L, d], dead u8[L, ceil(L_pad/8)])`` over every leaf of the
+        (padded) store, uploaded once at construction; scale and offset are
+        None for fp16.  Only quantized stores have it."""
+        if self._meta is None:
+            raise ValueError("an fp32 store has no dequantize metadata")
+        return self._meta
+
+    def meta_bytes(self) -> int:
+        """Device bytes of the dequantize metadata (0 for fp32 stores):
+        the packed dead mask, plus scale/offset for int8 stores."""
+        if not self.quantized:
+            return 0
+        packed = self.dead.shape[0] * (-(-self.dead.shape[1] // 8))
+        if not self.affine:
+            return packed
+        return int(self.q_scale.nbytes + self.q_offset.nbytes) + packed
+
+    def kill_rows(self, leaf_ids, rows) -> None:
+        raise NotImplementedError(
+            "ChunkedLeafStore.kill_rows (tombstone reclaim of the mutable "
+            "index) is not ported yet: ROADMAP Queue 1 item 14"
+        )
+
+    def quantized_state(self):
+        raise NotImplementedError(
+            "ChunkedLeafStore.quantized_state (the snapshot view of the "
+            "store) is not ported yet: ROADMAP Queue 1 item 15"
+        )
 
     # -- streaming ----------------------------------------------------------
     def _copy_chunk(self, j: int, slot: _Slot) -> None:
@@ -179,7 +252,8 @@ class ChunkedLeafStore:
             cur = 1 - cur
 
     def resident_bytes(self) -> int:
-        """Device bytes held by the store (two slots, or full structure)."""
+        """Device bytes held by the store (two slots, or full structure),
+        including the dequantize metadata of quantized stores."""
         if self.n_chunks == 1:
-            return int(self.host.numel() * self.host.element_size())
-        return 2 * self.chunk_bytes
+            return int(self.host.numel() * self.host.element_size()) + self.meta_bytes()
+        return 2 * self.chunk_bytes + self.meta_bytes()

@@ -1,6 +1,6 @@
 """Chunk-resident bulk-synchronous LazySearch (the out-of-core fast path).
 
-Counterpart of ``repro.core.chunked_jit`` (fp32 store).  The host streams
+Counterpart of ``repro.core.chunked_jit``.  The host streams
 leaf-structure chunks (``ChunkedLeafStore``) and reads one i32[m]
 pending-leaf map per round; plan construction, the leaf scans, the top-k
 merge, leaf exit and re-advance run on the device, one ``_chunk_round`` per
@@ -37,9 +37,15 @@ Key properties, as in the reference:
     event) and schedules from the previous round's map, a one-round-stale
     superset of the live set.
 
+A quantized store (fp16/int8 codes) runs the same round: the leaf scan
+reads the chunk's codes and the store's resident dequantize metadata
+itself (no fp32 copy of the chunk is made), selected dead rows are dropped
+before the merge, and the traversal radius is inflated by the store's
+reconstruction bound ``quant_eps``, as in the reference.
+
 Torch has no jit cache; ``chunk_round_cache_size`` counts the distinct
-round shapes ``(m, tq, chunk shape, k)`` that have run, which keeps the
-ladder's "shapes are bounded" property testable.
+round shapes ``(m, tq, chunk shape, k, code dtype)`` that have run, which
+keeps the ladder's "shapes are bounded" property testable.
 """
 
 from __future__ import annotations
@@ -85,7 +91,8 @@ def compaction_ladder(m: int) -> Tuple[int, ...]:
 
 
 def chunk_round_cache_size() -> int:
-    """Distinct round shapes (m, tq, chunk shape, k) run in this process."""
+    """Distinct round shapes (m, tq, chunk shape, k, code dtype) run in this
+    process."""
     return len(_ROUND_SHAPES)
 
 
@@ -128,6 +135,8 @@ def _chunk_round(
     leaf_size,     # i32[n_leaves]
     split_dim,     # i64[2**h]
     split_val,     # f32[2**h]
+    meta=(None, None, None),  # quantized store: (scale, offset, dead) of every leaf
+    qeps: float = 0.0,        # traversal-radius inflation (quantization bound)
     *,
     k: int,
     tq: int,
@@ -136,19 +145,25 @@ def _chunk_round(
 ):
     """One bulk-synchronous round over the resident chunk: scan every query
     paused at a leaf of this chunk, merge its candidates, exit its leaf and
-    advance it to its next pending leaf.  Returns the new pending-leaf map
-    and the device scalar n_units."""
+    advance it to its next pending leaf.  ``dev_slab`` may hold fp16/int8
+    codes, with ``meta`` the store's device metadata (int8 scale and
+    offset, f32[L, d], None for fp16; the packed dead mask u8[L,
+    ceil(L_pad/8)]) over all leaves.  Returns the new pending-leaf map and
+    the device scalar n_units."""
     m = leaf.shape[0]
     c = dev_slab.shape[0]
-    _ROUND_SHAPES.add((m, tq, tuple(dev_slab.shape), k))
+    _ROUND_SHAPES.add((m, tq, tuple(dev_slab.shape), k, dev_slab.dtype))
     # one leaf holds at most L_pad candidates
     kl = min(k, dev_slab.shape[1])
 
     in_chunk = (leaf >= lo) & (leaf < lo + c)
     local = torch.where(in_chunk, leaf - lo, -1)
     unit_leaf, unit_query, n_units = _build_plan(local, tq, c)
+    # the slab is indexed by the chunk's leaf, the metadata by the global one
+    scale, offset, dead = (None if t is None else t[lo : lo + c] for t in meta)
     nd, nli = kops.leaf_scan_units(
-        qpad, dev_slab, unit_leaf, unit_query, n_units, k=kl, backend=backend
+        qpad, dev_slab, unit_leaf, unit_query, n_units, k=kl, backend=backend,
+        scale=scale, offset=offset, dead=dead,
     )
 
     # merge (rows >= n_units hold unit_query == -1: they land on the dump
@@ -157,6 +172,13 @@ def _chunk_round(
     ustart = leaf_start[gl]
     usize = leaf_size[gl]
     valid = nli < usize[:, None, None]
+    if dead is not None:
+        # a dead row below the leaf size (a PAD_COORD row baked into the
+        # slab, or a tombstone) can still be selected into a sparse leaf's
+        # tail; the exact re-rank would rescore it at its true coordinates
+        r = nli.clamp(0, dev_slab.shape[1] - 1).long()
+        bits = dead[unit_leaf.long()[:, None, None], r >> 3].long()
+        valid &= ((bits >> (7 - (r & 7))) & 1) == 0
     gidx = torch.where(valid, nli + ustart[:, None, None], -1).reshape(-1, kl)
     ndm = torch.where(valid, nd, kops.INVALID_DIST).reshape(-1, kl)
     flat_q = unit_query.reshape(-1)
@@ -175,7 +197,7 @@ def _chunk_round(
         node=torch.where(in_chunk, ex.node, node),
         fromc=torch.where(in_chunk, ex.fromc, fromc),
     )
-    radius = torch.sqrt(knn_d[:m, k - 1])
+    radius = torch.sqrt(knn_d[:m, k - 1]) + qeps
     new_leaf, st = traversal.advance(
         st, qpad, radius, split_dim, split_val, first_leaf_heap=first_leaf_heap
     )
@@ -233,6 +255,10 @@ class ChunkResidentEngine:
         self._leaf_chunk = store.chunk_of_leaf(
             np.arange(store.n_leaves, dtype=np.int64)
         )
+        # the dequantize metadata and radius inflation of a quantized store
+        # (the reference's ``_quant_args``)
+        self._meta = store.device_meta() if store.quantized else (None, None, None)
+        self._qeps = float(store.quant_eps)
 
     def warm(self, m: int, k: int, tq: int) -> int:
         """Run the round once at the full batch shape and at every
@@ -258,7 +284,7 @@ class ChunkResidentEngine:
                 _chunk_round(
                     node, fromc, leaf, knn_d, knn_i, qpad, dev_slab, lo,
                     self._leaf_start, self._leaf_size, self._split_dim,
-                    self._split_val, k=k, tq=tq,
+                    self._split_val, self._meta, self._qeps, k=k, tq=tq,
                     first_leaf_heap=self.first_leaf_heap, backend=self.backend,
                 )
         return len(shapes)
@@ -369,8 +395,8 @@ class ChunkResidentEngine:
                 leaf, nu = _chunk_round(
                     node, fromc, leaf, knn_d, knn_i, qpad, dev_slab, lo,
                     self._leaf_start, self._leaf_size, self._split_dim,
-                    self._split_val, k=k, tq=tq, first_leaf_heap=first_leaf,
-                    backend=self.backend,
+                    self._split_val, self._meta, self._qeps, k=k, tq=tq,
+                    first_leaf_heap=first_leaf, backend=self.backend,
                 )
                 unit_counts.append(nu)
                 info["chunk_rounds"] += 1

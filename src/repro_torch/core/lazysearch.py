@@ -4,8 +4,12 @@ Counterpart of ``repro.core.lazysearch`` on the ``chunked`` engine: the
 chunk-resident bulk-synchronous round loop
 (``chunked_jit.ChunkResidentEngine``) over a double-buffered
 ``ChunkedLeafStore``, followed by an exact fp32 re-rank of the selected
-candidates on the host (``finalize_candidates``).  The paper-faithful host
-loop (``engine="host"``) is not ported yet (ROADMAP Queue 1 item 17).
+candidates on the host (``finalize_candidates``).  A store of fp16/int8
+codes runs the engine at ``k + QUANT_OVERFETCH`` (``_engine_k``) and the
+re-rank from the fp32 ``tree.points`` slices back to k; rows whose answer
+the quantization band leaves unproven are searched again
+(``BufferKDTree.search``).  The paper-faithful host loop
+(``engine="host"``) is not ported yet (ROADMAP Queue 1 item 17).
 
 Defaults follow the paper's footnote 8: for tree height h, buffer capacity
 B = 2^(24-h) (capped), the input of the B/2 chunk-visit rule.
@@ -14,16 +18,19 @@ B = 2^(24-h) (capped), the input of the B/2 chunk-visit rule.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.brute import knn_brute
 from repro_torch.core.chunked import ChunkedLeafStore
 from repro_torch.core.chunked_jit import (
     DEFAULT_STARVATION_DEADLINE,
     ChunkResidentEngine,
 )
+from repro_torch.core.quantize import QUANT_OVERFETCH, QUANT_REFINE_OVERFETCH
 from repro_torch.core.toptree import (
     TopTree,
     build_top_tree,
@@ -76,6 +83,34 @@ class SearchStats:
     tail_s: float = 0.0      # wall seconds in tail (compacted) rounds
     sync_wait_s: float = 0.0  # wall seconds blocked on readbacks/barriers
     chunk_copies: int = 0    # host->device chunk transfers in this call
+    early_retired: int = 0   # rows delivered by the streaming hook before
+                             # the round loop finished (0 on batch queries)
+    refined_rows: int = 0    # quantized: rows run again at the wider overfetch
+    exact_rows: int = 0      # quantized: rows answered by fp32 brute force
+
+    @classmethod
+    def from_info(cls, info, leaf_pad: int) -> "SearchStats":
+        """Stats from ``ChunkResidentEngine.run`` counters (summed over the
+        runs of one search)."""
+        get = info.get
+        return cls(
+            iterations=get("rounds", 0),
+            flushes=get("rounds", 0),
+            units_scanned=get("units", 0),
+            points_scanned=get("units", 0) * leaf_pad,
+            queries_advanced=get("queries_advanced", 0),
+            chunk_rounds=get("chunk_rounds", 0),
+            compactions=get("compactions", 0),
+            steady_rounds=get("steady_rounds", 0),
+            tail_rounds=get("tail_rounds", 0),
+            steady_s=get("steady_s", 0.0),
+            tail_s=get("tail_s", 0.0),
+            sync_wait_s=get("sync_wait_s", 0.0),
+            chunk_copies=get("chunk_copies", 0),
+            early_retired=get("early_retired", 0),
+            refined_rows=get("refined_rows", 0),
+            exact_rows=get("exact_rows", 0),
+        )
 
 
 class BufferKDTree:
@@ -134,6 +169,7 @@ class BufferKDTree:
         self.store = ChunkedLeafStore(
             self.tree.points_padded, n_chunks=n_chunks, device=self.device,
             uniform=True, precision=precision,
+            leaf_sizes=self.tree.leaf_sizes(),
         )
         self.precision = self.store.precision
         self.buffer_size = int(
@@ -171,39 +207,121 @@ class BufferKDTree:
         """Stats of the most recent ``query`` call (immutable snapshot)."""
         return self._last_stats
 
+    def _engine_k(self, k: int) -> int:
+        """Selection width the engine runs at: quantized stores overfetch so
+        the exact fp32 re-rank sees past the quantization selection band
+        (``quantize.QUANT_OVERFETCH``); fp32 runs at k."""
+        if self.store.quantized:
+            return min(k + QUANT_OVERFETCH, self.n)
+        return k
+
     def warm(self, m: int, k: int = 10) -> None:
         """Run the chunk round once at the full shape of a batch of ``m``
         and at every compaction-ladder rung (builds the kernel)."""
-        self._engine.warm(m, k, self.engine_tile_q)
+        self._engine.warm(m, self._engine_k(k), self.engine_tile_q)
+
+    def check_queries(self, queries: np.ndarray, k: int) -> np.ndarray:
+        """``queries`` as f32[m, d], after checking them and k."""
+        queries = np.asarray(queries, dtype=np.float32)
+        if queries.ndim != 2 or queries.shape[1] != self.d:
+            raise ValueError(f"queries must be [m, {self.d}], got {queries.shape}")
+        if k > self.n:
+            raise ValueError(f"k={k} > n={self.n}")
+        return queries
+
+    def _certified(self, queries, d2, dists, k: int, k_eff: int) -> np.ndarray:
+        """Rows whose rescored top-k is proven exact (up to ties).
+
+        Every point the engine did not return at width ``k_eff`` has an
+        approximate distance of at least the k_eff-th one, ``sqrt(d2[:,
+        k_eff-1])`` (leaves pruned by the eps-inflated radius are farther
+        still), so its true distance is at least that minus ``quant_eps``.
+        When this is no less than the exact k-th distance, no point left
+        out can be nearer.  ``d2`` carries fp32 rounding of the ||q||^2 -
+        2 q.x + ||x||^2 form, taken off with a bound first.  fp32 stores,
+        and a k_eff reaching n, are exact by construction."""
+        if not self.store.quantized or k_eff >= self.n:
+            return np.ones(len(queries), bool)
+        qn = np.sqrt(np.sum(queries.astype(np.float64) ** 2, axis=1))
+        slack = 2 * (self.d + 2) * 2.0 ** -24 * (qn + self._x_norm_max) ** 2
+        far = np.sqrt(np.maximum(d2[:, k_eff - 1].astype(np.float64) - slack, 0.0))
+        return far - self.store.quant_eps >= dists[:, k - 1].astype(np.float64)
+
+    @functools.cached_property
+    def _x_norm_max(self) -> float:
+        """Largest norm a dequantized point can have (bounds fp32 error)."""
+        norms = np.sqrt(np.sum(self.tree.points.astype(np.float64) ** 2, axis=1))
+        return float(norms.max()) + self.store.quant_eps
+
+    def _exact_rows(self, queries: np.ndarray, k: int):
+        """fp32 brute force of a few rows over the host points, one tile of
+        points on the device at a time (the last resort of ``search``)."""
+        dists, ri = knn_brute(queries, self.tree.points, k, device=self.device)
+        return dists, self.tree.orig_idx[ri].astype(np.int64)
+
+    def search(self, queries: np.ndarray, k: int, emit=None):
+        """Exact top-k of every row: ``(dists f32[m, k], idx i64[m, k],
+        SearchStats)``.  ``emit(rows, dists, idx)``, when given, receives
+        each row's final answer once, as soon as it is known (the streaming
+        path: rows retire during the round loop).
+
+        fp32 stores take one engine run at k.  Quantized stores run at
+        ``k + QUANT_OVERFETCH`` as the reference does, rescore exactly, and
+        keep the rows ``_certified`` proves; the rest run again at
+        ``k + QUANT_REFINE_OVERFETCH``, and rows still unproven take fp32
+        brute force.  (The reference keeps the first run's answer, which
+        can miss a true neighbour when more than QUANT_OVERFETCH points lie
+        within the quantization band of the k-th.)"""
+        m = queries.shape[0]
+        out_d = np.empty((m, k), np.float32)
+        out_i = np.full((m, k), -1, np.int64)
+        totals: dict = {}
+        rows = np.arange(m)
+        passes = [self._engine_k(k)]
+        if self.store.quantized:
+            passes.append(min(k + QUANT_REFINE_OVERFETCH, self.n))
+        for p, k_eff in enumerate(passes):
+            if rows.size == 0 or (p > 0 and k_eff <= passes[p - 1]):
+                break
+            q_rows = queries[rows]
+            open_rows = []
+
+            def deliver(rr, d2, gi, q_rows=q_rows, rows=rows, k_eff=k_eff,
+                        open_rows=open_rows):
+                dists, idx = finalize_candidates(self.tree, q_rows[rr], gi)
+                ok = self._certified(q_rows[rr], d2, dists, k, k_eff)
+                done = rows[rr[ok]]
+                out_d[done] = dists[ok, :k]
+                out_i[done] = idx[ok, :k]
+                if emit is not None and done.size:
+                    emit(done, out_d[done], out_i[done])
+                open_rows.append(rows[rr[~ok]])
+
+            q = torch.from_numpy(np.ascontiguousarray(q_rows)).to(self.device)
+            d2, gi, info = self._engine.run(
+                q, k_eff, self.engine_tile_q, self.buffer_size,
+                on_retire=deliver if emit is not None else None,
+            )
+            if emit is None:
+                deliver(np.arange(rows.size), d2, gi)
+            for key, v in info.items():
+                totals[key] = totals.get(key, 0) + v
+            if p > 0:
+                totals["refined_rows"] = totals.get("refined_rows", 0) + rows.size
+            rows = np.concatenate(open_rows) if open_rows else rows[:0]
+        if rows.size:
+            dists, idx = self._exact_rows(queries[rows], k)
+            out_d[rows], out_i[rows] = dists, idx
+            if emit is not None:
+                emit(rows, dists, idx)
+            totals["exact_rows"] = int(rows.size)
+        return out_d, out_i, SearchStats.from_info(totals, self.store.host.shape[1])
 
     def query(
         self, queries: np.ndarray, k: int = 10
     ) -> Tuple[np.ndarray, np.ndarray]:
         """k nearest neighbors for every query: (dists f32[m, k] ascending
         Euclidean, idx i64[m, k] into the caller's original ordering)."""
-        queries = np.asarray(queries, dtype=np.float32)
-        m, d = queries.shape
-        if d != self.d:
-            raise ValueError(f"query dim {d} != reference dim {self.d}")
-        if k > self.n:
-            raise ValueError(f"k={k} > n={self.n}")
-        q = torch.from_numpy(np.ascontiguousarray(queries)).to(self.device)
-        _d2, gi, info = self._engine.run(
-            q, k, self.engine_tile_q, self.buffer_size
-        )
-        self._last_stats = SearchStats(
-            iterations=info["rounds"],
-            flushes=info["rounds"],
-            units_scanned=info["units"],
-            points_scanned=info["units"] * self.store.host.shape[1],
-            queries_advanced=info["queries_advanced"],
-            chunk_rounds=info["chunk_rounds"],
-            compactions=info["compactions"],
-            steady_rounds=info["steady_rounds"],
-            tail_rounds=info["tail_rounds"],
-            steady_s=info["steady_s"],
-            tail_s=info["tail_s"],
-            sync_wait_s=info["sync_wait_s"],
-            chunk_copies=info["chunk_copies"],
-        )
-        return finalize_candidates(self.tree, queries, gi)
+        queries = self.check_queries(queries, k)
+        dists, idx, self._last_stats = self.search(queries, k)
+        return dists, idx

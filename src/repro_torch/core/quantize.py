@@ -1,10 +1,13 @@
 """Per-leaf affine quantization of leaf coordinate slabs.
 
 A numpy copy of ``repro.core.quantize`` (the port imports nothing of the
-JAX package).  The port's chunked engine runs the fp32 store only: its
-``ChunkedLeafStore`` raises ``NotImplementedError`` for fp16/int8 until the
-quantized scan path is ported; the codes computed here already match the
-reference bit for bit.
+JAX package); the codes match the reference bit for bit.  The port keeps
+slab rows at the points' own width d where the reference pads them to a
+multiple of 8: int8 codes, scales and offsets are the reference's without
+its pad columns (whose scale is 0), and the fp16 ``eps`` lacks the 2^-24
+that ``_fp16_eps`` adds per pad column.  ``pack_dead`` / ``unpack_dead``
+are the bit-packed dead mask the quantized store keeps on the device and
+the leaf scan reads.
 
 The leaf structure is the only O(n d) device payload; storing it in fp16 or
 int8 multiplies how many reference points fit a fixed ``memory_budget`` by
@@ -24,6 +27,10 @@ keeps every leaf that could hold a true neighbor on the visit schedule.
 In-leaf top-k selection by quantized distance can still swap candidates
 whose true distances differ by less than ``2e``; the engines overfetch
 (``k_eff = k + QUANT_OVERFETCH``) so the exact re-rank sees past that band.
+That holds only while fewer than QUANT_OVERFETCH points lie in the band,
+so the port proves each row's answer after the re-rank and searches the
+rest again with ``QUANT_REFINE_OVERFETCH`` extra candidates
+(``lazysearch.BufferKDTree.search``).
 
 Generalizes the symmetric int8 scheme in ``training/compression.py`` to a
 per-leaf, per-dimension affine code (offset = min, scale = range/255): leaf
@@ -38,14 +45,18 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "PRECISIONS",
     "BYTES_PER_ELEM",
     "QUANT_OVERFETCH",
+    "QUANT_REFINE_OVERFETCH",
     "QuantizedSlabs",
+    "pack_dead",
     "quantize_slabs",
     "slab_dtype",
+    "unpack_dead",
 ]
 
 # Supported slab storage precisions (spec/plan vocabulary).
@@ -59,6 +70,11 @@ BYTES_PER_ELEM: Dict[str, int] = {"fp32": 4, "fp16": 2, "int8": 1}
 # the 2*eps selection band around the k-th distance (see module docstring).
 QUANT_OVERFETCH = 8
 
+# The port's second pass (``lazysearch.BufferKDTree.search``): rows whose
+# first answer the quantization band leaves unproven run again with this
+# many extra candidates.
+QUANT_REFINE_OVERFETCH = 64
+
 _UINT8_LEVELS = 255.0
 
 # Rows carrying the PAD_COORD sentinel (1e18) in any dimension are padding
@@ -67,6 +83,23 @@ _UINT8_LEVELS = 255.0
 # They must never enter a range fit — one sentinel row would blow an int8
 # leaf's scale to ~4e15 — so they are detected and marked dead here.
 _PAD_DETECT = 1.0e17
+
+
+def pack_dead(dead: np.ndarray) -> np.ndarray:
+    """Bit-packed dead mask: bool[n_leaves, L_pad] -> u8[n_leaves,
+    ceil(L_pad/8)], row r of a leaf in bit 7 - (r % 8) of byte r // 8
+    (``np.packbits`` big-endian, as the reference's ``device_meta``)."""
+    return np.packbits(np.asarray(dead, bool), axis=1)
+
+
+def unpack_dead(bits, l_pad: int):
+    """Inverse of ``pack_dead`` for a torch u8[..., ceil(L_pad/8)] tensor:
+    bool[..., L_pad], on the tensor's device."""
+    import torch
+
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=bits.device)
+    unpacked = (bits[..., None] >> shifts) & 1
+    return unpacked.reshape(*bits.shape[:-1], -1)[..., :l_pad].bool()
 
 
 def slab_dtype(precision: str) -> np.dtype:

@@ -73,6 +73,24 @@
 // dominates the per-pair selection work and K pads little: from d of about
 // 64 on (ROADMAP Queue 2).
 //
+// Codes.  A slab may hold fp32 rows, float16 codes or uint8 codes with a
+// per-leaf, per-feature scale and offset (the budgeted leaf store,
+// core/chunked.py), plus a bit-packed dead-row mask (np.packbits order, row
+// r in bit 7 - r%8 of byte r/8).  The code type is a runtime argument read
+// where a tile is copied and staged; the pair loop, filter and lists never
+// see it.  For codes the block copies the tile's raw byte range with
+// 4-byte cp.async in whole words (a leaf's base need not be 4-byte
+// aligned: uint8 at odd d) and plain loads for the up to 3 bytes at either
+// end, then, after one barrier, stages each row dequantized:
+// code * scale + offset rounded twice (__fmul_rn, __fadd_rn, as the plain
+// version's torch multiply and add) for uint8, an exact cast for float16.
+// A dead row is staged as PAD_COORD in every real column, like an fp32
+// pad row, so it loses every contest and fills the tail in index order.
+// This is what the reference does in jnp around the Pallas kernel
+// (repro/core/chunked_jit.py::_chunk_round), with no fp32 copy of the
+// chunk: the scan reads 1 or 2 bytes per coordinate instead of 4.  The
+// fp32 path copies and stages exactly as before.
+//
 // Every instance forms the same floating-point values (the FMA chain in
 // feature order from ||x||^2, zero columns adding exact zeros), so they
 // agree bit for bit with each other.  The Python wrapper
@@ -80,8 +98,10 @@
 // block width, list placement and dynamic shared memory; this file checks
 // the choice and launches it.  Plain C interface, loaded with ctypes.
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
+#include <stdint.h>
 #include <math.h>
 #include <type_traits>
 
@@ -101,14 +121,56 @@ constexpr int PASS = 32;          // narrow: rows per filter mask word
 constexpr int WIDE_ROWS = 32;     // wide: slab rows per sub-tile
 constexpr int WIDE_DC = 16;       // wide: features per chunk
 constexpr int SMEM_LIMIT = 232448;
+constexpr float PAD_COORD = 1.0e18f;  // kernels/ref.py PAD_COORD
 
 enum Kind { NARROW = 0, WIDE = 1 };
 enum ListAt { LIST_REG = 0, LIST_SMEM = 1, LIST_OUT = 2 };
+enum Code { CODE_F32 = 0, CODE_F16 = 1, CODE_U8 = 2 };
 
 // Floats per staged row: DW coordinates, the norm, zeros to 16 bytes.
 __host__ __device__ constexpr int row_stride(int dw) { return (dw + 4) / 4 * 4; }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__host__ __device__ constexpr int code_bytes(int code) {
+  return code == CODE_F32 ? 4 : (code == CODE_F16 ? 2 : 1);
+}
+// Narrow kernel, shared memory before the staged rows: for fp32 two raw
+// tiles of TILE rows; for codes the uint8 scale and offset of the leaf
+// (2d floats, rounded up to 16 bytes), then two raw byte tiles with 4
+// bytes of slack for an unaligned start, each rounded up to 16 bytes.
+__host__ __device__ constexpr int raw_tile_bytes(int code, int d) {
+  return code == CODE_F32 ? TILE * d * 4 : (TILE * d * code_bytes(code) + 4 + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int meta_floats(int code, int d) {
+  return code == CODE_U8 ? (2 * d + 3) / 4 * 4 : 0;
+}
+__host__ __device__ constexpr int raw_region_bytes(int code, int d) {
+  return 4 * meta_floats(code, d) + 2 * raw_tile_bytes(code, d);
+}
+
+// The slab's code type and dequantize metadata, indexed by the slab's leaf.
+struct Codes {
+  int code;
+  const float* scale;          // u8: f32[leaves, d]
+  const float* offset;         // u8: f32[leaves, d]
+  const unsigned char* dead;   // codes: u8[leaves, dead_stride], packed rows
+  int dead_stride;             // ceil(l_pad / 8)
+};
+
+__device__ __forceinline__ bool row_dead(const Codes& c, int leaf, int r) {
+  return c.code != CODE_F32 &&
+         ((c.dead[(size_t)leaf * c.dead_stride + (r >> 3)] >> (7 - (r & 7))) & 1);
+}
+// Element e of a code array, dequantized with the feature's scale/offset.
+__device__ __forceinline__ float decode(int code, const void* base, size_t e, float sc,
+                                        float of) {
+  if (code == CODE_U8)
+    return __fadd_rn(__fmul_rn(static_cast<float>(static_cast<const unsigned char*>(base)[e]), sc),
+                     of);
+  if (code == CODE_F16) return __half2float(static_cast<const __half*>(base)[e]);
+  return static_cast<const float*>(base)[e];
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
@@ -227,8 +289,8 @@ __device__ __forceinline__ void init_mem_list(MemList& l, int list_at, float* ls
 // memory list.
 template <int DW, int KMAX>
 __global__ void __launch_bounds__(MAX_TQ / QPT)
-leaf_scan_narrow_kernel(const float* __restrict__ qpad, const float* __restrict__ slab,
-                        const int* __restrict__ unit_leaf,
+leaf_scan_narrow_kernel(const float* __restrict__ qpad, const void* __restrict__ slab,
+                        const Codes codes, const int* __restrict__ unit_leaf,
                         const int* __restrict__ unit_query,
                         const int* __restrict__ n_units, float* __restrict__ out_d,
                         int* __restrict__ out_i, int tq, int l_pad, int d, int kl,
@@ -239,8 +301,14 @@ leaf_scan_narrow_kernel(const float* __restrict__ qpad, const float* __restrict_
   if (w >= *n_units) return;  // uniform per block: before any barrier
   extern __shared__ __align__(16) float smem[];
   const int t = threadIdx.x, nt = blockDim.x;
-  float* raw = smem;                    // [2][TILE * d] rows as stored
-  float* xs = raw + 2 * TILE * d;       // [2][TILE * S] staged rows
+  const int code = codes.code;
+  const bool coded = code != CODE_F32;
+  const int es = code_bytes(code), rtb = raw_tile_bytes(code, d);
+  float* sc = smem;                     // [d] uint8 scale of the leaf
+  float* of = smem + d;                 // [d] uint8 offset of the leaf
+  // [2][rtb] tiles as stored
+  unsigned char* raw = reinterpret_cast<unsigned char*>(smem + meta_floats(code, d));
+  float* xs = smem + raw_region_bytes(code, d) / 4;  // [2][TILE * S] staged rows
   float* lsd = xs + 2 * TILE * S;       // [kl][QPT * nt] list in shared memory
   int* lsi = reinterpret_cast<int*>(lsd + (size_t)kl * QPT * nt);
 
@@ -268,47 +336,116 @@ leaf_scan_narrow_kernel(const float* __restrict__ qpad, const float* __restrict_
     }
     bound[s] = active ? INFINITY : -INFINITY;  // an unused slot takes no row
   }
-  const float* xl = slab + (size_t)unit_leaf[w] * l_pad * d;
+  const int leaf = unit_leaf[w];
+  const unsigned char* xl =
+      static_cast<const unsigned char*>(slab) + (size_t)leaf * l_pad * d * es;
   const int ntiles = (l_pad + TILE - 1) / TILE;
-  // each thread copies (and later stages) rows t, t + nt, ... of a tile
+  // The tile's first byte sits `lead` bytes past a 4-byte boundary; the
+  // raw tile keeps that offset so whole words copy to whole words.
+  auto lead = [&](int it) {
+    return static_cast<int>(reinterpret_cast<uintptr_t>(xl + (size_t)it * TILE * d * es) & 3);
+  };
+  // fp32: each thread copies (and later stages) rows t, t + nt, ... of a
+  // tile.  Codes: the block copies the tile's byte range, words by cp.async
+  // and the bytes before the first and after the last whole word by plain
+  // loads.
   auto issue = [&](int it) {
     if (it < ntiles) {
       const int r0 = it * TILE, rows = min(TILE, l_pad - r0);
-      float* dst = raw + (it & 1) * TILE * d;
-      for (int r = t; r < rows; r += nt)
-        for (int j = 0; j < d; ++j)
-          cp_async4(dst + r * d + j, xl + (size_t)(r0 + r) * d + j);
+      unsigned char* dst = raw + (it & 1) * rtb;
+      if (!coded) {
+        const float* xf = reinterpret_cast<const float*>(xl);
+        float* df = reinterpret_cast<float*>(dst);
+        for (int r = t; r < rows; r += nt)
+          for (int j = 0; j < d; ++j)
+            cp_async4(df + r * d + j, xf + (size_t)(r0 + r) * d + j);
+      } else {
+        const int a = lead(it), e = a + rows * d * es;  // bytes [a, e) of the window
+        const unsigned char* g = xl + (size_t)r0 * d * es - a;  // 4-byte aligned
+        const int wb = (a + 3) >> 2, we = e >> 2;          // whole words [wb, we)
+        for (int k = wb + t; k < we; k += nt) cp_async4(dst + 4 * k, g + 4 * k);
+        if (t < 3) {
+          const int h = a + t, h_end = min(4 * wb, e);      // bytes before word wb
+          if (h < h_end) dst[h] = g[h];
+          const int b = max(4 * we, 4 * wb) + t;           // bytes after word we
+          if (b < e) dst[b] = g[b];
+        }
+      }
     }
     cp_async_commit();  // one group per tile, empty past the end
   };
-  issue(0);
-  issue(1);
+  if (coded) {
+    // a tile's bytes come from every thread: the block meets between a
+    // tile's copy and its staging
+    if (code == CODE_U8)
+      for (int j = t; j < d; j += nt) {
+        sc[j] = codes.scale[(size_t)leaf * d + j];
+        of[j] = codes.offset[(size_t)leaf * d + j];
+      }
+    issue(0);
+    cp_async_wait<0>();
+    __syncthreads();
+    issue(1);
+  } else {
+    issue(0);
+    issue(1);
+  }
 
   for (int it = 0; it < ntiles; ++it) {
     const int r0 = it * TILE, rows = min(TILE, l_pad - r0);
-    cp_async_wait<1>();  // this thread's copies of tile `it` have landed
-    const float* src = raw + (it & 1) * TILE * d;
     float* xt = xs + (it & 1) * TILE * S;
-    for (int r = t; r < TILE; r += nt) {
-      float v[S];
-      float n = 0.f;
+    if (!coded) {
+      cp_async_wait<1>();  // this thread's copies of tile `it` have landed
+      const float* src = reinterpret_cast<const float*>(raw + (it & 1) * rtb);
+      for (int r = t; r < TILE; r += nt) {
+        float v[S];
+        float n = 0.f;
 #pragma unroll
-      for (int j = 0; j < DW; ++j) {
-        v[j] = (r < rows && j < d) ? src[r * d + j] : 0.f;
-        n = fmaf(v[j], v[j], n);
+        for (int j = 0; j < DW; ++j) {
+          v[j] = (r < rows && j < d) ? src[r * d + j] : 0.f;
+          n = fmaf(v[j], v[j], n);
+        }
+        v[DW] = r < rows ? n : INFINITY;  // a row past the leaf never passes
+#pragma unroll
+        for (int j = DW + 1; j < S; ++j) v[j] = 0.f;
+#pragma unroll
+        for (int j = 0; j < S; j += 4)
+          *reinterpret_cast<float4*>(xt + r * S + j) =
+              make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
       }
-      v[DW] = r < rows ? n : INFINITY;  // a row past the leaf never passes
+    } else {
+      // tile `it` landed before the last barrier; wait for this thread's
+      // copies of tile it+1, which the barrier below publishes
+      cp_async_wait<0>();
+      const unsigned char* src = raw + (it & 1) * rtb + lead(it);
+      for (int r = t; r < TILE; r += nt) {
+        const bool dead = r < rows && row_dead(codes, leaf, r0 + r);
+        float v[S];
+        float n = 0.f;
 #pragma unroll
-      for (int j = DW + 1; j < S; ++j) v[j] = 0.f;
+        for (int j = 0; j < DW; ++j) {
+          v[j] = (r < rows && j < d)
+                     ? (dead ? PAD_COORD
+                             : decode(code, src, (size_t)r * d + j,
+                                      code == CODE_U8 ? sc[j] : 1.f,
+                                      code == CODE_U8 ? of[j] : 0.f))
+                     : 0.f;
+          n = fmaf(v[j], v[j], n);
+        }
+        v[DW] = r < rows ? n : INFINITY;
 #pragma unroll
-      for (int j = 0; j < S; j += 4)
-        *reinterpret_cast<float4*>(xt + r * S + j) =
-            make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+        for (int j = DW + 1; j < S; ++j) v[j] = 0.f;
+#pragma unroll
+        for (int j = 0; j < S; j += 4)
+          *reinterpret_cast<float4*>(xt + r * S + j) =
+              make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+      }
     }
     // tile `it` is staged by every thread, and every thread is done with
-    // tile it-1, whose staging buffer the next iteration overwrites
+    // tile it-1, whose staging buffer the next iteration overwrites (and,
+    // for codes, with raw[it & 1], and tile it+1's bytes are in place)
     __syncthreads();
-    issue(it + 2);  // only this thread reads its rows of raw[it & 1]
+    issue(it + 2);  // fp32: only this thread reads its rows of raw[it & 1]
 
     // inserts in ascending row order, each re-checked against the list as
     // it is then (the same FMA chain gives the same acc)
@@ -386,10 +523,12 @@ leaf_scan_narrow_kernel(const float* __restrict__ qpad, const float* __restrict_
 #if LEAF_SCAN_PART == 0
 // Wide kernel, any d: one query per thread, rows in sub-tiles of WIDE_ROWS
 // whose features pass through shared memory WIDE_DC at a time, the list in
-// memory.  Same arithmetic as the narrow kernel.
+// memory.  Same arithmetic as the narrow kernel; codes are read and
+// dequantized where a row's features are loaded.
 __global__ void __launch_bounds__(MAX_TQ)
-leaf_scan_wide_kernel(const float* __restrict__ qpad, const float* __restrict__ slab,
-                      const int* __restrict__ unit_leaf, const int* __restrict__ unit_query,
+leaf_scan_wide_kernel(const float* __restrict__ qpad, const void* __restrict__ slab,
+                      const Codes codes, const int* __restrict__ unit_leaf,
+                      const int* __restrict__ unit_query,
                       const int* __restrict__ n_units, float* __restrict__ out_d,
                       int* __restrict__ out_i, int tq, int l_pad, int d, int kl,
                       int list_at) {
@@ -414,16 +553,28 @@ leaf_scan_wide_kernel(const float* __restrict__ qpad, const float* __restrict__ 
                   t, kl);
   float bound = active ? INFINITY : -INFINITY;
 
-  const float* xl = slab + (size_t)unit_leaf[w] * l_pad * d;
+  const int code = codes.code, leaf = unit_leaf[w];
+  const void* xl =
+      static_cast<const unsigned char*>(slab) + (size_t)leaf * l_pad * d * code_bytes(code);
+  const bool affine = code == CODE_U8;
+  const float* sc = affine ? codes.scale + (size_t)leaf * d : nullptr;
+  const float* of = affine ? codes.offset + (size_t)leaf * d : nullptr;
+  // feature j of leaf row r, dequantized; a dead row is PAD_COORD
+  auto x_at = [&](int r, int j) {
+    if (row_dead(codes, leaf, r)) return PAD_COORD;
+    return decode(code, xl, (size_t)r * d + j, affine ? sc[j] : 1.f, affine ? of[j] : 0.f);
+  };
   for (int r0 = 0; r0 < l_pad; r0 += WIDE_ROWS) {
     const int rows = min(WIDE_ROWS, l_pad - r0);
     __syncthreads();  // every thread is done with the previous sub-tile
     if (t < WIDE_ROWS) {
       float n = INFINITY;  // a row past the leaf never passes
       if (t < rows) {
-        const float* xr = xl + (size_t)(r0 + t) * d;
         n = 0.f;
-        for (int j = 0; j < d; ++j) n = fmaf(xr[j], xr[j], n);
+        for (int j = 0; j < d; ++j) {
+          const float v = x_at(r0 + t, j);
+          n = fmaf(v, v, n);
+        }
       }
       xn[t] = n;
     }
@@ -432,7 +583,7 @@ leaf_scan_wide_kernel(const float* __restrict__ qpad, const float* __restrict__ 
       if (c0 > 0) __syncthreads();  // every thread is done with the last chunk
       for (int e = t; e < WIDE_ROWS * WIDE_DC; e += nt) {
         const int r = e / WIDE_DC, j = c0 + e % WIDE_DC;
-        xc[e] = (r < rows && j < d) ? xl[(size_t)(r0 + r) * d + j] : 0.f;
+        xc[e] = (r < rows && j < d) ? x_at(r0 + r, j) : 0.f;
       }
       __syncthreads();
       if (c0 == 0) {
@@ -469,7 +620,8 @@ leaf_scan_wide_kernel(const float* __restrict__ qpad, const float* __restrict__ 
 
 struct Launch {
   const float* qpad;
-  const float* slab;
+  const void* slab;
+  Codes codes;
   const int* unit_leaf;
   const int* unit_query;
   const int* n_units;
@@ -484,7 +636,7 @@ int launch(Kernel kernel, const Launch& a) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<a.w_rows, a.threads, a.smem, a.stream>>>(a.qpad, a.slab, a.unit_leaf,
+  kernel<<<a.w_rows, a.threads, a.smem, a.stream>>>(a.qpad, a.slab, a.codes, a.unit_leaf,
                                                      a.unit_query, a.n_units, a.out_d,
                                                      a.out_i, a.tq, a.l_pad, a.d, a.kl,
                                                      a.list_at);
@@ -511,8 +663,9 @@ int narrow(int dw, int kmax, const Launch& a) {
 }
 
 // Dynamic shared memory an instance needs (bytes); mirrors the wrapper.
-long smem_needed(int kind, int width, int qpt, int list_at, int threads, int d, int kl) {
-  long b = kind == NARROW ? 4L * (2L * TILE * d + 2L * TILE * row_stride(width))
+long smem_needed(int kind, int width, int qpt, int list_at, int threads, int d, int kl,
+                 int code) {
+  long b = kind == NARROW ? raw_region_bytes(code, d) + 4L * 2L * TILE * row_stride(width)
                           : 4L * (WIDE_ROWS * WIDE_DC + WIDE_ROWS);
   if (list_at == LIST_SMEM) b += 8L * kl * qpt * threads;
   return b;
@@ -522,28 +675,36 @@ long smem_needed(int kind, int width, int qpt, int list_at, int threads, int d, 
 
 extern "C" {
 
-// qpad f32[m, d]; slab f32[C, l_pad, d]; unit_leaf i32[w_rows] (leaf index
-// into slab); unit_query i32[w_rows, tq] (row of qpad, -1 for an empty
-// slot); n_units i32[1] on the device.  Writes out_d f32 and out_i i32
-// [w_rows, tq, kl] for plan rows < *n_units only.  The variant (kind,
-// width, kmax, qpt, list_at, threads, smem_bytes) is the wrapper's choice.
-// Returns 0 or a cudaError_t; -1 for a choice that does not fit the
-// arguments, -2 for an instance this library does not hold.
-int leaf_scan_units(const float* qpad, const float* slab, const int* unit_leaf,
+// qpad f32[m, d]; slab [C, l_pad, d] of f32, f16 or u8 (code 0, 1, 2);
+// for codes, dead u8[C, ceil(l_pad / 8)] (packed dead rows) and for u8
+// scale and offset f32[C, d], all indexed by the slab's leaf; unit_leaf
+// i32[w_rows] (leaf index into slab); unit_query i32[w_rows, tq] (row of
+// qpad, -1 for an empty slot); n_units i32[1] on the device.  Writes out_d
+// f32 and out_i i32 [w_rows, tq, kl] for plan rows < *n_units only.  The
+// variant (kind, width, kmax, qpt, list_at, threads, smem_bytes) is the
+// wrapper's choice.  Returns 0 or a cudaError_t; -1 for a choice that does
+// not fit the arguments, -2 for an instance this library does not hold.
+int leaf_scan_units(const float* qpad, const void* slab, const int* unit_leaf,
                     const int* unit_query, const int* n_units, float* out_d, int* out_i,
                     int w_rows, int tq, int l_pad, int d, int kl, int kind, int width,
-                    int kmax, int qpt, int list_at, int threads, int smem_bytes,
+                    int kmax, int qpt, int list_at, int threads, int smem_bytes, int code,
+                    const float* scale, const float* offset, const unsigned char* dead,
                     void* stream) {
   if (w_rows <= 0) return 0;
   const bool reg = list_at == LIST_REG;
   const bool list_ok = reg || list_at == LIST_SMEM || list_at == LIST_OUT;
-  if (tq < 1 || tq > MAX_TQ || d < 1 || kl < 1 || kl > l_pad || !list_ok ||
+  const bool code_ok = code == CODE_F32 ? dead == nullptr
+                                        : (code == CODE_F16 || code == CODE_U8) &&
+                                              dead != nullptr &&
+                                              (code == CODE_F16 || (scale && offset));
+  if (tq < 1 || tq > MAX_TQ || d < 1 || kl < 1 || kl > l_pad || !list_ok || !code_ok ||
       threads < 32 || threads % 32 != 0 || threads * qpt < tq ||
       reg != (kmax > 0) || (reg && kl > kmax) || smem_bytes > SMEM_LIMIT ||
-      smem_bytes < smem_needed(kind, width, qpt, list_at, threads, d, kl))
+      smem_bytes < smem_needed(kind, width, qpt, list_at, threads, d, kl, code))
     return -1;
-  const Launch a{qpad,   slab, unit_leaf, unit_query, n_units, out_d,   out_i,
-                 w_rows, tq,   l_pad,     d,          kl,      list_at, threads,
+  const Codes codes{code, scale, offset, dead, (l_pad + 7) / 8};
+  const Launch a{qpad,   slab, codes, unit_leaf, unit_query, n_units, out_d,   out_i,
+                 w_rows, tq,   l_pad, d,         kl,         list_at, threads,
                  smem_bytes, static_cast<cudaStream_t>(stream)};
   if (kind == NARROW) {
     if (d > width || qpt != QPT || threads > MAX_TQ / QPT) return -1;

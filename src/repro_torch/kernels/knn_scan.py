@@ -16,7 +16,12 @@ Two call forms, one kernel:
   -> f32[W, TQ, k], i32[W, TQ, k]), the same kernel with identity indices.
 
 Both launch the kernel or raise: they take CUDA tensors only, any
-1 <= k <= L_pad, any d >= 1 and TQ <= 128.  ``choose_variant`` is the one
+1 <= k <= L_pad, any d >= 1 and TQ <= 128.  The slab may hold fp32 rows or
+the budgeted store's codes (``core/chunked.py``): float16, or uint8 with a
+per-leaf scale and offset, each with the bit-packed dead-row mask.  The
+kernel reads the codes and dequantizes them as it stages a tile; the plain
+version dequantizes the gathered slabs as the reference's round does
+(``repro/core/chunked_jit.py::_chunk_round``) and scans them.  ``choose_variant`` is the one
 place that picks the kernel instance, block width, list placement and
 shared memory for a call; it runs without a card.  The plain version is
 ``leaf_scan_units_ref``; ``kernels/ops.py`` picks between the two by the
@@ -33,14 +38,18 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.quantize import unpack_dead
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import INVALID_DIST, leaf_scan_ref
+from repro_torch.kernels.ref import INVALID_DIST, PAD_COORD, leaf_scan_ref
 
 __all__ = [
     "leaf_scan_units",
     "leaf_scan_units_ref",
     "leaf_scan_cuda",
+    "dequantize",
+    "reset_launches",
     "choose_variant",
+    "CODES",
     "build_all",
     "Variant",
     "DEFAULT_TQ",
@@ -59,6 +68,10 @@ TILE = 64                        # narrow: slab rows per pipeline stage
 WIDE_ROWS, WIDE_DC = 32, 16      # wide: rows per sub-tile, features per chunk
 _KINDS = {"narrow": 0, "wide": 1}
 _LIST_AT = {"reg": 0, "smem": 1, "out": 2}
+# slab code types: name -> (csrc Code, bytes per coordinate, torch dtype)
+CODES = {"f32": (0, 4, torch.float32), "f16": (1, 2, torch.float16),
+         "u8": (2, 1, torch.uint8)}
+_CODE_OF_DTYPE = {dt: name for name, (_, _, dt) in CODES.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,24 +90,42 @@ class Variant:
     list_at: str
     threads: int
     smem_bytes: int
+    code: str = "f32"
 
     @property
     def name(self) -> str:
+        suffix = "" if self.code == "f32" else f"/{self.code}"
         if self.kind == "wide":
-            return f"wide/{self.list_at}"
-        return f"narrow<{self.width},{self.kmax}>/{self.list_at}"
+            return f"wide/{self.list_at}{suffix}"
+        return f"narrow<{self.width},{self.kmax}>/{self.list_at}{suffix}"
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def choose_variant(d: int, k: int, tq: int, l_pad: int) -> Variant:
-    """The kernel launch for rows of width ``d``, lists of ``k``, ``tq``
-    query slots and ``l_pad`` slab rows.  Rows of d <= 16 take the narrow
-    kernel at d rounded up to even (two queries per thread), with a
-    register list when k <= 16; longer lists go to shared memory while
-    they fit, else to the output rows.  Wider rows take the wide kernel."""
+def _raw_region_bytes(code: str, d: int) -> int:
+    """Narrow kernel: shared memory before the staged rows
+    (csrc/leaf_scan.cu ``raw_region_bytes``).  fp32: two raw tiles.
+    Codes: the uint8 scale and offset of the leaf, then two raw byte tiles
+    with 4 bytes of slack for an unaligned start, 16-byte aligned."""
+    es = CODES[code][1]
+    if code == "f32":
+        return 2 * TILE * d * 4
+    meta = 4 * _round_up(2 * d, 4) if code == "u8" else 0
+    return meta + 2 * _round_up(TILE * d * es + 4, 16)
+
+
+def choose_variant(d: int, k: int, tq: int, l_pad: int, code: str = "f32") -> Variant:
+    """The kernel launch for rows of width ``d`` stored as ``code`` ("f32",
+    "f16" or "u8"), lists of ``k``, ``tq`` query slots and ``l_pad`` slab
+    rows.  Rows of d <= 16 take the narrow kernel at d rounded up to even
+    (two queries per thread), with a register list when k <= 16; longer
+    lists go to shared memory while they fit, else to the output rows.
+    Wider rows take the wide kernel.  The code type changes only the
+    narrow kernel's raw tile bytes."""
+    if code not in CODES:
+        raise ValueError(f"code={code!r}: the leaf scan reads {sorted(CODES)}")
     if not 1 <= k <= l_pad:
         raise ValueError(f"k={k}: the leaf scan takes 1 <= k <= L_pad={l_pad}")
     if d < 1:
@@ -105,18 +136,18 @@ def choose_variant(d: int, k: int, tq: int, l_pad: int) -> Variant:
     if d <= NARROW_WIDTHS[-1]:
         kind, width, qpt = "narrow", d + d % 2, 2
         threads = max(32, _round_up(-(-tq // qpt), 32))
-        base = 4 * (2 * TILE * d + 2 * TILE * _round_up(width + 1, 4))
+        base = _raw_region_bytes(code, d) + 4 * 2 * TILE * _round_up(width + 1, 4)
         kmax = next((km for km in REG_KMAX if km >= k), 0)
     else:
         kind, width, qpt, kmax = "wide", WIDE_DC, 1, 0
         threads = _round_up(tq, 32)
         base = 4 * (WIDE_ROWS * WIDE_DC + WIDE_ROWS)
     if kmax:
-        return Variant(kind, width, kmax, qpt, "reg", threads, base)
+        return Variant(kind, width, kmax, qpt, "reg", threads, base, code)
     in_smem = base + 8 * k * qpt * threads
     if in_smem <= SMEM_LIMIT:
-        return Variant(kind, width, 0, qpt, "smem", threads, in_smem)
-    return Variant(kind, width, 0, qpt, "out", threads, base)
+        return Variant(kind, width, 0, qpt, "smem", threads, in_smem, code)
+    return Variant(kind, width, 0, qpt, "out", threads, base, code)
 
 
 def _extract_topk(cand_d, cand_i, k):
@@ -161,6 +192,35 @@ def _rank_merge(a_d, a_i, b_d, b_i, k):
     return out_d, out_i
 
 
+def dequantize(slabs, scale=None, offset=None, dead=None) -> torch.Tensor:
+    """Gathered slabs as the scan sees them (the reference round's
+    dequantize, ``repro/core/chunked_jit.py::_chunk_round``): fp32 as is;
+    codes cast to fp32, times ``scale`` plus ``offset`` (u8, [.., d], two
+    roundings), and dead rows (``dead`` u8[.., ceil(L_pad/8)] packed) set to
+    PAD_COORD."""
+    if slabs.dtype == torch.float32:
+        return slabs
+    x = slabs.float()
+    if scale is not None:
+        x = x * scale[..., None, :] + offset[..., None, :]
+    rows_dead = unpack_dead(dead, slabs.shape[-2])
+    return torch.where(rows_dead[..., None], PAD_COORD, x)
+
+
+def _check_meta(slab, scale, offset, dead) -> str:
+    """The slab's code name, after checking it carries the metadata its
+    code needs: dead rows for codes, scale and offset for u8 only."""
+    code = _CODE_OF_DTYPE.get(slab.dtype)
+    if code is None:
+        raise ValueError(f"the leaf scan reads slabs of {sorted(CODES)}, got {slab.dtype}")
+    if (dead is None) != (code == "f32"):
+        raise ValueError(f"a {code} slab {'carries no' if code == 'f32' else 'needs a'} "
+                         "dead-row mask")
+    if (scale is None, offset is None) != ((code != "u8"),) * 2:
+        raise ValueError("scale and offset go with a u8 slab, and only with it")
+    return code
+
+
 def leaf_scan_units_ref(
     qpad: torch.Tensor,
     slab: torch.Tensor,
@@ -169,18 +229,29 @@ def leaf_scan_units_ref(
     n_units: torch.Tensor,
     *,
     k: int,
+    scale=None,
+    offset=None,
+    dead=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the indexed leaf scan.  Scans every plan row (rows
     at or beyond ``n_units`` too: their values are never read), gathering
     query tiles (zeros for empty slots) and slabs a block of rows at a
-    time."""
+    time; code slabs are dequantized after the gather (``dequantize``)."""
+    _check_meta(slab, scale, offset, dead)
     out_d, out_i = [], []
     for s in range(0, unit_leaf.shape[0], _REF_BLOCK):
         uq = unit_query[s : s + _REF_BLOCK]
+        ul = unit_leaf[s : s + _REF_BLOCK].long()
         q = torch.where(
             (uq >= 0)[..., None], qpad[uq.clamp(min=0).long()], 0.0
         )
-        d, i = leaf_scan_ref(q, slab[unit_leaf[s : s + _REF_BLOCK].long()], k=k)
+        x = dequantize(
+            slab[ul],
+            None if scale is None else scale[ul],
+            None if offset is None else offset[ul],
+            None if dead is None else dead[ul],
+        )
+        d, i = leaf_scan_ref(q, x, k=k)
         out_d.append(d)
         out_i.append(i)
     return torch.cat(out_d), torch.cat(out_i)
@@ -204,7 +275,7 @@ def _lib(v: Variant) -> ctypes.CDLL:
     lib = build.load(*_part(v)).lib
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.leaf_scan_units.argtypes = [p] * 7 + [i] * 12 + [p]
+        lib.leaf_scan_units.argtypes = [p] * 7 + [i] * 13 + [p] * 4
         lib.leaf_scan_units.restype = i
         lib.leaf_scan_error_string.argtypes = [i]
         lib.leaf_scan_error_string.restype = ctypes.c_char_p
@@ -212,15 +283,26 @@ def _lib(v: Variant) -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda_args(qpad, slab, unit_leaf, unit_query, n_units) -> None:
+def _check_cuda_args(qpad, slab, unit_leaf, unit_query, n_units, scale, offset,
+                     dead) -> None:
     dev = qpad.device
-    for name, t, dtype, ndim in (
+    c, l_pad, d = slab.shape if slab.dim() == 3 else (0, 0, 0)
+    checks = [
         ("qpad", qpad, torch.float32, 2),
-        ("slab", slab, torch.float32, 3),
+        ("slab", slab, slab.dtype, 3),
         ("unit_leaf", unit_leaf, torch.int32, 1),
         ("unit_query", unit_query, torch.int32, 2),
         ("n_units", n_units, torch.int32, None),
-    ):
+    ]
+    for name, t, dtype, shape in (("scale", scale, torch.float32, (c, d)),
+                                  ("offset", offset, torch.float32, (c, d)),
+                                  ("dead", dead, torch.uint8, (c, -(-l_pad // 8)))):
+        if t is not None:
+            checks.append((name, t, dtype, 2))
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name} must be {shape} for slab {tuple(slab.shape)}, "
+                                 f"got {tuple(t.shape)}")
+    for name, t, dtype, ndim in checks:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, qpad on {dev}")
         if t.dtype != dtype:
@@ -245,32 +327,45 @@ def leaf_scan_units(
     n_units: torch.Tensor,
     *,
     k: int,
+    scale=None,
+    offset=None,
+    dead=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Indexed leaf scan over a work plan.
 
-    qpad f32[m, d]; slab f32[C, L_pad, d] (rows at the points' own width);
-    unit_leaf i32[W] (leaf of ``slab``); unit_query i32[W, TQ] (row of
-    ``qpad``, -1 = empty slot); n_units i32 scalar.  Returns
-    (f32[W, TQ, k], i32[W, TQ, k]) for plan rows < n_units; rows beyond are
-    left unwritten by the kernel.  ``choose_variant`` picks the launch.
+    qpad f32[m, d]; slab [C, L_pad, d] (rows at the points' own width) of
+    f32, or of f16 / u8 codes with ``dead`` u8[C, ceil(L_pad/8)] (packed
+    dead rows) and, for u8, ``scale`` / ``offset`` f32[C, d], all indexed
+    by the slab's leaf; unit_leaf i32[W] (leaf of ``slab``); unit_query
+    i32[W, TQ] (row of ``qpad``, -1 = empty slot); n_units i32 scalar.
+    Returns (f32[W, TQ, k], i32[W, TQ, k]) for plan rows < n_units; rows
+    beyond are left unwritten by the kernel.  ``choose_variant`` picks the
+    launch.  ``launches`` counts every launch, ``launches_by_code`` those
+    of each code type.
     """
     if qpad.device.type != "cuda":
         raise ValueError(
             f"the CUDA leaf scan takes CUDA tensors, got {qpad.device} "
             "(ops.leaf_scan_units runs the plain version on the CPU)"
         )
-    _check_cuda_args(qpad, slab, unit_leaf, unit_query, n_units)
+    _check_cuda_args(qpad, slab, unit_leaf, unit_query, n_units, scale, offset, dead)
+    code = _check_meta(slab, scale, offset, dead)
     w, tq = unit_query.shape
     c, l_pad, d = slab.shape
-    v = choose_variant(d, k, tq, l_pad)
+    v = choose_variant(d, k, tq, l_pad, code)
     out_d = torch.empty((w, tq, k), dtype=torch.float32, device=qpad.device)
     out_i = torch.empty((w, tq, k), dtype=torch.int32, device=qpad.device)
     lib = _lib(v)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     err = lib.leaf_scan_units(
         qpad.data_ptr(), slab.data_ptr(), unit_leaf.data_ptr(),
         unit_query.data_ptr(), n_units.data_ptr(), out_d.data_ptr(),
         out_i.data_ptr(), w, tq, l_pad, d, k, _KINDS[v.kind], v.width,
         v.kmax, v.qpt, _LIST_AT[v.list_at], v.threads, v.smem_bytes,
+        CODES[code][0], ptr(scale), ptr(offset), ptr(dead),
         torch.cuda.current_stream(qpad.device).cuda_stream,
     )
     if err != 0:
@@ -279,17 +374,27 @@ def leaf_scan_units(
             f"{lib.leaf_scan_error_string(err).decode()}"
         )
     leaf_scan_units.launches += 1
+    leaf_scan_units.launches_by_code[code] += 1
     return out_d, out_i
 
 
-leaf_scan_units.launches = 0   # kernel launches (not plain-version calls)
+def reset_launches() -> None:
+    """Set the launch counts of ``leaf_scan_units`` to 0."""
+    leaf_scan_units.launches = 0
+    leaf_scan_units.launches_by_code = dict.fromkeys(CODES, 0)
+
+
+# kernel launches (not plain-version calls), in all and per code type
+reset_launches()
 
 
 def leaf_scan_cuda(
-    q: torch.Tensor, leaf_pts: torch.Tensor, *, k: int
+    q: torch.Tensor, leaf_pts: torch.Tensor, *, k: int, scale=None, offset=None,
+    dead=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``leaf_scan_pallas``'s work-unit contract: the kernel with identity
-    indices (unit w scans query tile w against slab w)."""
+    indices (unit w scans query tile w against slab w); code slabs take
+    their metadata as ``leaf_scan_units`` does."""
     w, tq, d = q.shape
     dev = q.device
     unit_leaf = torch.arange(w, dtype=torch.int32, device=dev)
@@ -297,5 +402,5 @@ def leaf_scan_cuda(
     n_units = torch.tensor([w], dtype=torch.int32, device=dev)
     return leaf_scan_units(
         q.reshape(w * tq, d).contiguous(), leaf_pts.contiguous(),
-        unit_leaf, unit_query, n_units, k=k,
+        unit_leaf, unit_query, n_units, k=k, scale=scale, offset=offset, dead=dead,
     )

@@ -83,15 +83,18 @@ def leaf_scan(
 
 def leaf_scan_units(
     qpad, slab, unit_leaf, unit_query, n_units, *, k: int,
-    backend: Backend = "auto",
+    backend: Backend = "auto", scale=None, offset=None, dead=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Indexed leaf scan over a work plan (``knn_scan.leaf_scan_units``)."""
+    """Indexed leaf scan over a work plan (``knn_scan.leaf_scan_units``);
+    a code slab comes with its dequantize metadata, indexed by the slab's
+    leaf."""
+    meta = dict(scale=scale, offset=offset, dead=dead)
     if resolve_backend(backend, qpad.device) == "ref":
         return _knn_scan.leaf_scan_units_ref(
-            qpad, slab, unit_leaf, unit_query, n_units, k=k
+            qpad, slab, unit_leaf, unit_query, n_units, k=k, **meta
         )
     return _knn_scan.leaf_scan_units(
-        qpad, slab, unit_leaf, unit_query, n_units, k=k
+        qpad, slab, unit_leaf, unit_query, n_units, k=k, **meta
     )
 
 

@@ -179,7 +179,7 @@ def test_planner_errors_and_limits():
         plan(50_000, 8, devices=CPU, op="radius")
     with pytest.raises(KeyError, match="not yet ported"):
         plan(50_000, 8, devices=CPU, engine="forest")
-    assert sorted(available_engines()) == ["brute", "chunked"]
+    assert sorted(available_engines()) == ["brute", "chunked", "streaming"]
     assert available_engines(op="kde") == {}
     assert get_engine("chunked").caps.ops == frozenset({"knn"})
 
@@ -207,8 +207,12 @@ def test_facade_contract():
         index.query_stream(q, 5, on_complete=print)
     with pytest.raises(ValueError):
         index.query(q[:, :3], 5)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        KNNIndex.build(pts, IndexSpec(devices=CPU, height=4, precision="int8"))
+    q8 = KNNIndex.build(pts, IndexSpec(devices=CPU, height=4, precision="int8"))
+    d8, i8 = q8.query(q, k=5)
+    np.testing.assert_array_equal(i8, bi)
+    np.testing.assert_allclose(d8, bd, rtol=1e-5, atol=1e-6)
+    assert q8.plan.precision == "int8" and "precision=int8" in q8.describe()
+    assert q8.resident_bytes() < index.resident_bytes()
     with pytest.raises(NotImplementedError, match="item 17"):
         BufferKDTree(pts, height=4, engine="host", device=torch.device("cpu"))
 

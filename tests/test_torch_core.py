@@ -162,12 +162,6 @@ def test_quantize_slabs_match_reference(precision):
     assert a.eps == b.eps
 
 
-def test_quantized_store_is_not_ported_yet():
-    slabs = np.zeros((4, 8, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ChunkedLeafStore(slabs, 1, device=CPU, precision="int8")
-
-
 @pytest.mark.parametrize("n_chunks", [1, 3])
 def test_engine_schedule_matches_reference(n_chunks):
     """Same tree, same queries: the same rounds, chunk visits, units and

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.brute import knn_brute
 from repro_torch.core.lazysearch import BufferKDTree
+from repro_torch.core.quantize import pack_dead, quantize_slabs
 from repro_torch.kernels import knn_scan
 from repro_torch.kernels.ref import PAD_COORD, leaf_scan_ref
 
@@ -172,8 +173,10 @@ def test_kernel_raises_on_malformed_calls():
         knn_scan.leaf_scan_cuda(torch.zeros((1, 129, 8), device=dev), x, k=4)
     with pytest.raises(ValueError, match="k=65"):
         knn_scan.leaf_scan_cuda(torch.zeros((1, 8, 8), device=dev), x, k=65)
-    with pytest.raises(ValueError, match="must be torch.float32"):
+    with pytest.raises(ValueError, match="reads slabs"):
         knn_scan.leaf_scan_cuda(torch.zeros((1, 8, 8), device=dev), x.double(), k=4)
+    with pytest.raises(ValueError, match="dead-row mask"):
+        knn_scan.leaf_scan_cuda(torch.zeros((1, 8, 8), device=dev), x.half(), k=4)
 
 
 @pytest.mark.cuda
@@ -204,4 +207,111 @@ def test_buffer_kdtree_on_card_is_exact(n_chunks):
     assert knn_scan.leaf_scan_units.launches > before
     bd, bi = knn_brute(q, pts, 10, device=dev)
     np.testing.assert_allclose(d, bd, rtol=1e-5, atol=1e-6)
+    assert (i == bi).mean() > 0.999
+
+
+# --- code slabs: the kernel reads fp16 / uint8 codes itself ---
+
+def _code_inputs(w, tq, lp, d, code, seed, dead_frac=0.1):
+    """Queries and a code slab of w leaves (ragged leaf sizes, and dead rows
+    below the sizes), with the metadata the kernel reads, as numpy."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(w, tq, d)).astype(np.float32)
+    x = rng.normal(size=(w, lp, d)).astype(np.float32)
+    sizes = rng.integers(lp // 2, lp + 1, size=w)
+    x[np.arange(lp)[None, :] >= sizes[:, None]] = PAD_COORD
+    qs = quantize_slabs(x, {"f16": "fp16", "u8": "int8"}[code], sizes)
+    dead = qs.dead | (rng.random(qs.dead.shape) < dead_frac)
+    meta = {"dead": pack_dead(dead)}
+    if code == "u8":
+        meta.update(scale=qs.scale, offset=qs.offset)
+    return q, qs.codes, meta
+
+
+def _scan_codes(dev, q, codes, meta, k):
+    qt = torch.from_numpy(q).to(dev)
+    ct = torch.from_numpy(codes).to(dev)
+    mt = {n: torch.from_numpy(a).to(dev) for n, a in meta.items()}
+    before = dict(knn_scan.leaf_scan_units.launches_by_code)
+    kd, ki = knn_scan.leaf_scan_cuda(qt, ct, k=k, **mt)
+    torch.cuda.synchronize()
+    code = knn_scan._CODE_OF_DTYPE[ct.dtype]
+    assert knn_scan.leaf_scan_units.launches_by_code[code] == before[code] + 1
+    w, tq, d = q.shape
+    ul = torch.arange(w, dtype=torch.int32, device=dev)
+    uq = torch.arange(w * tq, dtype=torch.int32, device=dev).reshape(w, tq)
+    rd, ri = knn_scan.leaf_scan_units_ref(
+        qt.reshape(w * tq, d), ct, ul, uq, torch.tensor(w, dtype=torch.int32, device=dev),
+        k=k, **mt)
+    x = knn_scan.dequantize(ct, mt.get("scale"), mt.get("offset"), mt["dead"])
+    return kd, ki, rd, ri, x.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["f16", "u8"])
+@pytest.mark.parametrize("lp,d,k", [
+    (512, 10, 10),      # register list
+    (4096, 10, 18),     # the quantized main path: overfetched k, shared-memory list
+    (300, 9, 40),       # odd d (an unaligned u8 leaf base), ragged last tile
+    (600, 10, 300),     # list in the output rows
+    (300, 130, 150),    # the wide kernel
+    (37, 3, 7),         # L_pad not a multiple of 8 or of 4
+])
+def test_kernel_reads_codes(code, lp, d, k):
+    """Each code type and list placement against the plain version on the
+    same codes: distances within TOL, indices permutation-aware, and dead
+    rows only behind every live row."""
+    dev = _device()
+    q, codes, meta = _code_inputs(3, 128, lp, d, code, seed=lp + d + k)
+    kd, ki, rd, _, x = _scan_codes(dev, q, codes, meta, k)
+    _assert_scan_matches(q, x, kd, ki, rd)
+    dead = np.unpackbits(meta["dead"], axis=1)[:, :lp].astype(bool)
+    sel_dead = dead[np.arange(3)[:, None, None], ki.cpu().numpy()]
+    assert (np.diff(sel_dead.astype(int), axis=-1) >= 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["f16", "u8"])
+@pytest.mark.parametrize("lp,d,k", [(200, 3, 9), (4096, 10, 18)])
+def test_kernel_reads_codes_lattice_bit_for_bit(code, lp, d, k):
+    """Integer lattice codes (u8 with scale 1, offset -2; f16 integers) and
+    dead rows below the leaf size: every value is exact, so distances and
+    tie order (lowest index, dead rows last in index order) equal the plain
+    version bit for bit."""
+    dev = _device()
+    rng = np.random.default_rng(lp + k)
+    q = rng.integers(-2, 3, size=(2, 128, d)).astype(np.float32)
+    lattice = rng.integers(0, 5, size=(2, lp, d))
+    dead = rng.random((2, lp)) < 0.3
+    meta = {"dead": pack_dead(dead)}
+    if code == "u8":
+        codes = lattice.astype(np.uint8)
+        meta.update(scale=np.ones((2, d), np.float32), offset=np.full((2, d), -2, np.float32))
+    else:
+        codes = (lattice - 2).astype(np.float16)
+    kd, ki, rd, ri, _ = _scan_codes(dev, q, codes, meta, k)
+    np.testing.assert_array_equal(kd.cpu().numpy(), rd.cpu().numpy())
+    np.testing.assert_array_equal(ki.cpu().numpy(), ri.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,n_chunks", [("fp16", 1), ("int8", 1), ("int8", 3)])
+def test_buffer_kdtree_on_card_quantized_is_exact(precision, n_chunks):
+    """The budgeted store on the card: the kernel reads the codes (launches
+    of that code type), and the answers equal brute force up to ties (the
+    card's brute force sums (q - x)^2 in another order than the host's
+    exact re-rank, so equal-looking distances may swap)."""
+    dev = _device()
+    rng = np.random.default_rng(n_chunks)
+    pts = rng.normal(size=(20000, 10)).astype(np.float32)
+    q = rng.normal(size=(3000, 10)).astype(np.float32)
+    code = {"fp16": "f16", "int8": "u8"}[precision]
+    before = knn_scan.leaf_scan_units.launches_by_code[code]
+    index = BufferKDTree(pts, height=6, n_chunks=n_chunks, device=dev, precision=precision)
+    d, i = index.query(q, 10)
+    assert knn_scan.leaf_scan_units.launches_by_code[code] > before
+    bd, bi = knn_brute(q, pts, 10, device=dev)
+    np.testing.assert_allclose(d, bd, rtol=1e-5, atol=1e-6)
+    d_of_i = np.sqrt(np.sum((q[:, None, :] - pts[i]) ** 2, -1))
+    np.testing.assert_allclose(d_of_i, bd, rtol=1e-5, atol=1e-6)
     assert (i == bi).mean() > 0.999

@@ -324,3 +324,67 @@ def test_kernel_selection_scheme_matches_reference(lp, d, k, lattice):
     if lattice:
         np.testing.assert_array_equal(md, np.asarray(rd)[0])
         np.testing.assert_array_equal(mi, np.asarray(ri)[0])
+
+
+# --- code slabs (fp16 / uint8): the launch choice and the tile copy ---
+
+@pytest.mark.parametrize("code", ["f16", "u8"])
+@pytest.mark.parametrize("d", VARIANT_DS)
+def test_choose_variant_for_codes(code, d):
+    """A code slab takes the fp32 slab's instance, block and list placement
+    wherever its raw tile fits; only the narrow kernel's raw tile bytes
+    (and, for u8, the leaf's scale and offset) change."""
+    es = knn_scan.CODES[code][1]
+    for k in VARIANT_KS:
+        f32 = knn_scan.choose_variant(d, k, 128, l_pad=4096)
+        v = knn_scan.choose_variant(d, k, 128, l_pad=4096, code=code)
+        assert v.smem_bytes <= knn_scan.SMEM_LIMIT and v.code == code
+        assert (v.kind, v.width, v.kmax, v.threads) == (f32.kind, f32.width, f32.kmax,
+                                                        f32.threads)
+        if v.kind == "wide":
+            assert (v.list_at, v.smem_bytes) == (f32.list_at, f32.smem_bytes)
+            continue
+        raw = -(-(knn_scan.TILE * d * es + 4) // 16) * 16
+        meta = 4 * -(-2 * d // 4) * 4 if code == "u8" else 0
+        delta = meta + 2 * raw - 2 * knn_scan.TILE * d * 4
+        if v.list_at == f32.list_at:
+            assert v.smem_bytes - f32.smem_bytes == delta
+        assert v.name.endswith("/" + code)
+    # the quantized main path: k = 10 overfetched to 18 takes the
+    # shared-memory list, not a register list (REG_KMAX stops at 16)
+    main = knn_scan.choose_variant(10, 18, 128, 4096, code="u8")
+    assert (main.kind, main.width, main.kmax, main.list_at) == ("narrow", 10, 0, "smem")
+    with pytest.raises(ValueError, match="code="):
+        knn_scan.choose_variant(10, 10, 128, 4096, code="bf16")
+
+
+def _tile_window(addr, nbytes):
+    """The narrow kernel's copy of a code tile's bytes [addr, addr + nbytes)
+    (csrc/leaf_scan.cu ``issue``): offsets from the 4-byte boundary below
+    addr, whole words by cp.async, the rest by plain loads per thread."""
+    a = addr & 3
+    e = a + nbytes
+    wb, we = (a + 3) >> 2, e >> 2
+    words = [o for k in range(wb, we) for o in range(4 * k, 4 * k + 4)]
+    plain = []
+    for t in range(3):
+        h = a + t
+        if h < min(4 * wb, e):
+            plain.append(h)
+        b = max(4 * we, 4 * wb) + t
+        if b < e:
+            plain.append(b)
+    return a, e, words, plain
+
+
+@pytest.mark.parametrize("es", [1, 2])
+def test_code_tile_copy_covers_every_byte_once(es):
+    """Every byte of a tile is copied exactly once and nothing outside it
+    is read, for every leaf base alignment, odd d and a last partial tile."""
+    for d in (1, 2, 3, 9, 10, 13):
+        for rows in (1, 2, 3, 37, 64):
+            for base in range(0, 8, es):
+                a, e, words, plain = _tile_window(base, rows * d * es)
+                got = sorted(words + plain)
+                assert got == list(range(a, e)), (d, rows, base)
+                assert e <= -(-(knn_scan.TILE * d * es + 4) // 16) * 16   # raw tile
