@@ -20,15 +20,15 @@ Phases, each printing its own lines:
               main-path shape (W=4096 units, TQ=128, L_pad=4096, d=10
               unpadded as the main path passes it, k=10), timed beside the
               plain version and beside torch.baddbmm + torch.topk; the
-              fp32 k = 18 shared-memory-list instance timed; then the
-              kernel reading uint8 and float16 codes (the budgeted store)
-              at the main-path shape at k = 18 (the overfetched k of a
-              k = 10 query) and k = 10, uint8 at d = 130, k = 150 (the wide
-              kernel), and integer-lattice codes with dead rows (tie order
-              bit for bit, dead rows last), the uint8 k = 18 instance timed
-              beside its plain version and beside a torch dequantize +
-              baddbmm + topk; then KNNIndex at k = 150 and at d = 130
-              against knn_brute;
+              fp32 k = 18 and k = 74 (the refining pass) shared-memory-list
+              instances timed; then the kernel reading uint8 and float16
+              codes (the budgeted store) at the main-path shape at k = 18
+              (the overfetched k of a k = 10 query), k = 10 and k = 74,
+              each timed beside its plain version and beside a torch
+              dequantize + baddbmm + topk, uint8 at d = 130, k = 150 (the
+              wide kernel), and integer-lattice codes with dead rows (tie
+              order bit for bit, dead rows last); then KNNIndex at k = 150
+              and at d = 130 against knn_brute;
   4. main     KNNIndex.build(points).query(q, 10) with no spec: n points,
               m queries, d=10, from a seeded clustered Gaussian mixture;
               the plan must be the chunked engine with N=1, the kernel must
@@ -50,7 +50,28 @@ Phases, each printing its own lines:
               first 2**16 queries: every row delivered once, rows equal
               main's, times to the first and to the last completion;
   9. fp16     precision pinned to fp16 on n / 4 points and m / 4 queries:
-              the kernel reading float16 codes end to end.
+              the kernel reading float16 codes end to end;
+ 10. jit      IndexSpec(engine="jit") on main's points and queries: warm
+              runs one eager round and captures the round as a CUDA graph,
+              the query replays it; answers equal main's up to ties (rows
+              whose distances differ settled by knn_brute, both exact);
+              rounds beside main's, graph replays, launches (rounds x 1:
+              the wrapper counts only the eager round and the capture);
+ 11. dual     the dual-tree ops on n = 2**20 points of a 64-blob 3-d
+              catalogue in the unit cube (planner default height): radius
+              and gaussian kde for 2**16 queries, pair_count over the
+              benchmark's edges scaled by (50000 / n)^(1/3), the same
+              pair_count streamed in chunks (memory_budget = slab_bytes //
+              3, histograms equal); radius and kde on 1024 queries against
+              radius_brute / kde_brute over all points, pair_count on the
+              first n / 2**4 points against pair_count_brute.
+
+Phase 3 times the main path's fp32 instance at k = 10 + FP32_OVERFETCH
+(the k the fp32 main path runs) beside k = 10, k = 18 and k = 10 +
+QUANT_REFINE_OVERFETCH (the refining pass); the JSON line's fp32 entry is
+that instance, and its ``instances`` give each instance the main path ran
+with its launches and, where phase 3 timed it, its times.  main and ooc
+must miss no row against brute force (``fp32_rows_missed`` = 0).
 
 Every cell sets the kernel's launch counts to 0 just before its query and
 reads them just after.  Then one JSON line describing the kernels, and
@@ -91,7 +112,14 @@ SWEEP = [
 MAIN_SHAPE = dict(w=4096, tq=128, l_pad=4096, d=10, k=10)
 # the list a quantized store's k = 10 query scans at (k + QUANT_OVERFETCH)
 CODE_K = 18
+# the list the fp32 main path's k = 10 query scans at (k + FP32_OVERFETCH;
+# set in main() from the package)
+MAIN_K_EFF = 10
+# the list unproven rows of a k = 10 query scan at (k + QUANT_REFINE_OVERFETCH;
+# set in main() from the package)
+REFINE_K = 74
 STREAM_M = 2 ** 16   # queries of the stream cell
+DUAL_CHECK_SHIFT = 4  # the dual cell's pair_count_brute check on n / 2**4 points
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -112,6 +140,23 @@ def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def scan_bound(w: int, tq: int, lp: int, d: int, k: int, code: str = "f32"):
+    """(bound_ms, bound_by) of the leaf scan at W=w, TQ=tq, L_pad=lp, width d,
+    list k, slab of ``code``: the larger of the bytes it must move (queries,
+    slab, its dequantize metadata and the plan read once, the k-lists
+    written once) over the memory rate, and its operations (per (query, row)
+    pair d FMAs for q.x, 2d operations, plus 3 to form, clamp and compare
+    the distance; dequantize is O(L d) per leaf against O(TQ L d) pairs) over
+    the fp32 rate."""
+    slab = {"f32": 4 * w * lp * d,
+            "f16": 2 * w * lp * d + w * (-(-lp // 8)),
+            "u8": w * lp * d + 8 * w * d + w * (-(-lp // 8))}[code]
+    bytes_moved = slab + 4 * (w * tq * d + w + w * tq) + 8 * w * tq * k
+    ops = w * tq * lp * (2 * d + 3)
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def check_scan(torch, q, x, kd, ki, rd, ri, exact_ties=False) -> float:
@@ -242,56 +287,48 @@ def phase_kernel(torch, dev, seed: int) -> dict:
                      kd[:50], ki[:50], rd[:50], ri[:50])
     log("kernel", case="indexed_form", rows=64, n_units=50, max_abs_err=err, ok=True)
 
-    # main-path shape: time the kernel, its plain version, and the library
+    # main-path shape: time the kernel, its plain version, and the library,
+    # at k = 10, at the k the fp32 main path runs (k + FP32_OVERFETCH) and
+    # at the refining pass's k
     s = MAIN_SHAPE
-    w, tq, lp, d, k = s["w"], s["tq"], s["l_pad"], s["d"], s["k"]
+    w, tq, lp, d = s["w"], s["tq"], s["l_pad"], s["d"]
     q, x = inputs(w, tq, lp, d, d)
     qpad = q.reshape(w * tq, d).contiguous()
     ul = torch.arange(w, dtype=torch.int32, device=dev)
     uq = torch.arange(w * tq, dtype=torch.int32, device=dev).reshape(w, tq)
     nu = torch.tensor(w, dtype=torch.int32, device=dev)
-    kd, ki = knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=k)
-    rd, ri = knn_scan.leaf_scan_units_ref(qpad, x, ul, uq, nu, k=k)
-    torch.cuda.synchronize()
-    err = check_scan(torch, q, x, kd, ki, rd, ri)
-    kernel_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=k), reps=10)
-    plain_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units_ref(qpad, x, ul, uq, nu, k=k), reps=3)
     xn = (x * x).sum(-1)[:, None, :]     # per-slab precompute, outside the timing
     xt = x.transpose(1, 2)
+    timed = {}
+    cases = {s["k"]: "main_shape", MAIN_K_EFF: "main_shape_k_eff",
+             CODE_K: "main_shape_f32_k18", REFINE_K: "main_shape_f32_refine"}
+    for k, case in cases.items():
+        kd, ki = knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=k)
+        rd, ri = knn_scan.leaf_scan_units_ref(qpad, x, ul, uq, nu, k=k)
+        torch.cuda.synchronize()
+        err = check_scan(torch, q, x, kd, ki, rd, ri)
+        del kd, ki, rd, ri
+        kernel_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=k),
+                            reps=10)
+        plain_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units_ref(
+            qpad, x, ul, uq, nu, k=k), reps=3)
 
-    def library():
-        d2 = torch.baddbmm(xn, q, xt, alpha=-2.0)
-        return torch.topk(d2, k, dim=-1, largest=False)
+        def library():
+            d2 = torch.baddbmm(xn, q, xt, alpha=-2.0)
+            return torch.topk(d2, k, dim=-1, largest=False)
 
-    library_ms = cuda_ms(torch, library, reps=3)
+        library_ms = cuda_ms(torch, library, reps=3)
+        bound_ms, bound_by = scan_bound(w, tq, lp, d, k)
+        log("kernel", case=case, shape=(w, tq, lp, d), k=k,
+            variant=knn_scan.choose_variant(d, k, tq, lp).name,
+            max_abs_err=err, kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            gflops=f"{w * tq * lp * (2 * d + 3) / kernel_ms / 1e6:.1f}")
+        timed[k] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
     del xn, xt
-    # what the function needs at width d: queries, slabs and indices read
-    # once, the k-lists written once; per (query, row) pair d FMAs for q.x
-    # (2d operations) plus 3 to form, clamp and compare the distance
-    bytes_moved = 4 * (w * tq * d + w * lp * d + w + w * tq) + 8 * w * tq * k
-    ops = w * tq * lp * (2 * d + 3)
-    bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_FLOPS)
-    bound_by = "operations" if ops / FP32_FLOPS >= bytes_moved / HBM_BYTES_PER_S else "bytes"
-    log("kernel", case="main_shape", shape=(w, tq, lp, d), k=k, max_abs_err=err,
-        kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-        gflops=f"{ops / kernel_ms / 1e6:.1f}")
-    fp32 = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-
-    # the fp32 instance a k = 18 list takes (shared memory, not registers)
-    kd, ki = knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=CODE_K)
-    rd, ri = knn_scan.leaf_scan_units_ref(qpad, x, ul, uq, nu, k=CODE_K)
-    torch.cuda.synchronize()
-    err18 = check_scan(torch, q, x, kd, ki, rd, ri)
-    f32_k18_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=CODE_K),
-                         reps=10)
-    log("kernel", case="main_shape_f32_k18", k=CODE_K,
-        variant=knn_scan.choose_variant(d, CODE_K, tq, lp).name, max_abs_err=err18,
-        kernel_ms=f"{f32_k18_ms:.4f}")
-    del kd, ki, rd, ri
     codes = phase_kernel_codes(torch, dev, gen, q, x, qpad, ul, uq, nu)
-    return fp32, codes
+    return {f"f32_k{k}": t for k, t in timed.items()}, codes
 
 
 def pack_rows(torch, dead):
@@ -337,8 +374,8 @@ def code_slab(torch, dev, gen, code, w, lp, d, lattice=False, dead_frac=0.05, x=
 
 def phase_kernel_codes(torch, dev, gen, q, x32, qpad, ul, uq, nu) -> dict:
     """The kernel reading uint8 / float16 codes of the main-shape slab
-    ``x32`` against its plain version on the same codes, and the uint8
-    k = 18 instance timed."""
+    ``x32`` against its plain version on the same codes, each instance
+    timed; returns the timings keyed ``"u8_k18"``."""
     from repro_torch.kernels import knn_scan
     from repro_torch.kernels.ref import PAD_COORD
 
@@ -364,47 +401,37 @@ def phase_kernel_codes(torch, dev, gen, q, x32, qpad, ul, uq, nu) -> dict:
     for code in ("u8", "f16"):
         codes, meta, dead = code_slab(torch, dev, gen, code, w, lp, d, x=x32)
         x = knn_scan.dequantize(codes, meta.get("scale"), meta.get("offset"), meta["dead"])
-        for k in (CODE_K, MAIN_SHAPE["k"]):
+        for k in (CODE_K, MAIN_SHAPE["k"], REFINE_K):
             kd, ki, rd, ri = scan_both(q, codes, meta, k, qpad, ul, uq, nu)
             err = check_scan(torch, q, x, kd, ki, rd, ri)
             assert dead_last(dead, ki), "a dead row was ranked before a live one"
+            del kd, ki, rd, ri
             v = knn_scan.choose_variant(d, k, tq, lp, code)
             ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units(
                 qpad, codes, ul, uq, nu, k=k, **meta), reps=10)
-            log("kernel", case=f"main_shape_{code}_k{k}", variant=v.name, max_abs_err=err,
-                kernel_ms=f"{ms:.4f}", ok=True)
-            out[(code, k)] = dict(max_abs_err=err, ms=ms)
-        if code == "u8":
-            k = CODE_K
             plain_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units_ref(
                 qpad, codes, ul, uq, nu, k=k, **meta), reps=3)
-            rows_dead = dead
 
             def library():
-                xq = codes.float() * meta["scale"][:, None, :] + meta["offset"][:, None, :]
-                xq = torch.where(rows_dead[..., None], PAD_COORD, xq)
+                # torch dequantize (as the plain version) + baddbmm + topk
+                xq = codes.float()
+                if "scale" in meta:
+                    xq = xq * meta["scale"][:, None, :] + meta["offset"][:, None, :]
+                xq = torch.where(dead[..., None], PAD_COORD, xq)
                 xn = (xq * xq).sum(-1)[:, None, :]
                 d2 = torch.baddbmm(xn, q, xq.transpose(1, 2), alpha=-2.0)
                 return torch.topk(d2, k, dim=-1, largest=False)
 
             library_ms = cuda_ms(torch, library, reps=3)
-            # one byte per code, the leaf's scales, offsets and dead bits, the
-            # queries and plan read once, the k-lists written once; the
-            # operations are the fp32 scan's (dequantize is O(L d) per leaf
-            # against O(TQ L d) pairs)
-            bytes_moved = (w * lp * d + 8 * w * d + w * (-(-lp // 8))
-                           + 4 * (w * tq * d + w + w * tq) + 8 * w * tq * k)
-            ops = w * tq * lp * (2 * d + 3)
-            bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_FLOPS)
-            bound_by = ("operations" if ops / FP32_FLOPS >= bytes_moved / HBM_BYTES_PER_S
-                        else "bytes")
-            u8 = out[("u8", k)]
-            log("kernel", case="main_shape_u8_k18_timed", k=k, max_abs_err=u8["max_abs_err"],
-                kernel_ms=f"{u8['ms']:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms, bound_by = scan_bound(w, tq, lp, d, k, code)
+            log("kernel", case=f"main_shape_{code}_k{k}", variant=v.name, max_abs_err=err,
+                kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
                 library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-                bound_by=bound_by, gflops=f"{ops / u8['ms'] / 1e6:.1f}")
-            timed = dict(max_abs_err=u8["max_abs_err"], ms=u8["ms"], plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                bound_by=bound_by, gflops=f"{w * tq * lp * (2 * d + 3) / ms / 1e6:.1f}",
+                ok=True)
+            out[f"{code}_k{k}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                       library_ms=library_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by)
         del codes, meta, dead, x
         torch.cuda.empty_cache()
     del x32
@@ -432,7 +459,7 @@ def phase_kernel_codes(torch, dev, gen, q, x32, qpad, ul, uq, nu) -> dict:
             assert dead_last(dead, ki)
             log("kernel", case=f"lattice_{code}_dead_rows", shape=(w_, 128, lp_, d_), k=k_,
                 ok=True)
-    return dict(timed, by_code=out)
+    return out
 
 
 def phase_facade(torch, dev, seed: int) -> None:
@@ -460,6 +487,18 @@ def mixture(rng, n: int, d: int, centers: np.ndarray, scales: np.ndarray) -> np.
     pts *= scales[lab, None]
     pts += centers[lab]
     return pts
+
+
+def main_data(seed: int, shift: int = 0):
+    """The main cell's points (n = 2**(24 - shift)) and queries (m =
+    2**(20 - shift)), d = 10, from a seeded 64-component Gaussian mixture."""
+    n, m, d = 2 ** (24 - shift), 2 ** (20 - shift), 10
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=3.0, size=(64, d)).astype(np.float32)
+    scales = rng.uniform(0.3, 1.5, size=64).astype(np.float32)
+    points = mixture(rng, n, d, centers, scales)
+    queries = mixture(rng, m, d, centers, scales)
+    return points, queries
 
 
 def check_exact(torch, index_res, points, queries, dev, n_check: int) -> int:
@@ -513,7 +552,8 @@ def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
     t0 = time.perf_counter()
     res = index.query(queries, 10)
     query_s = time.perf_counter() - t0
-    launches = dict(knn_scan.leaf_scan_units.launches_by_code)
+    by_code = dict(knn_scan.leaf_scan_units.launches_by_code)
+    launches = dict(by_code, by_instance=dict(knn_scan.leaf_scan_units.launches_by_instance))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9   # this build + query
     assert index._state._engine.backend == "cuda", index._state._engine.backend
     assert np.isfinite(res.dists).all() and res.dists.shape == (queries.shape[0], 10)
@@ -530,7 +570,8 @@ def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
         compactions=st.compactions, chunk_copies=st.chunk_copies,
         sync_wait_s=f"{st.sync_wait_s:.3f}", steady_s=f"{st.steady_s:.3f}",
         tail_s=f"{st.tail_s:.3f}", refined_rows=st.refined_rows, exact_rows=st.exact_rows,
-        kernel_launches=",".join(f"{c}:{n}" for c, n in launches.items()),
+        kernel_launches=",".join(f"{c}:{n}" for c, n in by_code.items()),
+        instances=",".join(f"{c}:{n}" for c, n in launches["by_instance"].items()),
         checked=n_check, tie_swaps=ties,
         peak_mem_gb=f"{peak_gb:.3f}")
     for r in index.plan.reasons:
@@ -553,7 +594,7 @@ def main(argv=None) -> int:
                          "half of its time limit; 0 runs them at full depth)")
     ap.add_argument("--profile", nargs="?", const="main,ooc", default="",
                     help="also run these cells' query once under torch.profiler "
-                         "(comma-separated, of main, ooc, quant, quant_ooc; "
+                         "(comma-separated, of main, ooc, quant, quant_ooc, jit; "
                          "no value: main,ooc)")
     args = ap.parse_args(argv)
 
@@ -565,6 +606,12 @@ def main(argv=None) -> int:
     from repro_torch.core.brute import knn_brute
     from repro_torch.core.toptree import suggest_height
 
+    from repro_torch.core.lazysearch import FP32_OVERFETCH
+    from repro_torch.core.quantize import QUANT_REFINE_OVERFETCH
+
+    global MAIN_K_EFF, REFINE_K
+    MAIN_K_EFF = 10 + FP32_OVERFETCH
+    REFINE_K = 10 + QUANT_REFINE_OVERFETCH
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -574,13 +621,9 @@ def main(argv=None) -> int:
     scan, codes = phase_kernel(torch, dev, args.seed)
     phase_facade(torch, dev, args.seed)
 
-    n, m, d = 2 ** (24 - args.shift), 2 ** (20 - args.shift), 10
-    rng = np.random.default_rng(args.seed)
-    centers = rng.normal(scale=3.0, size=(64, d)).astype(np.float32)
-    scales = rng.uniform(0.3, 1.5, size=64).astype(np.float32)
     t0 = time.perf_counter()
-    points = mixture(rng, n, d, centers, scales)
-    queries = mixture(rng, m, d, centers, scales)
+    points, queries = main_data(args.seed, args.shift)
+    (n, d), m = points.shape, queries.shape[0]
     log("main", n=n, m=m, d=d, k=10, data_s=f"{time.perf_counter() - t0:.3f}")
 
     profiled = set(filter(None, args.profile.split(",")))
@@ -596,9 +639,9 @@ def main(argv=None) -> int:
     def same_answers(phase, other, ref=res, ref_points=points):
         """``other`` against the fp32 answers ``ref`` on every query: a
         differing id must be a tie (the same distance at that rank).  Rows
-        whose distances differ are settled by knn_brute: ``other`` must be
-        exact there; ``ref`` (the fp32 path, whose selection carries the
-        decomposed form's rounding) may not be."""
+        whose distances differ are settled by knn_brute: both must be exact
+        there (the fp32 path proves its rows, so ``fp32_rows_missed`` must
+        be 0)."""
         same = other.idx == ref.idx
         off = np.nonzero(~np.isclose(other.dists, ref.dists, rtol=1e-5, atol=1e-6).all(1))[0]
         ref_missed = 0
@@ -609,6 +652,7 @@ def main(argv=None) -> int:
         log(phase, rows_identical=f"{same.all(axis=1).mean():.6f}",
             dists_identical=bool(np.array_equal(other.dists, ref.dists)),
             rows_off=off.size, fp32_rows_missed=ref_missed)
+        assert ref_missed == 0, f"{phase}: the fp32 answers missed {ref_missed} rows"
 
     # the streamed cells run on the first n / 2**ooc_shift points (a smaller
     # depth of the same mixture); they compare with main at full depth, with
@@ -651,33 +695,31 @@ def main(argv=None) -> int:
 
     run_stream(torch, points, queries[: min(m, STREAM_M)], res, dev)
     run_fp16(torch, points[: n // 4], queries[: m // 4], dev)
+    run_jit(torch, points, queries, res, dev, same_answers, "jit" in profiled)
+    del points, queries, res
+    torch.cuda.empty_cache()
+    run_dual(torch, dev, args.seed, args.shift)
 
-    kernels = [{
-        "name": "leaf_scan",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/leaf_scan.cu",
-        "replaces": "src/repro/kernels/knn_scan.py:213",
-        "launches": launches["f32"],
-        "max_abs_err": scan["max_abs_err"],
-        "ms": scan["ms"],
-        "plain_ms": scan["plain_ms"],
-        "bound_ms": scan["bound_ms"],
-        "bound_by": scan["bound_by"],
-        "library_ms": scan["library_ms"],
-    }, {
-        # the same kernel reading uint8 codes (quant cell, k = 10 -> 18)
-        "name": "leaf_scan_codes",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/leaf_scan.cu",
-        "replaces": "src/repro/kernels/knn_scan.py:213",
-        "launches": launches3["u8"],
-        "max_abs_err": codes["max_abs_err"],
-        "ms": codes["ms"],
-        "plain_ms": codes["plain_ms"],
-        "bound_ms": codes["bound_ms"],
-        "bound_by": codes["bound_by"],
-        "library_ms": codes["library_ms"],
-    }]
+    def entry(name, code, first_k, cell, timed):
+        """The JSON line's entry: the instance a k = 10 query first runs,
+        and under ``instances`` every instance the cell ran, its launches
+        beside its phase-3 times (when phase 3 timed it)."""
+        head = timed[f"{code}_k{first_k}"]
+        return {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/leaf_scan.cu",
+            "replaces": "src/repro/kernels/knn_scan.py:213",
+            "launches": cell[code],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "instances": {key: dict(launches=n, **timed.get(key, {}))
+                          for key, n in cell["by_instance"].items()},
+        }
+
+    kernels = [entry("leaf_scan", "f32", MAIN_K_EFF, launches, scan),
+               # the same kernel reading uint8 codes (quant cell, k = 10 -> 18)
+               entry("leaf_scan_codes", "u8", CODE_K, launches3, codes)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -738,6 +780,173 @@ def run_fp16(torch, points, queries, dev) -> None:
     assert launches["f16"] > 0 and launches["f32"] == 0, launches
     del index
     torch.cuda.empty_cache()
+
+
+def run_jit(torch, points, queries, main_res, dev, same_answers, profile=False) -> None:
+    """IndexSpec(engine="jit") on main's points and queries: the round
+    captured as a CUDA graph at warm and replayed by the query; answers
+    equal main's up to ties (rows whose distances differ settled by
+    knn_brute, both exact there).  The leaf-scan wrapper counts its launches
+    only at the eager round and at capture: the kernel runs once per round
+    executed, so launches are printed as eager rounds + graph replays."""
+    from repro_torch.api import IndexSpec, KNNIndex
+    from repro_torch.core.jitsearch import lazy_knn_jit
+    from repro_torch.kernels import knn_scan
+
+    m = queries.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = KNNIndex.build(points, IndexSpec(engine="jit"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index.warm(m, 10)          # one eager round, then the capture
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    (rounds_state,) = index._state.rounds.values()
+    eager0, replays0 = rounds_state.eager_rounds, rounds_state.replays
+    knn_scan.reset_launches()
+    t0 = time.perf_counter()
+    res = index.query(queries, 10)
+    query_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    replays = rounds_state.replays - replays0
+    eager = rounds_state.eager_rounds - eager0
+    wrapper = knn_scan.leaf_scan_units.launches_by_code["f32"]
+    # the fixed point alone (replayed rounds + the device rescoring), without
+    # the certificate and the brute force of unproven rows
+    st = index._state
+    q_dev = torch.from_numpy(queries).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lazy_knn_jit(q_dev, st.tree, k=rounds_state.k, tq=st.tq,
+                 first_leaf_heap=st.top.first_leaf_heap, backend=st.backend, cache=st.rounds)
+    torch.cuda.synchronize()
+    fixed_point_s = time.perf_counter() - t0
+    del q_dev
+    assert index.plan.engine == "jit" and rounds_state.graph is not None
+    assert replays > 0 and eager == 0, (replays, eager)
+    assert np.isfinite(res.dists).all() and (res.idx >= 0).all()
+    assert res.stats.iterations <= replays
+    log("jit", build_s=f"{build_s:.3f}", warm_capture_s=f"{warm_s:.3f}",
+        query_s=f"{query_s:.3f}", qps=f"{m / query_s:.1f}",
+        fixed_point_s=f"{fixed_point_s:.3f}", rounds=res.stats.iterations,
+        main_rounds=main_res.stats.iterations, graph_replays=replays,
+        kernel_launches=f"{eager + replays} (rounds x 1: eager {eager} + replays {replays}; "
+                        f"the wrapper counted {wrapper})",
+        sync_every=rounds_state.sync_every, exact_rows=res.stats.exact_rows,
+        peak_mem_gb=f"{peak_gb:.3f}")
+    same_answers("jit", res)
+    if profile:
+        profile_query(torch, "jit", index, queries)
+    del index
+    torch.cuda.empty_cache()
+
+
+def catalog(rng, n: int) -> np.ndarray:
+    """n points from 64 uniform blobs of radius 0.02 in the unit cube, 3-d
+    (benchmarks/dualtree_bench.py's catalogue: clustered sources)."""
+    centers = rng.uniform(0.0, 1.0, size=(64, 3)).astype(np.float32)
+    u = rng.normal(size=(n, 3)).astype(np.float32)
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    radial = 0.02 * rng.random(n).astype(np.float32) ** (1.0 / 3)
+    return centers[rng.integers(0, len(centers), n)] + u * radial[:, None]
+
+
+def run_dual(torch, dev, seed: int, shift: int) -> None:
+    """The dual-tree ops on a galaxy-like catalogue: n = 2**(20 - shift)
+    points (planner default height), radius and gaussian kde for m =
+    2**(16 - shift) queries, pair_count over the benchmark's edges scaled
+    so each point keeps about the benchmark's neighbour count at 50k; the
+    same pair_count on an fp32 build under memory_budget = slab_bytes // 3
+    (chunks streamed).  Checks: radius and kde on 1024 queries against
+    radius_brute / kde_brute over all points, pair_count on the first
+    n / 2**DUAL_CHECK_SHIFT points against pair_count_brute, the streamed and
+    resident histograms equal."""
+    from repro_torch.api import IndexSpec, KNNIndex
+    from repro_torch.core.dualtree import kde_brute, pair_count_brute, radius_brute
+
+    n, m = 2 ** (20 - shift), 2 ** (16 - shift)
+    s = (50_000 / n) ** (1 / 3)
+    r, h = 0.02 * s, 0.05 * s
+    edges = np.array([0.0, 0.0125, 0.025, 0.05, 0.1, 0.2]) * s
+    rng = np.random.default_rng(seed)
+    pts = catalog(rng, n)
+    q = pts[rng.integers(0, n, m)] + np.float32(0.001)
+
+    def build(spec):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = KNNIndex.build(pts, spec)
+        torch.cuda.synchronize()
+        return index, time.perf_counter() - t0
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    index, build_s = build(IndexSpec(op="pair_count"))
+    log("dual", n=n, m=m, d=3, r=f"{r:.6f}", bandwidth=f"{h:.6f}",
+        edges=",".join(f"{e:.6f}" for e in edges), engine=index.plan.engine,
+        height=index.plan.height, n_chunks=index.plan.n_chunks, build_s=f"{build_s:.3f}")
+    rad, radius_s = timed(lambda: index.radius(q, r))
+    kde, kde_s = timed(lambda: index.kde(q, h, rtol=1e-2))
+    pc, pair_s = timed(lambda: index.pair_count(edges))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for op, res, sec in (("radius", rad, radius_s), ("kde", kde, kde_s),
+                         ("pair_count", pc, pair_s)):
+        st = res.stats
+        log("dual", op=op, seconds=f"{sec:.3f}", leaf_pairs=st.units_scanned,
+            batches=st.flushes, chunk_visits=st.chunk_rounds, levels=st.iterations,
+            points_paired=st.points_scanned, batch_shapes=st.plan_shapes)
+    log("dual", radius_hits=int(rad.indptr[-1]),
+        mean_neighbours=f"{rad.indptr[-1] / m:.1f}", kde_error_bound=kde.error_bound,
+        hist=",".join(str(int(v)) for v in pc.values), peak_mem_gb=f"{peak_gb:.3f}")
+
+    # radius and kde on 1024 queries against the oracles over all points
+    nc = min(1024, m)
+    bi, bj, bd = radius_brute(q[:nc], pts, r, tile_q=128, device=dev)
+    ip = rad.indptr[: nc + 1]
+    assert np.array_equal(ip, bi), "radius row counts differ from radius_brute"
+    for i in range(nc):
+        got = rad.indices[ip[i]:ip[i + 1]]
+        assert set(got.tolist()) == set(bj[bi[i]:bi[i + 1]].tolist()), f"radius row {i}"
+    np.testing.assert_array_equal(rad.dists[: ip[-1]], bd)
+    exact = kde_brute(q[:nc], pts, h, tile_q=128, device=dev).astype(np.float64)
+    err = np.abs(kde.values[:nc].astype(np.float64) - exact)
+    assert np.all(err <= 1e-2 * exact + 1e-9 + 1e-5 * np.maximum(exact, 1.0)), err.max()
+    log("dual", check="radius_kde_vs_brute", queries=nc,
+        kde_max_rel_err=f"{(err / np.maximum(exact, 1e-30)).max():.3e}", ok=True)
+    slab_bytes = index.plan.slab_bytes
+    del index, rad, kde
+    torch.cuda.empty_cache()
+
+    # the same pair_count with the chunks streamed
+    streamed, sbuild_s = build(IndexSpec(op="pair_count", precision="fp32",
+                                         memory_budget=slab_bytes // 3))
+    assert streamed.plan.n_chunks >= 2, streamed.plan.n_chunks
+    spc, spair_s = timed(lambda: streamed.pair_count(edges))
+    assert np.array_equal(spc.values, pc.values), "streamed and resident histograms differ"
+    log("dual", op="pair_count_streamed", n_chunks=streamed.plan.n_chunks,
+        build_s=f"{sbuild_s:.3f}", seconds=f"{spair_s:.3f}",
+        leaf_pairs=spc.stats.units_scanned, batches=spc.stats.flushes,
+        chunk_visits=spc.stats.chunk_rounds, hist_equal=True)
+    del streamed
+    torch.cuda.empty_cache()
+
+    # pair_count against the all-pairs oracle on the first n / 2**DUAL_CHECK_SHIFT
+    sub = pts[: n >> DUAL_CHECK_SHIFT]
+    small = KNNIndex.build(sub, IndexSpec(op="pair_count"))
+    (hist, _), small_s = timed(lambda: small.pair_count(edges))
+    ref, brute_s = timed(lambda: pair_count_brute(sub, edges, device=dev))
+    assert np.array_equal(hist, ref), (hist, ref)
+    log("dual", check="pair_count_vs_brute", n=sub.shape[0], height=small.plan.height,
+        dual_s=f"{small_s:.3f}", brute_s=f"{brute_s:.3f}", ok=True)
 
 
 if __name__ == "__main__":

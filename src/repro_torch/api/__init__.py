@@ -5,10 +5,12 @@
     index = KNNIndex.build(points)             # planner picks the engine
     dists, idx = index.query(queries, k=10)    # exact kNN
 
-Counterpart of ``repro.api`` with the ``brute``, ``chunked`` and
-``streaming`` engines.
-``knn_brute`` is re-exported as the ground-truth oracle, and
-``knn_round_cache_size`` counts the distinct chunk-round shapes run.
+Counterpart of ``repro.api`` with the ``brute``, ``chunked``,
+``streaming`` and ``jit`` engines and the dual-tree ops (``radius``,
+``kde``, ``pair_count``).  ``knn_brute`` is re-exported as the
+ground-truth oracle, ``knn_round_cache_size`` counts the distinct
+chunk-round shapes run and ``dualtree_cache_size`` the distinct
+leaf-pair batch shapes.
 """
 
 from repro_torch.api.engine import (
@@ -30,7 +32,13 @@ from repro_torch.api.planner import (
     estimate_slab_bytes,
     plan,
 )
-from repro_torch.api.spec import IndexSpec, QueryResult, SearchStats
+from repro_torch.api.spec import (
+    IndexSpec,
+    QueryResult,
+    RadiusResult,
+    SearchStats,
+    StatResult,
+)
 from repro_torch.api.index import KNNIndex
 
 # Register the built-in engines (import side effect populates the registry).
@@ -38,11 +46,14 @@ from repro_torch.api import engines as _engines  # noqa: F401
 
 from repro_torch.core.brute import knn_brute
 from repro_torch.core.chunked_jit import chunk_round_cache_size as knn_round_cache_size
+from repro_torch.core.dualtree import dualtree_cache_size
 
 __all__ = [
     "KNNIndex",
     "IndexSpec",
     "QueryResult",
+    "RadiusResult",
+    "StatResult",
     "SearchStats",
     "Plan",
     "plan",
@@ -61,4 +72,5 @@ __all__ = [
     "available_engines",
     "knn_brute",
     "knn_round_cache_size",
+    "dualtree_cache_size",
 ]

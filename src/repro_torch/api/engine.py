@@ -3,8 +3,10 @@
 An engine is one execution strategy for exact kNN.  It declares its
 capabilities (``EngineCaps``) so the planner selects by constraint, and
 implements ``build(points, spec, plan)``, ``query(state, queries, k)`` and
-``resident_bytes(plan, state)``.  Engines of the reference that are not
-ported yet raise a ``KeyError`` saying so from ``get_engine``.
+``resident_bytes(plan, state)``; engines declaring the dual-tree ops in
+``caps.ops`` implement ``radius`` / ``kde`` / ``pair_count`` and
+``warm_ops``.  Engines of the reference that are not ported yet raise a
+``KeyError`` saying so from ``get_engine``.
 """
 
 from __future__ import annotations
@@ -36,7 +38,6 @@ KNOWN_OPS = frozenset({"knn", "radius", "kde", "pair_count"})
 NOT_PORTED = {
     "host": "Queue 1 item 17",
     "kdtree": "Queue 1 item 17",
-    "jit": "Queue 1 item 11",
     "dynamic": "Queue 1 item 14",
     "sharded": "Queue 1 item 18",
     "forest": "Queue 1 item 18",
@@ -90,6 +91,31 @@ class EngineBase:
         """Device bytes of the reference structure under ``plan`` (measured
         from ``state`` where the engine can)."""
         return plan.slab_bytes
+
+    def warm(self, state, m: int, k: int) -> None:
+        """Run the kNN path once for batches of ``m`` at ``k`` (the state's
+        own ``warm`` where it has one)."""
+        warm = getattr(state, "warm", None)
+        if warm is not None:
+            warm(m, k)
+
+    def warm_ops(self, state, ops, m: Optional[int] = None, n_edges: int = 9) -> None:
+        """Run the leaf-pair functions of the given non-kNN ops at their
+        rung shapes (``m`` = expected query batch size, ``n_edges`` =
+        expected pair_count edge count).  Default: nothing to warm."""
+        return None
+
+    def snapshot_state(self, state):
+        raise NotImplementedError(
+            f"engine {self.name!r}: snapshots are not ported yet (ROADMAP "
+            "Queue 1 item 15)"
+        )
+
+    def restore_state(self, arrays, meta, spec, plan):
+        raise NotImplementedError(
+            f"engine {self.name!r}: restoring a snapshot is not ported yet "
+            "(ROADMAP Queue 1 item 15)"
+        )
 
 
 Engine = EngineBase

@@ -8,9 +8,11 @@
 With ``IndexSpec.devices`` unset the index runs on ``cuda:0`` and raises
 without a card; pass ``devices=(torch.device("cpu"),)`` for the CPU.
 ``query_stream`` delivers per-row results on an index built with
-``IndexSpec(engine="streaming")``.  Persistence, mutation and the
-dual-tree ops wait for their ROADMAP items; their entry points raise the
-reference's typed errors.
+``IndexSpec(engine="streaming")``; ``radius``, ``kde`` and ``pair_count``
+run the dual-tree ops on the engines that declare them (``caps.ops``), and
+raise the typed ``OpUnsupported`` elsewhere.  Persistence and mutation
+wait for their ROADMAP items; their entry points raise the reference's
+typed errors.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.api.engine import (
+    KNOWN_OPS,
     EngineBase,
     MutabilityError,
     OpUnsupported,
@@ -29,7 +32,13 @@ from repro_torch.api.engine import (
     get_engine,
 )
 from repro_torch.api.planner import Plan, default_devices, plan as make_plan
-from repro_torch.api.spec import IndexSpec, QueryResult, SearchStats
+from repro_torch.api.spec import (
+    IndexSpec,
+    QueryResult,
+    RadiusResult,
+    SearchStats,
+    StatResult,
+)
 
 __all__ = ["KNNIndex"]
 
@@ -115,19 +124,64 @@ class KNNIndex:
         if op not in self._engine.caps.ops:
             raise OpUnsupported(
                 f"engine {self.engine_name!r} does not declare op {op!r} "
-                f"(caps.ops={sorted(self._engine.caps.ops)}; engines that "
-                f"do: {sorted(available_engines(op=op))}); the dual-tree ops "
-                "are ROADMAP Queue 1 item 13"
+                f"(caps.ops={sorted(self._engine.caps.ops)}); build with "
+                f"IndexSpec(op={op!r}) so the planner picks a declaring "
+                f"engine ({sorted(available_engines(op=op))})"
             )
 
-    def radius(self, queries: np.ndarray, r: float):
+    def radius(self, queries: np.ndarray, r: float) -> RadiusResult:
+        """All reference points within Euclidean distance ``r`` of each
+        query row (inclusive of ``dist == r``): a ``RadiusResult``, CSR over
+        query rows, unpacking as ``(indptr, indices, dists)``; ``indices``
+        i64 into the caller's original ``points`` ordering, ``dists``
+        ascending per row.  Engines not declaring "radius" raise
+        ``OpUnsupported``."""
         self._require_op("radius")
+        r = float(r)
+        if not r >= 0.0:
+            raise ValueError(f"need r >= 0, got {r}")
+        queries = self._check_queries(queries)
+        indptr, indices, dists, stats = self._serialized(
+            self._engine.radius, self._state, queries, r
+        )
+        self._last_stats = stats
+        return RadiusResult(indptr=indptr, indices=indices, dists=dists, stats=stats,
+                            engine=self.plan.engine, r=r)
 
-    def kde(self, queries: np.ndarray, bandwidth: float, **kw):
+    def kde(self, queries: np.ndarray, bandwidth: float, *, rtol: float = 1e-2,
+            atol: float = 1e-9, kernel: str = "gaussian") -> StatResult:
+        """Kernel density at each query row over the reference points (the
+        mean of ``K(||q - x|| / bandwidth)``, gaussian or tophat): a
+        ``StatResult`` unpacking as ``(densities f32[m], error_bound)``,
+        with ``|approx - exact| <= rtol * exact + atol`` (tophat exact)."""
         self._require_op("kde")
+        bandwidth = float(bandwidth)
+        if not bandwidth > 0.0:
+            raise ValueError(f"need bandwidth > 0, got {bandwidth}")
+        queries = self._check_queries(queries)
+        dens, err, stats = self._serialized(
+            lambda: self._engine.kde(self._state, queries, bandwidth, rtol=rtol,
+                                     atol=atol, kernel=kernel)
+        )
+        self._last_stats = stats
+        return StatResult(values=dens, error_bound=float(err), stats=stats,
+                          engine=self.plan.engine, op="kde")
 
-    def pair_count(self, edges):
+    def pair_count(self, edges) -> StatResult:
+        """2-point correlation: the histogram of all ordered cross-pair
+        distances of the reference set over ``edges`` (np.histogram
+        semantics, self-pairs excluded): a ``StatResult`` unpacking as
+        ``(hist i64[len(edges) - 1], 0.0)`` (the op is exact)."""
         self._require_op("pair_count")
+        edges = np.asarray(edges, dtype=np.float64).ravel()
+        if edges.size < 2 or not np.all(np.diff(edges) > 0):
+            raise ValueError("edges must be >= 2 strictly increasing values")
+        if edges[0] < 0:
+            raise ValueError("distance edges must be >= 0")
+        hist, stats = self._serialized(self._engine.pair_count, self._state, edges)
+        self._last_stats = stats
+        return StatResult(values=hist, error_bound=0.0, stats=stats,
+                          engine=self.plan.engine, op="pair_count")
 
     def insert(self, points: np.ndarray):
         raise MutabilityError(
@@ -168,15 +222,30 @@ class KNNIndex:
         return QueryResult(dists=dists, idx=idx, stats=stats,
                            engine=self.plan.engine, k=k)
 
-    def warm(self, m: Optional[int] = None, k: Optional[int] = None) -> None:
-        """Run the execution path once for batches of ``m`` queries (the
-        chunked engine's round at the full shape and every ladder rung),
-        which builds the kernel before the first query."""
+    def warm(self, m: Optional[int] = None, k: Optional[int] = None, *,
+             ops: Optional[tuple] = None, n_edges: int = 9) -> None:
+        """Run the execution path of the given ``ops`` (default: the spec's
+        primary ``op``) once for batches of ``m`` queries, before the first
+        call.  For "knn" at ``k`` (default ``k_hint``): the chunked engine's
+        round at the full shape and every ladder rung (this builds the
+        kernel), the jit engine's round and its CUDA graph.  For the
+        dual-tree ops, their leaf-pair functions at every rung shape
+        (``n_edges`` = expected pair_count edge count); an engine that does
+        not declare an op raises ``OpUnsupported``."""
+        ops = tuple(ops) if ops is not None else (self.spec.op,)
+        for op in ops:
+            if op not in KNOWN_OPS:
+                raise ValueError(f"unknown op {op!r}; known: {sorted(KNOWN_OPS)}")
         k = int(k) if k is not None else self.spec.k_hint
         mm = int(m) if m is not None else (self.spec.m_hint or self.spec.tile_q)
-        warm = getattr(self._state, "warm", None)
-        if warm is not None:
-            self._serialized(warm, mm, k)
+        if "knn" in ops:
+            self._serialized(self._engine.warm, self._state, mm, k)
+        dual = tuple(op for op in ops if op != "knn")
+        if dual:
+            for op in dual:
+                self._require_op(op)
+            self._serialized(self._engine.warm_ops, self._state, dual,
+                             int(m) if m is not None else self.spec.m_hint, n_edges)
 
     @property
     def engine_name(self) -> str:

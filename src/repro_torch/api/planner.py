@@ -12,6 +12,13 @@ Planning rules ported so far (numbering of ``docs/API.md``):
      such that TWO chunk buffers fit (§3's double-buffered streaming);
   6. otherwise ``chunked`` with N=1, the device-resident workflow.
 
+``op`` (the primary operation, ``IndexSpec.op``) restricts the choice to
+engines declaring it in ``EngineCaps.ops``: a pinned engine that lacks it
+raises, an automatic choice that lacks it is rerouted to ``chunked``, and
+``mutable=True`` with a dual-tree op is a contradiction (the mutable
+engine, ROADMAP Queue 1 item 14, is knn-only).  ``jit`` is taken only when
+pinned, as in the reference.
+
 Without a ``memory_budget`` the reference plans N=1 whatever the device
 holds.  On a CUDA device the port reads the free device memory
 (``torch.cuda.mem_get_info``) and, when the leaf structure would not fit
@@ -185,6 +192,7 @@ def plan(
     precision: Optional[str] = None,
     strict_budget: bool = False,
     op: str = "knn",
+    mutable: Optional[bool] = None,
 ) -> Plan:
     """Pick an engine + parameters for (n, d) references and (m, k) queries.
 
@@ -196,15 +204,28 @@ def plan(
         raise ValueError(f"need n >= 1, d >= 1; got n={n} d={d}")
     if k > n:
         raise ValueError(f"k={k} > n={n}")
-    from repro_torch.api.engine import KNOWN_OPS, OpUnsupported, get_engine
+    from repro_torch.api.engine import KNOWN_OPS, available_engines, get_engine
 
     if op not in KNOWN_OPS:
         raise ValueError(f"unknown op {op!r}; known: {sorted(KNOWN_OPS)}")
-    if op != "knn":
-        raise OpUnsupported(
-            f"op={op!r}: no ported engine declares it yet (the dual-tree "
-            "ops are ROADMAP Queue 1 item 13)"
+    if engine is not None and op != "knn":
+        # a pinned engine that does not declare the op is a contradiction,
+        # not a reroute opportunity
+        caps = get_engine(engine).caps
+        if op not in caps.ops:
+            raise ValueError(
+                f"op={op!r} but pinned engine {engine!r} does not declare "
+                f"it (caps.ops={sorted(caps.ops)}); unpin the engine or "
+                f"pick one of {sorted(available_engines(op=op))}"
+            )
+    if mutable and op != "knn":
+        raise ValueError(
+            f"op={op!r} with mutable=True: the mutable engine does not "
+            f"declare it (caps.ops); declaring engines: "
+            f"{sorted(available_engines(op=op))}"
         )
+    if mutable and engine is None:
+        engine = "dynamic"   # get_engine below names its ROADMAP item
     if devices is None:
         devices = default_devices()
     p = max(1, len(devices))
@@ -318,6 +339,20 @@ def plan(
             engine = "chunked"
             reasons.append("1 device: chunk-streamed buffer k-d tree")
     get_engine(engine)   # raises for unknown / not-yet-ported engines
+
+    # a non-kNN primary op: the engine must declare it (a pinned one was
+    # checked above); an automatic choice that does not reroutes to
+    # 'chunked', the dual tree over the same chunk-streamed leaf store
+    if op != "knn":
+        declaring = sorted(available_engines(op=op))
+        if op in get_engine(engine).caps.ops:
+            reasons.append(f"op={op!r} declared by engine {engine!r} (caps.ops)")
+        else:
+            reasons.append(
+                f"op={op!r} not declared by auto choice {engine!r}; "
+                f"rerouted to 'chunked' (declaring engines: {declaring})"
+            )
+            engine = "chunked"
 
     over_budget = False
     over_detail = ""

@@ -1,8 +1,9 @@
 """Value types of the ``repro_torch.api`` front door.
 
 Counterpart of ``repro.api.spec``: ``IndexSpec`` is what a caller asks for
-(``None`` = let the planner decide), ``QueryResult`` what a query returns.
-The fields of the reference's spec that belong to engines not ported yet
+(``None`` = let the planner decide), ``QueryResult`` what a query returns,
+``RadiusResult`` and ``StatResult`` what the dual-tree ops return.  The
+fields of the reference's spec that belong to engines not ported yet
 (calibration, compile cache, mutation, persistence) are not here.
 """
 
@@ -15,7 +16,7 @@ import numpy as np
 
 from repro_torch.core.lazysearch import SearchStats
 
-__all__ = ["IndexSpec", "QueryResult", "SearchStats"]
+__all__ = ["IndexSpec", "QueryResult", "RadiusResult", "StatResult", "SearchStats"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,8 +24,8 @@ class IndexSpec:
     """Declarative request for a kNN index; unset fields are planned."""
 
     engine: Optional[str] = None          # registry name; None => auto-plan
-    op: str = "knn"                       # primary operation ("knn" only
-                                          # is declared by the ported engines)
+    op: str = "knn"                       # primary operation: "knn" |
+                                          # "radius" | "kde" | "pair_count"
     height: Optional[int] = None          # top-tree height h (2**h leaves)
     n_chunks: Optional[int] = None        # out-of-core leaf-structure chunks
     n_shards: Optional[int] = None        # multi-device reference shards
@@ -61,3 +62,51 @@ class QueryResult:
 
     def __getitem__(self, i):
         return (self.dists, self.idx)[i]
+
+
+@dataclasses.dataclass(frozen=True)
+class RadiusResult:
+    """One radius-search batch's answer, CSR over query rows: row ``i``'s
+    neighbors are ``indices[indptr[i]:indptr[i+1]]`` (i64, into the
+    caller's original ``points`` ordering) with ascending Euclidean
+    ``dists`` (f32); inclusive of ``dist == r``.  Unpacks like the classic
+    ``(indptr, indices, dists)`` triple."""
+
+    indptr: np.ndarray
+    indices: np.ndarray
+    dists: np.ndarray
+    stats: SearchStats
+    engine: str
+    r: float
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        return iter((self.indptr, self.indices, self.dists))
+
+    def __len__(self) -> int:
+        return 3
+
+    def __getitem__(self, i):
+        return (self.indptr, self.indices, self.dists)[i]
+
+
+@dataclasses.dataclass(frozen=True)
+class StatResult:
+    """A statistical op's answer: ``values`` is the per-query density
+    vector (kde, f32[m]) or the pair-distance histogram (pair_count,
+    i64[n_bins]); ``error_bound`` is the op's accumulated absolute error
+    bound (0.0 = exact).  Unpacks as ``(values, error_bound)``."""
+
+    values: np.ndarray
+    error_bound: float
+    stats: SearchStats
+    engine: str
+    op: str
+
+    def __iter__(self) -> Iterator:
+        return iter((self.values, self.error_bound))
+
+    def __len__(self) -> int:
+        return 2
+
+    def __getitem__(self, i):
+        return (self.values, self.error_bound)[i]

@@ -58,7 +58,7 @@ import torch
 
 from repro_torch.core import traversal
 from repro_torch.core.chunked import ChunkedLeafStore
-from repro_torch.core.jitsearch import _build_plan
+from repro_torch.core.jitsearch import _build_plan, _merge
 from repro_torch.kernels import ops as kops
 
 __all__ = [
@@ -169,9 +169,7 @@ def _chunk_round(
     # merge (rows >= n_units hold unit_query == -1: they land on the dump
     # row m together with the empty slots, whatever the kernel left there)
     gl = unit_leaf.long() + lo
-    ustart = leaf_start[gl]
-    usize = leaf_size[gl]
-    valid = nli < usize[:, None, None]
+    valid = nli < leaf_size[gl][:, None, None]
     if dead is not None:
         # a dead row below the leaf size (a PAD_COORD row baked into the
         # slab, or a tombstone) can still be selected into a sparse leaf's
@@ -179,16 +177,7 @@ def _chunk_round(
         r = nli.clamp(0, dev_slab.shape[1] - 1).long()
         bits = dead[unit_leaf.long()[:, None, None], r >> 3].long()
         valid &= ((bits >> (7 - (r & 7))) & 1) == 0
-    gidx = torch.where(valid, nli + ustart[:, None, None], -1).reshape(-1, kl)
-    ndm = torch.where(valid, nd, kops.INVALID_DIST).reshape(-1, kl)
-    flat_q = unit_query.reshape(-1)
-    safe_q = torch.where(flat_q < 0, m, flat_q).long()
-    # old candidates first, so a stable sort keeps them on ties
-    cd = torch.cat([knn_d[safe_q], ndm], dim=1)
-    ci = torch.cat([knn_i[safe_q], gidx], dim=1)
-    sd, sel = torch.sort(cd, dim=1, stable=True)
-    knn_d[safe_q] = sd[:, :k]
-    knn_i[safe_q] = torch.gather(ci, 1, sel[:, :k])
+    _merge(knn_d, knn_i, nd, nli, valid, leaf_start[gl], unit_query, k)
 
     # exit the just-scanned leaves (only this chunk's queries move) and
     # advance them; everyone else is frozen by advance's pause predicate

@@ -5,10 +5,11 @@ chunk-resident bulk-synchronous round loop
 (``chunked_jit.ChunkResidentEngine``) over a double-buffered
 ``ChunkedLeafStore``, followed by an exact fp32 re-rank of the selected
 candidates on the host (``finalize_candidates``).  A store of fp16/int8
-codes runs the engine at ``k + QUANT_OVERFETCH`` (``_engine_k``) and the
-re-rank from the fp32 ``tree.points`` slices back to k; rows whose answer
-the quantization band leaves unproven are searched again
-(``BufferKDTree.search``).  The paper-faithful host loop
+codes runs the engine at ``k + QUANT_OVERFETCH`` and an fp32 store at
+``k + FP32_OVERFETCH`` (``_engine_k``); the re-rank from the fp32
+``tree.points`` slices back to k, and rows whose answer the quantization
+band or the decomposed distance's rounding leaves unproven (``certify``)
+are searched again (``BufferKDTree.search``).  The paper-faithful host loop
 (``engine="host"``) is not ported yet (ROADMAP Queue 1 item 17).
 
 Defaults follow the paper's footnote 8: for tree height h, buffer capacity
@@ -39,7 +40,23 @@ from repro_torch.core.toptree import (
 )
 from repro_torch.kernels import ops as kops
 
-__all__ = ["BufferKDTree", "SearchStats", "finalize_candidates"]
+__all__ = [
+    "BufferKDTree",
+    "SearchStats",
+    "finalize_candidates",
+    "certify",
+    "FP32_OVERFETCH",
+]
+
+# Extra candidates an fp32 store's engine selects beyond k.  The engine
+# selects by ||q||^2 - 2 q.x + ||x||^2 in fp32, whose rounding can swap a
+# true neighbour out of an exact-k list; with a few more candidates the
+# exact re-rank sees past that band and ``certify`` proves the row.  Chosen
+# end to end on an H100 (``scripts/fp32_overfetch.py --end-to-end 2,6`` on
+# chip_smoke.py's main cell): at 2, 5647 of 2**20 rows stay unproven and
+# their second pass (or the jit engine's brute force) costs more than the
+# wider list; at 6 none does, and k = 10 + 6 keeps the register list.
+FP32_OVERFETCH = 6
 
 
 def finalize_candidates(
@@ -66,6 +83,27 @@ def finalize_candidates(
     return dists, idx_out
 
 
+def certify(queries, d2, dists, k: int, k_eff: int, *, eps: float,
+            x_norm_max: float) -> np.ndarray:
+    """Rows whose rescored top-k is proven exact (up to ties).
+
+    Every point the engine did not return at width ``k_eff`` has an
+    approximate squared distance of at least the k_eff-th one, ``d2[:,
+    k_eff-1]`` (leaves pruned by the eps-inflated radius are farther
+    still), so its true distance is at least the root of that, less the
+    fp32 rounding of the ||q||^2 - 2 q.x + ||x||^2 form (taken off with a
+    bound first: ``x_norm_max`` bounds every stored point's norm) and less
+    ``eps``, the store's reconstruction bound (0 for fp32).  When this is no
+    less than the exact k-th distance ``dists[:, k-1]``, no point left out
+    can be nearer.  ``queries`` f32[r, d], ``d2`` f32[r, k_eff] engine
+    distances, ``dists`` f32[r, >=k] rescored ones -> bool[r]."""
+    d = queries.shape[1]
+    qn = np.sqrt(np.sum(queries.astype(np.float64) ** 2, axis=1))
+    slack = 2 * (d + 2) * 2.0 ** -24 * (qn + x_norm_max) ** 2
+    far = np.sqrt(np.maximum(d2[:, k_eff - 1].astype(np.float64) - slack, 0.0))
+    return far - eps >= dists[:, k - 1].astype(np.float64)
+
+
 @dataclasses.dataclass(frozen=True)
 class SearchStats:
     """Immutable per-call search statistics (a fresh instance per query)."""
@@ -85,8 +123,9 @@ class SearchStats:
     chunk_copies: int = 0    # host->device chunk transfers in this call
     early_retired: int = 0   # rows delivered by the streaming hook before
                              # the round loop finished (0 on batch queries)
-    refined_rows: int = 0    # quantized: rows run again at the wider overfetch
-    exact_rows: int = 0      # quantized: rows answered by fp32 brute force
+    refined_rows: int = 0    # rows run again at the wider overfetch
+    exact_rows: int = 0      # rows answered by fp32 brute force
+    plan_shapes: int = 0     # dual-tree ops: distinct leaf-pair batch shapes
 
     @classmethod
     def from_info(cls, info, leaf_pad: int) -> "SearchStats":
@@ -210,15 +249,27 @@ class BufferKDTree:
     def _engine_k(self, k: int) -> int:
         """Selection width the engine runs at: quantized stores overfetch so
         the exact fp32 re-rank sees past the quantization selection band
-        (``quantize.QUANT_OVERFETCH``); fp32 runs at k."""
-        if self.store.quantized:
-            return min(k + QUANT_OVERFETCH, self.n)
-        return k
+        (``quantize.QUANT_OVERFETCH``), fp32 stores past the decomposed
+        distance's rounding (``FP32_OVERFETCH``; the reference runs fp32 at
+        k)."""
+        extra = QUANT_OVERFETCH if self.store.quantized else FP32_OVERFETCH
+        return min(k + extra, self.n)
 
     def warm(self, m: int, k: int = 10) -> None:
         """Run the chunk round once at the full shape of a batch of ``m``
         and at every compaction-ladder rung (builds the kernel)."""
         self._engine.warm(m, self._engine_k(k), self.engine_tile_q)
+
+    def dualtree(self):
+        """The dual-tree view over this index's TopTree and leaf store
+        (``core/dualtree.DualTree``: radius / kde / pair_count), made once:
+        node boxes are computed at the first call, and a quantized store
+        gets a private fp32 store at width d so the ops stay exact."""
+        if getattr(self, "_dualtree", None) is None:
+            from repro_torch.core.dualtree import DualTree
+
+            self._dualtree = DualTree(self.tree, self.store)
+        return self._dualtree
 
     def check_queries(self, queries: np.ndarray, k: int) -> np.ndarray:
         """``queries`` as f32[m, d], after checking them and k."""
@@ -230,22 +281,13 @@ class BufferKDTree:
         return queries
 
     def _certified(self, queries, d2, dists, k: int, k_eff: int) -> np.ndarray:
-        """Rows whose rescored top-k is proven exact (up to ties).
-
-        Every point the engine did not return at width ``k_eff`` has an
-        approximate distance of at least the k_eff-th one, ``sqrt(d2[:,
-        k_eff-1])`` (leaves pruned by the eps-inflated radius are farther
-        still), so its true distance is at least that minus ``quant_eps``.
-        When this is no less than the exact k-th distance, no point left
-        out can be nearer.  ``d2`` carries fp32 rounding of the ||q||^2 -
-        2 q.x + ||x||^2 form, taken off with a bound first.  fp32 stores,
-        and a k_eff reaching n, are exact by construction."""
-        if not self.store.quantized or k_eff >= self.n:
+        """Rows whose rescored top-k is proven exact (``certify``, with the
+        store's eps: 0 for fp32).  A k_eff reaching n is exact by
+        construction."""
+        if k_eff >= self.n:
             return np.ones(len(queries), bool)
-        qn = np.sqrt(np.sum(queries.astype(np.float64) ** 2, axis=1))
-        slack = 2 * (self.d + 2) * 2.0 ** -24 * (qn + self._x_norm_max) ** 2
-        far = np.sqrt(np.maximum(d2[:, k_eff - 1].astype(np.float64) - slack, 0.0))
-        return far - self.store.quant_eps >= dists[:, k - 1].astype(np.float64)
+        return certify(queries, d2, dists, k, k_eff, eps=self.store.quant_eps,
+                       x_norm_max=self._x_norm_max)
 
     @functools.cached_property
     def _x_norm_max(self) -> float:
@@ -265,21 +307,21 @@ class BufferKDTree:
         each row's final answer once, as soon as it is known (the streaming
         path: rows retire during the round loop).
 
-        fp32 stores take one engine run at k.  Quantized stores run at
-        ``k + QUANT_OVERFETCH`` as the reference does, rescore exactly, and
-        keep the rows ``_certified`` proves; the rest run again at
+        The engine runs at ``_engine_k(k)`` (``k + QUANT_OVERFETCH`` for
+        codes, as the reference does; ``k + FP32_OVERFETCH`` for fp32, where
+        the reference runs at k), the candidates are rescored exactly, and
+        the rows ``_certified`` proves are kept; the rest run again at
         ``k + QUANT_REFINE_OVERFETCH``, and rows still unproven take fp32
         brute force.  (The reference keeps the first run's answer, which
-        can miss a true neighbour when more than QUANT_OVERFETCH points lie
-        within the quantization band of the k-th.)"""
+        can miss a true neighbour: at int8 when more than QUANT_OVERFETCH
+        points lie within the quantization band of the k-th, at fp32 when
+        the decomposed distance's rounding swaps the k-th out.)"""
         m = queries.shape[0]
         out_d = np.empty((m, k), np.float32)
         out_i = np.full((m, k), -1, np.int64)
         totals: dict = {}
         rows = np.arange(m)
-        passes = [self._engine_k(k)]
-        if self.store.quantized:
-            passes.append(min(k + QUANT_REFINE_OVERFETCH, self.n))
+        passes = [self._engine_k(k), min(k + QUANT_REFINE_OVERFETCH, self.n)]
         for p, k_eff in enumerate(passes):
             if rows.size == 0 or (p > 0 and k_eff <= passes[p - 1]):
                 break

@@ -341,7 +341,8 @@ def leaf_scan_units(
     Returns (f32[W, TQ, k], i32[W, TQ, k]) for plan rows < n_units; rows
     beyond are left unwritten by the kernel.  ``choose_variant`` picks the
     launch.  ``launches`` counts every launch, ``launches_by_code`` those
-    of each code type.
+    of each code type, ``launches_by_instance`` those of each (code type,
+    k), keyed ``"f32_k12"``.
     """
     if qpad.device.type != "cuda":
         raise ValueError(
@@ -375,6 +376,8 @@ def leaf_scan_units(
         )
     leaf_scan_units.launches += 1
     leaf_scan_units.launches_by_code[code] += 1
+    by_instance = leaf_scan_units.launches_by_instance
+    by_instance[f"{code}_k{k}"] = by_instance.get(f"{code}_k{k}", 0) + 1
     return out_d, out_i
 
 
@@ -382,9 +385,11 @@ def reset_launches() -> None:
     """Set the launch counts of ``leaf_scan_units`` to 0."""
     leaf_scan_units.launches = 0
     leaf_scan_units.launches_by_code = dict.fromkeys(CODES, 0)
+    leaf_scan_units.launches_by_instance = {}
 
 
-# kernel launches (not plain-version calls), in all and per code type
+# kernel launches (not plain-version calls), in all, per code type and per
+# (code type, k)
 reset_launches()
 
 

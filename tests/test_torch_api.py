@@ -21,19 +21,25 @@ import repro.api as jax_api
 from repro.core.toptree import build_top_tree as jax_build_top_tree
 from repro.core.toptree import tree_to_arrays as jax_tree_to_arrays
 from repro_torch.api import (
+    KNOWN_OPS,
     BudgetError,
     IndexSpec,
     KNNIndex,
     MutabilityError,
     OpUnsupported,
+    RadiusResult,
+    SearchStats,
+    StatResult,
     StreamingUnsupported,
     available_engines,
+    dualtree_cache_size,
     estimate_slab_bytes,
     get_engine,
     knn_brute,
     knn_round_cache_size,
     plan,
 )
+from repro_torch.core import dualtree
 from repro_torch.core.lazysearch import BufferKDTree
 from repro_torch.core.quantize import PRECISIONS
 from repro_torch.core.toptree import tree_from_arrays
@@ -175,13 +181,16 @@ def test_planner_errors_and_limits():
         plan(50_000, 8, devices=CPU, memory_budget=1, strict_budget=True)
     with pytest.raises(NotImplementedError, match="item 18"):
         plan(50_000, 8, devices=CPU * 2)
-    with pytest.raises(OpUnsupported, match="item 13"):
-        plan(50_000, 8, devices=CPU, op="radius")
+    p = plan(50_000, 8, devices=CPU, op="radius")
+    assert p.engine == "chunked" and any("op='radius'" in r for r in p.reasons)
     with pytest.raises(KeyError, match="not yet ported"):
         plan(50_000, 8, devices=CPU, engine="forest")
-    assert sorted(available_engines()) == ["brute", "chunked", "streaming"]
-    assert available_engines(op="kde") == {}
-    assert get_engine("chunked").caps.ops == frozenset({"knn"})
+    with pytest.raises(KeyError, match="item 14"):
+        plan(50_000, 8, devices=CPU, mutable=True)
+    assert sorted(available_engines()) == ["brute", "chunked", "jit", "streaming"]
+    assert sorted(available_engines(op="kde")) == ["brute", "chunked", "streaming"]
+    assert get_engine("chunked").caps.ops == frozenset(DUAL_OPS + ("knn",))
+    assert get_engine("jit").caps.ops == frozenset({"knn"})
 
 
 def test_facade_contract():
@@ -197,10 +206,21 @@ def test_facade_contract():
     assert index.stats.iterations > 0
     assert index.resident_bytes() == estimate_slab_bytes(3000, 5, 4)
     assert "engine=chunked" in index.describe()
-    for call in (lambda: index.radius(q, 0.5), lambda: index.kde(q, 0.1),
-                 lambda: index.pair_count([0.0, 1.0])):
-        with pytest.raises(OpUnsupported):
-            call()
+    # the dual-tree ops on the chunked index agree with the brute oracles
+    ip, ix, dd = index.radius(q, 0.5)
+    bip, bix, bdd = dualtree.radius_brute(q, pts, 0.5, device="cpu")
+    np.testing.assert_array_equal(ip, bip)
+    np.testing.assert_allclose(dd, bdd, rtol=1e-6)
+    dens, err = index.kde(q, 0.3)
+    exact = dualtree.kde_brute(q, pts, 0.3, device="cpu").astype(np.float64)
+    assert np.all(np.abs(dens - exact) <= 1e-2 * exact + 1e-9 + 1e-5 * np.maximum(exact, 1))
+    edges = np.sqrt([0.5, 1.5, 4.5])
+    hist, err = index.pair_count(edges)
+    np.testing.assert_array_equal(hist, dualtree.pair_count_brute(pts, edges, device="cpu"))
+    assert err == 0.0 and index.stats.units_scanned > 0
+    jit = KNNIndex.build(pts, IndexSpec(engine="jit", devices=CPU, height=4))
+    with pytest.raises(OpUnsupported, match="radius"):
+        jit.radius(q, 0.5)
     with pytest.raises(MutabilityError):
         index.insert(pts[:3])
     with pytest.raises(StreamingUnsupported):
@@ -215,6 +235,146 @@ def test_facade_contract():
     assert q8.resident_bytes() < index.resident_bytes()
     with pytest.raises(NotImplementedError, match="item 17"):
         BufferKDTree(pts, height=4, engine="host", device=torch.device("cpu"))
+
+
+# -- multi-op front door (tests/test_api.py:784-916) ----------------------
+#
+# Every (op, engine) the registry declares is swept over the parity shapes
+# against the reference's all-pairs oracles.  Parity data is an integer
+# lattice (squared distances exact in fp32) with radii / edges whose squares
+# are non-integers, so radius and pair_count compare bit for bit.
+
+DUAL_OPS = ("radius", "kde", "pair_count")
+OP_PAIRS = sorted((op, eng) for op in DUAL_OPS for eng in available_engines(op=op))
+NON_DECLARING = sorted(
+    eng for eng in available_engines()
+    if not any(op in get_engine(eng).caps.ops for op in DUAL_OPS)
+)
+
+
+def _lattice_data(n, m, d, seed=0):
+    rng = np.random.default_rng(seed)
+    span = max(3, int(np.sqrt(300 / d)))
+    pts = rng.integers(0, span, size=(n, d)).astype(np.float32)
+    q = rng.integers(0, span, size=(m, d)).astype(np.float32)
+    return pts, q
+
+
+# squared values are non-integers: no lattice distance sits on an edge
+_EDGES = np.sqrt(np.array([0.5, 3.5, 7.5, 16.5, 32.5, 64.5, 144.5]))
+
+
+def _csr_rows_equal(ip_a, ix_a, ip_b, ix_b):
+    assert np.array_equal(ip_a, ip_b)
+    for i in range(len(ip_a) - 1):
+        assert set(ix_a[ip_a[i]:ip_a[i + 1]].tolist()) == set(
+            ix_b[ip_b[i]:ip_b[i + 1]].tolist()), f"row {i}"
+
+
+@pytest.mark.parametrize("op,engine", OP_PAIRS, ids=[f"{o}-{e}" for o, e in OP_PAIRS])
+@pytest.mark.parametrize("n,m,d,k,height", PARITY_SHAPES)
+def test_declared_op_exact_vs_reference_oracle(op, engine, n, m, d, k, height):
+    """``tests/test_api.py::TestOpParity`` on the port: each declared op
+    against ``repro.core.dualtree``'s oracles on the same lattice data."""
+    from repro.core.dualtree import kde_brute, pair_count_brute, radius_brute
+
+    pts, q = _lattice_data(n, m, d, seed=(n * 7 + m * 3 + d + len(op)) % 1000)
+    idx = KNNIndex.build(pts, IndexSpec(engine=engine, op=op, height=height, m_hint=m,
+                                        devices=CPU))
+    if op == "radius":
+        r = float(np.sqrt(1.5 * d + 0.5))
+        res = idx.radius(q, r)
+        assert isinstance(res, RadiusResult)
+        bi, bj, _ = radius_brute(q, pts, r)
+        _csr_rows_equal(res.indptr, res.indices, bi, bj)
+        assert res.engine == engine and res.r == r
+    elif op == "kde":
+        h, rtol, atol = float(np.sqrt(d)), 1e-2, 1e-9
+        res = idx.kde(q, h, rtol=rtol, atol=atol)
+        assert isinstance(res, StatResult) and res.op == "kde"
+        exact = kde_brute(q, pts, h).astype(np.float64)
+        bound = rtol * exact + atol + 1e-5 * np.maximum(exact, 1.0)
+        assert np.all(np.abs(res.values.astype(np.float64) - exact) <= bound)
+    else:
+        res = idx.pair_count(_EDGES)
+        assert isinstance(res, StatResult) and res.op == "pair_count"
+        ref = pair_count_brute(pts, _EDGES)
+        assert np.array_equal(res.values, ref)
+        assert res.values.sum() > 0  # non-degenerate histogram
+        assert res.error_bound == 0.0
+    assert isinstance(res.stats, SearchStats)
+
+
+def test_op_caps_contract():
+    """``tests/test_api.py::TestOpCapsContract``: a closed set of ops, the
+    engines of the reference that declare the dual-tree ops declare them
+    here, the registry filters by op, and ``jit`` (knn only) raises the
+    typed ``OpUnsupported`` from every op entry point, naming the engines
+    that declare it."""
+    assert KNOWN_OPS == {"knn", "radius", "kde", "pair_count"}
+    ref = jax_api.available_engines()
+    for name, caps in available_engines().items():
+        assert caps.ops <= KNOWN_OPS and "knn" in caps.ops, name
+        assert caps.ops == ref[name].ops, name
+    for op in DUAL_OPS:
+        assert sorted(available_engines(op=op)) == ["brute", "chunked", "streaming"]
+    assert set(available_engines(op="knn")) == set(available_engines())
+    with pytest.raises(ValueError, match="unknown op"):
+        available_engines(op="warp")
+    assert NON_DECLARING == ["jit"]
+    pts, q = _lattice_data(700, 16, 4, seed=22)
+    idx = KNNIndex.build(pts, IndexSpec(engine="jit", height=2, devices=CPU))
+    with pytest.raises(OpUnsupported, match="radius"):
+        idx.radius(q, 1.0)
+    with pytest.raises(OpUnsupported, match="kde"):
+        idx.kde(q, 1.0)
+    with pytest.raises(OpUnsupported, match="chunked"):
+        idx.pair_count(np.array([0.5, 1.5]))
+    with pytest.raises(OpUnsupported):
+        idx.warm(m=8, ops=("radius",))
+    assert isinstance(OpUnsupported("x"), TypeError)
+
+
+def test_planner_op_rules():
+    """``tests/test_api.py::TestPlannerOpRules``: unknown ops rejected, the
+    op recorded in the reasons, a pinned engine lacking the op and
+    ``mutable`` with a dual-tree op raise, as ``repro.api.plan`` does."""
+    with pytest.raises(ValueError, match="unknown op"):
+        plan(5000, 8, op="warp", devices=CPU)
+    with pytest.raises(ValueError, match="unknown op"):
+        KNNIndex.build(np.zeros((64, 3), np.float32), spec=IndexSpec(op="warp", devices=CPU))
+    p = plan(5000, 8, m=300, op="radius", devices=CPU)
+    ref = jax_api.plan(5000, 8, m=300, op="radius")
+    assert p.engine == ref.engine and "radius" in get_engine(p.engine).caps.ops
+    assert any("op='radius'" in r for r in p.reasons)
+    with pytest.raises(ValueError, match="does not declare"):
+        plan(5000, 8, engine="jit", op="kde", devices=CPU)
+    with pytest.raises(ValueError, match="does not declare"):
+        jax_api.plan(5000, 8, engine="jit", op="kde")
+    with pytest.raises(ValueError, match="mutable"):
+        plan(5000, 8, mutable=True, op="pair_count", devices=CPU)
+
+
+def test_dual_ops_warm_and_quantized_index():
+    """``KNNIndex.warm(ops=, n_edges=)`` meets every batch shape of the
+    live calls; an int8 index answers the dual-tree ops exactly from a
+    private fp32 store (``BufferKDTree.dualtree``)."""
+    pts, q = _lattice_data(2500, 300, 3, seed=30)
+    index = KNNIndex.build(pts, IndexSpec(height=4, precision="int8", devices=CPU))
+    assert index.plan.precision == "int8" and index._state.store.quantized
+    index.warm(m=300, ops=("radius", "kde", "pair_count"), n_edges=len(_EDGES))
+    before = dualtree_cache_size()
+    r = float(np.sqrt(7.5))
+    res = index.radius(q, r)
+    index.kde(q, 1.0)
+    hist = index.pair_count(_EDGES).values
+    assert dualtree_cache_size() == before
+    assert not index._state.dualtree().store.quantized
+    from repro.core.dualtree import pair_count_brute, radius_brute
+
+    bi, bj, _ = radius_brute(q, pts, r)
+    _csr_rows_equal(res.indptr, res.indices, bi, bj)
+    np.testing.assert_array_equal(hist, pair_count_brute(pts, _EDGES))
 
 
 def _run(code: str, **env):

@@ -27,7 +27,7 @@ from repro_torch.core.chunked_jit import (
     compaction_ladder,
 )
 from repro_torch.core.jitsearch import _build_plan
-from repro_torch.core.lazysearch import BufferKDTree
+from repro_torch.core.lazysearch import FP32_OVERFETCH, BufferKDTree
 from repro_torch.core.quantize import quantize_slabs
 from repro_torch.core.toptree import (
     build_top_tree,
@@ -165,14 +165,19 @@ def test_quantize_slabs_match_reference(precision):
 @pytest.mark.parametrize("n_chunks", [1, 3])
 def test_engine_schedule_matches_reference(n_chunks):
     """Same tree, same queries: the same rounds, chunk visits, units and
-    compactions as the reference's chunked engine, and the same answers."""
+    compactions as the reference's chunked engine, and the same answers.
+    The port's fp32 engine selects ``FP32_OVERFETCH`` candidates beyond k
+    (ROADMAP Queue 3), so the reference runs at that width too; every row
+    is proven by the first pass here, so the port runs one pass."""
     rng = np.random.default_rng(7)
     pts = rng.normal(size=(3000, 6)).astype(np.float32)
     q = rng.normal(size=(400, 6)).astype(np.float32)
     port = BufferKDTree(pts, height=5, n_chunks=n_chunks, device=CPU, tile_q=64)
     ref = JaxBufferKDTree(pts, height=5, n_chunks=n_chunks, tile_q=64)
     pd, pi = port.query(q, 8)
-    rd, ri = ref.query(q, 8)
+    rd, ri = ref.query(q, 8 + FP32_OVERFETCH)
+    rd, ri = rd[:, :8], ri[:, :8]
+    assert (port.stats.refined_rows, port.stats.exact_rows) == (0, 0)
     np.testing.assert_allclose(pd, rd, rtol=1e-5, atol=1e-6)
     assert (pi == ri).mean() > 0.999
     for f in ("iterations", "chunk_rounds", "units_scanned", "compactions",

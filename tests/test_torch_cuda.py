@@ -315,3 +315,128 @@ def test_buffer_kdtree_on_card_quantized_is_exact(precision, n_chunks):
     d_of_i = np.sqrt(np.sum((q[:, None, :] - pts[i]) ** 2, -1))
     np.testing.assert_allclose(d_of_i, bd, rtol=1e-5, atol=1e-6)
     assert (i == bi).mean() > 0.999
+
+
+# --- the jit engine's captured round, the dual-tree ops on the card ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(3000, 14), (700, 40)])
+def test_captured_round_equals_eager_round_bit_for_bit(m, k):
+    """``JitRounds`` on the card: the CUDA graph of one round, replayed,
+    leaves the state the eager round leaves, bit for bit, round by round;
+    its kernel launches come from the replays (the wrapper counts the eager
+    round and the capture only)."""
+    from repro_torch.core.jitsearch import JitRounds, lazy_knn_jit, tree_arrays_from
+    from repro_torch.core.toptree import build_top_tree
+
+    dev = _device()
+    rng = np.random.default_rng(m)
+    pts = rng.normal(size=(20000, 10)).astype(np.float32)
+    q = torch.from_numpy(rng.normal(size=(m, 10)).astype(np.float32)).to(dev)
+    tree = build_top_tree(pts, 6)
+    ta = tree_arrays_from(tree, dev)
+    kw = dict(tq=128, first_leaf_heap=tree.first_leaf_heap)
+    graph = JitRounds(ta, m, k, sync_every=1, **kw)
+    eager = JitRounds(ta, m, k, **kw)
+    graph.run(q, max_rounds=1)          # the eager warm round, then capture
+    assert graph.graph is not None and graph.eager_rounds == 1
+    eager.reset(q)
+    eager.round()
+    for _ in range(200):
+        for a, b in ((graph.node, eager.node), (graph.fromc, eager.fromc),
+                     (graph.knn_d[:m], eager.knn_d[:m]), (graph.knn_i[:m], eager.knn_i[:m]),
+                     (graph.rounds, eager.rounds)):
+            assert torch.equal(a, b)
+        if not bool(eager.live):
+            break
+        launches = knn_scan.leaf_scan_units.launches
+        graph.graph.replay()
+        assert knn_scan.leaf_scan_units.launches == launches   # not the wrapper
+        eager.round()
+    assert not bool(eager.live), "did not reach the fixed point in 200 rounds"
+    # a second batch replays the same graph: answers exact against brute force
+    cache = {(m, k): graph}
+    d2, oi, rounds = lazy_knn_jit(q, ta, k=k, cache=cache, **kw)
+    assert rounds == int(eager.rounds) and graph.replays > 0
+    bd, _ = knn_brute(q.cpu().numpy(), pts, k, device=dev)
+    np.testing.assert_allclose(np.sqrt(d2.cpu().numpy()), bd, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_jit_cache_bounds_device_memory():
+    """Queries at many batch sizes keep at most ``CACHED_SHAPES`` captured
+    rounds: the evicted ones give back their buffers and their graphs'
+    memory pools, so device memory stays that of a full cache."""
+    from repro_torch.api import IndexSpec, KNNIndex
+    from repro_torch.core.jitsearch import CACHED_SHAPES
+
+    dev = _device()
+    rng = np.random.default_rng(5)
+    pts = rng.normal(size=(20000, 10)).astype(np.float32)
+    q = rng.normal(size=(4000, 10)).astype(np.float32)
+    index = KNNIndex.build(pts, IndexSpec(engine="jit", height=6, devices=(dev,)))
+    held = []
+    for i in range(3 * CACHED_SHAPES):
+        m = 3000 + 10 * i
+        res = index.query(q[:m], 10)
+        assert res.dists.shape == (m, 10)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        held.append((torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)))
+        assert len(index._state.rounds) == min(i + 1, CACHED_SHAPES)
+    full = held[CACHED_SHAPES - 1]
+    for alloc, reserved in held[CACHED_SHAPES:]:
+        assert alloc <= 1.1 * full[0], (held, CACHED_SHAPES)
+        assert reserved <= 1.1 * full[1], (held, CACHED_SHAPES)
+
+
+@pytest.mark.cuda
+def test_jit_index_on_card_is_exact():
+    """``KNNIndex`` with ``engine="jit"`` on the card against brute force,
+    also far from the origin, where the certificate sends rows to brute
+    force."""
+    from repro_torch.api import IndexSpec, KNNIndex
+
+    dev = _device()
+    rng = np.random.default_rng(4)
+    for offset in (0.0, 300.0):
+        pts = (rng.normal(size=(20000, 10)) + offset).astype(np.float32)
+        q = (rng.normal(size=(3000, 10)) + offset).astype(np.float32)
+        res = KNNIndex.build(pts, IndexSpec(engine="jit", height=6, devices=(dev,))).query(q, 10)
+        bd, bi = knn_brute(q, pts, 10, device=dev)
+        np.testing.assert_allclose(res.dists, bd, rtol=1e-5, atol=1e-6)
+        assert (res.idx == bi).mean() > 0.999
+        assert (res.stats.exact_rows > 0) == (offset > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chunks", [1, 3])
+def test_dual_ops_on_card_equal_the_cpu(n_chunks):
+    """radius, kde and pair_count on the card against the same ops on the
+    CPU (lattice points: radius and pair_count bit for bit; kde within its
+    fp32 rounding)."""
+    from repro_torch.core.chunked import ChunkedLeafStore
+    from repro_torch.core.dualtree import DualTree
+    from repro_torch.core.toptree import build_top_tree
+
+    dev = _device()
+    rng = np.random.default_rng(9)
+    pts = rng.integers(0, 12, size=(6000, 3)).astype(np.float32)
+    q = rng.integers(0, 12, size=(700, 3)).astype(np.float32)
+    tree = build_top_tree(pts, 5)
+    edges = np.sqrt([0.5, 3.5, 7.5, 16.5, 32.5])
+    r = float(np.sqrt(7.5))
+    out = []
+    for device in (torch.device("cpu"), dev):
+        store = ChunkedLeafStore(tree.points_padded, n_chunks=n_chunks, uniform=True,
+                                 leaf_sizes=tree.leaf_sizes(), device=device)
+        dual = DualTree(tree, store)
+        out.append((dual.radius(q, r), dual.kde(q, 1.5), dual.pair_count(edges)))
+    (cr, ck, cp), (gr, gk, gp) = out
+    for a, b in zip(cr[:3], gr[:3]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(gk[0], ck[0], rtol=1e-5, atol=1e-9)
+    assert gk[1] == ck[1]
+    np.testing.assert_array_equal(gp[0], cp[0])
+    for f in ("iterations", "flushes", "units_scanned", "points_scanned", "chunk_rounds"):
+        assert getattr(gp[1], f) == getattr(cp[1], f), f

@@ -1,0 +1,311 @@
+"""repro_torch's dual-tree ops (``core/dualtree.py``) vs the JAX reference.
+
+Mirrors the 16 tests of ``tests/test_dualtree.py`` on the port, on the CPU.
+The same numpy points go through ``repro.core.dualtree`` and the port's
+module; each test names the ``repro`` function it holds the port against.
+Fixtures are the reference's: integer-lattice points (every squared pair
+distance an exact fp32 integer) with radii and histogram edges whose
+squares are not integers, so radius and pair_count compare bit for bit;
+kde is held to its declared contract ``|approx - exact| <= rtol*exact +
+atol`` (plus fp32 slack).  The traversal's counters (levels, batches, leaf
+pairs, points paired, chunk visits, batch shapes) must equal the
+reference's on the same store layout.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.chunked import ChunkedLeafStore as JaxStore
+from repro.core.dualtree import PAIR_RUNGS as JAX_PAIR_RUNGS
+from repro.core.dualtree import DualTree as JaxDualTree
+from repro.core.dualtree import kde_brute as jax_kde_brute
+from repro.core.dualtree import node_bounds as jax_node_bounds
+from repro.core.dualtree import pair_count_brute as jax_pair_count_brute
+from repro.core.dualtree import radius_brute as jax_radius_brute
+from repro.core.toptree import build_top_tree as jax_build_top_tree
+from repro_torch.core.chunked import ChunkedLeafStore
+from repro_torch.core.dualtree import (
+    PAIR_RUNGS,
+    QLEAF,
+    QLEAF_RUNGS,
+    DualTree,
+    dualtree_cache_size,
+    kde_brute,
+    node_bounds,
+    pair_count_brute,
+    radius_brute,
+)
+from repro_torch.core.lazysearch import SearchStats
+from repro_torch.core.toptree import build_top_tree
+
+CPU = torch.device("cpu")
+
+# non-integer-squared boundaries (see module doc)
+EDGES = np.array([0.5, 3.5, 7.5, 11.5, 16.5, 25.5])
+RADIUS = float(np.sqrt(7.5))
+
+# the traversal counters both packages report
+STAT_FIELDS = ("iterations", "flushes", "units_scanned", "points_scanned",
+               "queries_advanced", "chunk_rounds", "plan_shapes")
+
+
+def lattice(n, d, seed=0, span=12):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, span, size=(n, d)).astype(np.float32)
+
+
+def clustered(n, d, seed=0):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(8, d)).astype(np.float32)
+    pts = centers[rng.integers(0, 8, n)] + 0.05 * rng.normal(size=(n, d)).astype(np.float32)
+    return pts.astype(np.float32)
+
+
+def csr_rows_equal(ip_a, ix_a, ip_b, ix_b):
+    """Same neighbor SETS per row; indptr must match exactly."""
+    assert np.array_equal(ip_a, ip_b)
+    for i in range(len(ip_a) - 1):
+        assert set(ix_a[ip_a[i]:ip_a[i + 1]].tolist()) == set(
+            ix_b[ip_b[i]:ip_b[i + 1]].tolist()
+        ), f"row {i}"
+
+
+def same_stats(a: SearchStats, b) -> None:
+    for f in STAT_FIELDS:
+        assert getattr(a, f) == getattr(b, f), f
+
+
+def _pad8(slabs):
+    d = slabs.shape[-1]
+    dp = max(8, -(-d // 8) * 8)
+    if dp == d:
+        return slabs
+    pad = np.zeros(slabs.shape[:2] + (dp - d,), np.float32)
+    return np.concatenate([slabs, pad], axis=-1)
+
+
+def stores(pts, height):
+    """The store variants every op must agree across — resident, chunked,
+    and quantized (which forces DualTree's private fp32 store) — each with
+    the reference's DualTree over the same layout (its slabs padded to a
+    multiple of 8 features, the port's at width d)."""
+    tree = build_top_tree(pts, height)
+    jtree = jax_build_top_tree(pts, height)
+    yield "resident", DualTree(tree, device=CPU), JaxDualTree(jtree)
+    sizes = tree.leaf_sizes()
+    slabs = tree.points_padded
+    yield "chunked3", DualTree(
+        tree, ChunkedLeafStore(slabs, n_chunks=3, uniform=True, leaf_sizes=sizes, device=CPU),
+    ), JaxDualTree(jtree, JaxStore(_pad8(slabs), n_chunks=3, uniform=True, leaf_sizes=sizes))
+    yield "quantized", DualTree(
+        tree, ChunkedLeafStore(slabs, n_chunks=2, uniform=True, leaf_sizes=sizes,
+                               precision="int8", device=CPU),
+    ), JaxDualTree(jtree, JaxStore(_pad8(slabs), n_chunks=2, uniform=True,
+                                   leaf_sizes=sizes, precision="int8"))
+
+
+class TestNodeBounds:
+    def test_boxes_match_brute_leaf_partition(self):
+        """``repro.core.dualtree.node_bounds`` on the same tree: equal boxes
+        and counts, leaves over their real rows, parents the union."""
+        pts = lattice(500, 3, seed=1)
+        tree = build_top_tree(pts, 4)
+        b = node_bounds(tree)
+        ref = jax_node_bounds(jax_build_top_tree(pts, 4))
+        for f in ("lo", "hi", "count"):
+            np.testing.assert_array_equal(getattr(b, f), getattr(ref, f))
+        assert b.first_leaf == ref.first_leaf
+        nl = tree.n_leaves
+        sizes = tree.leaf_sizes()
+        for j in range(nl):
+            rows = tree.points_padded[j, : sizes[j], : tree.d]
+            np.testing.assert_array_equal(b.lo[nl + j], rows.min(0))
+            np.testing.assert_array_equal(b.hi[nl + j], rows.max(0))
+        for v in range(nl - 1, 0, -1):
+            np.testing.assert_array_equal(b.lo[v], np.minimum(b.lo[2 * v], b.lo[2 * v + 1]))
+            assert b.count[v] == b.count[2 * v] + b.count[2 * v + 1]
+        assert b.count[1] == 500
+
+
+class TestRadius:
+    @pytest.mark.parametrize("n,m,d,height", [(2000, 150, 3, 4), (700, 64, 5, 5)])
+    def test_parity_all_store_variants(self, n, m, d, height):
+        """``repro.core.dualtree.DualTree.radius`` per store variant: the
+        reference oracle's rows, the reference traversal's counters."""
+        pts = lattice(n, d, seed=n)
+        q = lattice(m, d, seed=n + 1)
+        bi, bj, bd = jax_radius_brute(q, pts, RADIUS)
+        pi, pj, pd = radius_brute(q, pts, RADIUS, device=CPU)
+        np.testing.assert_array_equal(pi, bi)
+        np.testing.assert_array_equal(pd, bd)
+        for name, dual, ref in stores(pts, height):
+            ip, ix, dd, stats = dual.radius(q, RADIUS)
+            csr_rows_equal(ip, ix, bi, bj)
+            for i in range(m):
+                row = dd[ip[i]:ip[i + 1]]
+                assert np.all(np.diff(row) >= 0), (name, i)
+            assert np.all(dd <= np.float32(RADIUS))
+            rip, rix, rdd, rstats = ref.radius(q, RADIUS)
+            np.testing.assert_array_equal(dd, rdd)
+            same_stats(stats, rstats)
+            assert stats.units_scanned > 0
+
+    def test_prunes_vs_all_pairs(self):
+        pts = np.concatenate([lattice(600, 3, seed=2), lattice(600, 3, seed=3) + 1000.0])
+        q = pts[::10] + 0.25
+        dual = DualTree(build_top_tree(pts, 5), device=CPU)
+        ip, ix, dd, stats = dual.radius(q, RADIUS)
+        total = dual.tree.n_leaves * -(-len(q) // 64)
+        assert stats.units_scanned < total  # leaf pairs visited < full grid
+        bi, bj, _ = jax_radius_brute(q, pts, RADIUS)
+        csr_rows_equal(ip, ix, bi, bj)
+        _, _, _, rstats = JaxDualTree(jax_build_top_tree(pts, 5)).radius(q, RADIUS)
+        same_stats(stats, rstats)
+
+    def test_single_query_fallback(self):
+        pts = lattice(300, 4, seed=4)
+        dual = DualTree(build_top_tree(pts, 3), device=CPU)
+        for q in (pts[:1] + 0.25, np.zeros((0, 4), np.float32)):
+            ip, ix, dd, stats = dual.radius(q, RADIUS)
+            bi, bj, _ = jax_radius_brute(q, pts, RADIUS)
+            csr_rows_equal(ip, ix, bi, bj)
+
+    def test_negative_radius_rejected(self):
+        dual = DualTree(build_top_tree(lattice(64, 2), 2), device=CPU)
+        with pytest.raises(ValueError):
+            dual.radius(np.zeros((3, 2), np.float32), -1.0)
+
+
+class TestKDE:
+    @pytest.mark.parametrize("kernel", ["gaussian", "tophat"])
+    def test_within_declared_tolerance(self, kernel):
+        """The declared contract against ``repro.core.dualtree.kde_brute``,
+        and the same accumulated error bound and counters as
+        ``DualTree.kde`` (the prune decisions are the float64 frontier's)."""
+        pts = clustered(3000, 3, seed=5)
+        q = clustered(200, 3, seed=6)
+        h, rtol, atol = 0.3, 1e-2, 1e-9
+        exact = jax_kde_brute(q, pts, h, kernel=kernel).astype(np.float64)
+        np.testing.assert_allclose(kde_brute(q, pts, h, kernel=kernel, device=CPU),
+                                   exact, rtol=1e-6)
+        for name, dual, ref in stores(pts, 4):
+            dens, err, stats = dual.kde(q, h, rtol=rtol, atol=atol, kernel=kernel)
+            bound = rtol * exact + atol + 1e-5 * np.maximum(exact, 1.0)
+            assert np.all(np.abs(dens.astype(np.float64) - exact) <= bound), name
+            assert err >= 0.0
+            rdens, rerr, rstats = ref.kde(q, h, rtol=rtol, atol=atol, kernel=kernel)
+            np.testing.assert_allclose(dens, rdens, rtol=1e-5, atol=1e-9)
+            assert err == pytest.approx(rerr, rel=1e-12, abs=0.0)
+            same_stats(stats, rstats)
+
+    def test_tophat_exact_and_consistent_with_radius(self):
+        pts = lattice(1500, 3, seed=7)
+        q = lattice(100, 3, seed=8)
+        dual = DualTree(build_top_tree(pts, 4), device=CPU)
+        dens, err, _ = dual.kde(q, RADIUS, kernel="tophat")
+        assert err == 0.0  # tophat prune is exact
+        ip, _, _, _ = dual.radius(q, RADIUS)
+        counts = np.diff(ip)
+        np.testing.assert_allclose(dens, counts.astype(np.float32) / len(pts), rtol=1e-6)
+        np.testing.assert_allclose(
+            dens, jax_kde_brute(q, pts, RADIUS, kernel="tophat"), rtol=1e-6)
+
+    def test_approximation_actually_prunes(self):
+        pts = clustered(4000, 3, seed=9)
+        q = clustered(256, 3, seed=10)
+        dual = DualTree(build_top_tree(pts, 5), device=CPU)
+        _, err_loose, s_loose = dual.kde(q, 0.1, rtol=0.3, atol=1e-6)
+        _, _, s_tight = dual.kde(q, 0.1, rtol=1e-12, atol=0.0)
+        assert s_loose.units_scanned < s_tight.units_scanned
+        assert err_loose > 0.0
+        ref = JaxDualTree(jax_build_top_tree(pts, 5))
+        _, rerr, rs_loose = ref.kde(q, 0.1, rtol=0.3, atol=1e-6)
+        same_stats(s_loose, rs_loose)
+        assert err_loose == pytest.approx(rerr, rel=1e-12, abs=0.0)
+
+    def test_bad_kernel_rejected(self):
+        dual = DualTree(build_top_tree(lattice(64, 2), 2), device=CPU)
+        with pytest.raises(ValueError):
+            dual.kde(np.zeros((3, 2), np.float32), 1.0, kernel="sinc")
+
+
+class TestPairCount:
+    @pytest.mark.parametrize("n,d,height", [(1500, 3, 4), (900, 5, 5)])
+    def test_parity_all_store_variants(self, n, d, height):
+        """``repro.core.dualtree.pair_count_brute`` bit for bit, and the
+        reference ``DualTree.pair_count``'s counters, per store variant."""
+        pts = lattice(n, d, seed=n)
+        ref_hist = jax_pair_count_brute(pts, EDGES)
+        np.testing.assert_array_equal(pair_count_brute(pts, EDGES, device=CPU), ref_hist)
+        for name, dual, ref in stores(pts, height):
+            hist, stats = dual.pair_count(EDGES)
+            assert np.array_equal(hist, ref_hist), name
+            rhist, rstats = ref.pair_count(EDGES)
+            assert np.array_equal(rhist, ref_hist)
+            same_stats(stats, rstats)
+            assert stats.units_scanned >= 0
+
+    def test_matches_numpy_histogram_oracle(self):
+        pts = lattice(800, 3, seed=11)
+        diff = pts[:, None, :].astype(np.float64) - pts[None, :, :]
+        dist = np.sqrt((diff * diff).sum(-1))
+        mask = ~np.eye(len(pts), dtype=bool)
+        ref, _ = np.histogram(dist[mask], bins=EDGES)
+        hist, _ = DualTree(build_top_tree(pts, 4), device=CPU).pair_count(EDGES)
+        assert np.array_equal(hist, ref.astype(np.int64))
+
+    def test_zero_leading_edge_excludes_self_pairs(self):
+        pts = lattice(500, 3, seed=12)
+        edges = np.array([0.0, 3.5, 7.5, 16.5])
+        diff = pts[:, None, :].astype(np.float64) - pts[None, :, :]
+        dist = np.sqrt((diff * diff).sum(-1))
+        mask = ~np.eye(len(pts), dtype=bool)
+        ref, _ = np.histogram(dist[mask], bins=edges)
+        hist, _ = DualTree(build_top_tree(pts, 4), device=CPU).pair_count(edges)
+        assert np.array_equal(hist, ref.astype(np.int64))
+        assert np.array_equal(pair_count_brute(pts, edges, device=CPU), ref)
+
+    def test_total_count_conserved(self):
+        pts = lattice(600, 4, seed=13, span=6)
+        span_max = 4 * 6 * 6 * 4  # > any possible squared distance
+        edges = np.array([0.0, 1.5, float(np.sqrt(span_max))])
+        hist, _ = DualTree(build_top_tree(pts, 4), device=CPU).pair_count(edges)
+        n = len(pts)
+        assert hist.sum() == n * (n - 1)  # every ordered non-self pair
+
+    def test_bad_edges_rejected(self):
+        dual = DualTree(build_top_tree(lattice(64, 2), 2), device=CPU)
+        for bad in ([1.0], [2.0, 1.0], [-1.0, 2.0]):
+            with pytest.raises(ValueError):
+                dual.pair_count(np.asarray(bad, np.float64))
+
+
+class TestRecompileDiscipline:
+    def test_warm_then_new_operands_no_compiles(self):
+        """``repro.core.dualtree.dualtree_cache_size``'s contract on the
+        port's count of distinct batch shapes: after ``warm``, new radii,
+        bandwidths and edge values meet no new shape; another edge count is
+        one new shape."""
+        pts = lattice(2500, 3, seed=14)
+        q = lattice(300, 3, seed=15)
+        dual = DualTree(build_top_tree(pts, 4), device=CPU)
+        dual.warm(("radius", "kde", "pair_count"), m=len(q), n_edges=len(EDGES))
+        before = dualtree_cache_size()
+        for r in (0.5, RADIUS, 9.0):
+            dual.radius(q, r)
+        for h in (0.4, 2.0):
+            dual.kde(q, h)
+            dual.kde(q, h, kernel="tophat")
+        dual.pair_count(EDGES)
+        dual.pair_count(EDGES * 2.0)
+        assert dualtree_cache_size() == before
+        dual.pair_count(np.array([0.5, 1.5, 2.5]))
+        assert dualtree_cache_size() == before + 1
+
+    def test_rungs_cover_pair_batches(self):
+        assert tuple(sorted(PAIR_RUNGS)) == PAIR_RUNGS == JAX_PAIR_RUNGS
+        assert PAIR_RUNGS[0] >= 1
+        from repro.core import dualtree as jax_dualtree
+
+        assert (QLEAF, QLEAF_RUNGS) == (jax_dualtree.QLEAF, jax_dualtree.QLEAF_RUNGS)

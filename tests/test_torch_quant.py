@@ -34,7 +34,7 @@ from repro.kernels.ref import leaf_scan_ref as jax_leaf_scan_ref
 from repro_torch.api import IndexSpec, KNNIndex, knn_brute
 from repro_torch.core.chunked import ChunkedLeafStore
 from repro_torch.core.chunked_jit import _chunk_round, _initial_advance
-from repro_torch.core.lazysearch import BufferKDTree
+from repro_torch.core.lazysearch import FP32_OVERFETCH, BufferKDTree
 from repro_torch.core.quantize import (
     QUANT_OVERFETCH,
     pack_dead,
@@ -409,14 +409,17 @@ def test_quantized_odd_width_and_k_above_leaf(precision):
 
 def test_overfetch_clamped_to_n():
     """``BufferKDTree._engine_k`` as ``repro.core.lazysearch.BufferKDTree``'s:
-    k + QUANT_OVERFETCH past n is clamped, and the answer stays exact."""
+    k + QUANT_OVERFETCH past n is clamped, and the answer stays exact; an
+    fp32 store runs at k + FP32_OVERFETCH (the reference at k)."""
     pts, q = _data(260, 8, 4, seed=15)
     tree = BufferKDTree(pts, height=3, precision="int8", device=CPU)
     ref = JaxBufferKDTree(pts, height=3, precision="int8")
     for k in (1, 10, 252, 256):
         assert tree._engine_k(k) == ref._engine_k(k)
     assert tree._engine_k(256) == 260
-    assert BufferKDTree(pts, height=3, device=CPU)._engine_k(10) == 10
+    fp32 = BufferKDTree(pts, height=3, device=CPU)
+    assert fp32._engine_k(10) == 10 + FP32_OVERFETCH
+    assert fp32._engine_k(258) == 260
     d_, i_ = tree.query(q, k=256)
     bd, bi = knn_brute(q, pts, 256, device="cpu")
     np.testing.assert_array_equal(i_, bi)
@@ -463,9 +466,9 @@ def test_refine_repairs_the_reference_overfetch_miss():
 
 def test_certificate_and_last_resort():
     """A row is proven when the k_eff-th candidate, less eps and the fp32
-    slack, is no nearer than the exact k-th; fp32 stores and k_eff = n are
-    exact by construction; rows left unproven after the second pass take
-    fp32 brute force over the host points."""
+    slack, is no nearer than the exact k-th (fp32 stores with eps = 0); a
+    k_eff = n is exact by construction; rows left unproven after the
+    second pass take fp32 brute force over the host points."""
     pts, q = _ring_case()
     tree = BufferKDTree(pts, height=2, precision="int8", device=CPU)
     eps = tree.store.quant_eps
