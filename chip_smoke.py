@@ -14,7 +14,7 @@ Phases, each printing its own lines:
   3. kernel   the CUDA leaf scan against its plain torch version on the
               card: the reference's kernel sweep, one case per narrow
               width, pad rows, exact ties (lattice, also at the main-path
-              width), lists in shared memory and in the output rows
+              width at k = 10, 18 and 74), lists in shared memory and in the output rows
               (k = 40, 129, 300), the wide kernel (d = 130, 300), every
               list placement bit-identical, the indexed form, and the
               main-path shape (W=4096 units, TQ=128, L_pad=4096, d=10
@@ -27,7 +27,8 @@ Phases, each printing its own lines:
               each timed beside its plain version and beside a torch
               dequantize + baddbmm + topk, uint8 at d = 130, k = 150 (the
               wide kernel), and integer-lattice codes with dead rows (tie
-              order bit for bit, dead rows last); then KNNIndex at k = 150
+              order bit for bit, dead rows last; also at the main-path
+              width at k = 18 and 74); then KNNIndex at k = 150
               and at d = 130 against knn_brute;
   4. main     KNNIndex.build(points).query(q, 10) with no spec: n points,
               m queries, d=10, from a seeded clustered Gaussian mixture;
@@ -245,6 +246,8 @@ def phase_kernel(torch, dev, seed: int) -> dict:
         ("wide_d300", 2, 128, 300, 300, 300, 10, 0, False),
         ("wide_d300_k300", 1, 128, 320, 300, 300, 300, 37, False),
         ("lattice_main_width", 4, 128, 4096, 10, 10, 10, 0, True),
+        ("lattice_main_width_k18", 4, 128, 4096, 10, 10, CODE_K, 0, True),
+        ("lattice_main_width_k74", 4, 128, 4096, 10, 10, REFINE_K, 0, True),
     ]
     for name, w, tq, lp, d, d_pad, k, pad_rows, lattice in cases:
         q, x = inputs(w, tq, lp, d, d_pad, pad_rows, lattice)
@@ -450,7 +453,7 @@ def phase_kernel_codes(torch, dev, gen, q, x32, qpad, ul, uq, nu) -> dict:
     # integer lattices with 30 % dead rows: exact values, so the tie order
     # (lowest index, dead rows last in index order) is the plain version's
     for code in ("u8", "f16"):
-        for w_, lp_, d_, k_ in ((2, 300, 3, 9), (4, 4096, 10, CODE_K)):
+        for w_, lp_, d_, k_ in ((2, 300, 3, 9), (4, 4096, 10, CODE_K), (4, 4096, 10, REFINE_K)):
             ql = torch.randint(-2, 3, (w_, 128, d_), device=dev, generator=gen).float()
             codes, meta, dead = code_slab(torch, dev, gen, code, w_, lp_, d_, lattice=True,
                                           dead_frac=0.3)
@@ -458,7 +461,7 @@ def phase_kernel_codes(torch, dev, gen, q, x32, qpad, ul, uq, nu) -> dict:
             assert torch.equal(kd, rd) and torch.equal(ki, ri), f"lattice {code} tie order"
             assert dead_last(dead, ki)
             log("kernel", case=f"lattice_{code}_dead_rows", shape=(w_, 128, lp_, d_), k=k_,
-                ok=True)
+                variant=knn_scan.choose_variant(d_, k_, 128, lp_, code).name, ok=True)
     return out
 
 

@@ -10,7 +10,7 @@
 # Each run is `python3 chip_smoke.py <args>` from the root of its tree, which
 # builds that tree's kernels into its own build/ directory.  The output of
 # run i goes to $AB_LOG_DIR/ab_<i>_<name>.log (default build/ab/logs); the
-# build, kernel, main and ooc lines are echoed.
+# build, kernel and cell (main, ooc, quant, quant_ooc, fp16) lines are echoed.
 set -euo pipefail
 a=$1 b=$2
 shift 2
@@ -22,5 +22,5 @@ for tree in "$a" "$b" "$b" "$a"; do
   log="$out/ab_${i}_$(basename "$tree").log"
   (cd "$tree" && python3 chip_smoke.py "$@") > "$log" 2>&1
   echo "== run $i: $tree"
-  grep -E "^\[(build)\] seconds|case=main_shape|^\[(main|ooc)\] (engine|rows_)|power.limit|W$" "$log" || true
+  grep -E "^\[(build)\] seconds|case=main_shape|^\[(main|ooc|quant|quant_ooc|fp16)\] (engine|rows_)|power.limit|W$" "$log" || true
 done

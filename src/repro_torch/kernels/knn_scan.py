@@ -64,6 +64,7 @@ MAX_TQ = 128
 SMEM_LIMIT = 232_448             # dynamic shared memory one block may use
 NARROW_WIDTHS = (2, 4, 6, 8, 10, 12, 14, 16)
 REG_KMAX = (4, 8, 10, 16)        # register-list lengths
+LIST_BUF = 16                    # narrow: register buffer in front of a memory list
 TILE = 64                        # narrow: slab rows per pipeline stage
 WIDE_ROWS, WIDE_DC = 32, 16      # wide: rows per sub-tile, features per chunk
 _KINDS = {"narrow": 0, "wide": 1}
@@ -91,13 +92,16 @@ class Variant:
     threads: int
     smem_bytes: int
     code: str = "f32"
+    buf: int = 0
+
 
     @property
     def name(self) -> str:
         suffix = "" if self.code == "f32" else f"/{self.code}"
         if self.kind == "wide":
             return f"wide/{self.list_at}{suffix}"
-        return f"narrow<{self.width},{self.kmax}>/{self.list_at}{suffix}"
+        buf = f"+buf{self.buf}" if self.buf else ""
+        return f"narrow<{self.width},{self.kmax}>/{self.list_at}{buf}{suffix}"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -144,10 +148,11 @@ def choose_variant(d: int, k: int, tq: int, l_pad: int, code: str = "f32") -> Va
         base = 4 * (WIDE_ROWS * WIDE_DC + WIDE_ROWS)
     if kmax:
         return Variant(kind, width, kmax, qpt, "reg", threads, base, code)
+    buf = LIST_BUF if kind == "narrow" else 0
     in_smem = base + 8 * k * qpt * threads
     if in_smem <= SMEM_LIMIT:
-        return Variant(kind, width, 0, qpt, "smem", threads, in_smem, code)
-    return Variant(kind, width, 0, qpt, "out", threads, base, code)
+        return Variant(kind, width, 0, qpt, "smem", threads, in_smem, code, buf)
+    return Variant(kind, width, 0, qpt, "out", threads, base, code, buf)
 
 
 def _extract_topk(cand_d, cand_i, k):
@@ -275,7 +280,7 @@ def _lib(v: Variant) -> ctypes.CDLL:
     lib = build.load(*_part(v)).lib
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.leaf_scan_units.argtypes = [p] * 7 + [i] * 13 + [p] * 4
+        lib.leaf_scan_units.argtypes = [p] * 7 + [i] * 14 + [p] * 4
         lib.leaf_scan_units.restype = i
         lib.leaf_scan_error_string.argtypes = [i]
         lib.leaf_scan_error_string.restype = ctypes.c_char_p
@@ -351,9 +356,17 @@ def leaf_scan_units(
         )
     _check_cuda_args(qpad, slab, unit_leaf, unit_query, n_units, scale, offset, dead)
     code = _check_meta(slab, scale, offset, dead)
+    c, l_pad, d = slab.shape
+    v = choose_variant(d, k, unit_query.shape[1], l_pad, code)
+    return _launch(v, qpad, slab, unit_leaf, unit_query, n_units, k, scale, offset, dead)
+
+
+def _launch(v: Variant, qpad, slab, unit_leaf, unit_query, n_units, k, scale, offset,
+            dead) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the instance ``v`` on checked arguments and count it."""
     w, tq = unit_query.shape
     c, l_pad, d = slab.shape
-    v = choose_variant(d, k, tq, l_pad, code)
+    code = v.code
     out_d = torch.empty((w, tq, k), dtype=torch.float32, device=qpad.device)
     out_i = torch.empty((w, tq, k), dtype=torch.int32, device=qpad.device)
     lib = _lib(v)
@@ -365,7 +378,7 @@ def leaf_scan_units(
         qpad.data_ptr(), slab.data_ptr(), unit_leaf.data_ptr(),
         unit_query.data_ptr(), n_units.data_ptr(), out_d.data_ptr(),
         out_i.data_ptr(), w, tq, l_pad, d, k, _KINDS[v.kind], v.width,
-        v.kmax, v.qpt, _LIST_AT[v.list_at], v.threads, v.smem_bytes,
+        v.kmax, v.buf, v.qpt, _LIST_AT[v.list_at], v.threads, v.smem_bytes,
         CODES[code][0], ptr(scale), ptr(offset), ptr(dead),
         torch.cuda.current_stream(qpad.device).cuda_stream,
     )

@@ -294,6 +294,72 @@ def test_kernel_reads_codes_lattice_bit_for_bit(code, lp, d, k):
     np.testing.assert_array_equal(ki.cpu().numpy(), ri.cpu().numpy())
 
 
+# --- the long lists: k past the register lists (k + QUANT_OVERFETCH = 18,
+# the refining pass's 74), each code type, L_pad below and above k + 16 ---
+
+LONG_KS = [17, 18, 24, 32, 33, 74]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["f32", "u8", "f16"])
+@pytest.mark.parametrize("k", LONG_KS)
+@pytest.mark.parametrize("lp_over_k", [5, 300])
+def test_kernel_long_lists_vs_plain(code, k, lp_over_k):
+    """A list of k > 16 against the plain version, for fp32 rows (pad rows
+    in one leaf's tail) and for codes (ragged leaves and dead rows):
+    distances within TOL, indices permutation-aware, dead and pad rows only
+    behind every live row.  L_pad = k + 5 leaves fewer rows than a list and
+    a full register buffer hold together."""
+    dev = _device()
+    lp = k + lp_over_k
+    if code == "f32":
+        q, x = _inputs(3, 128, lp, 10, 10, seed=lp + k)
+        x[1, lp - 3:] = PAD_COORD
+        qt, xt = torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
+        kd, ki = knn_scan.leaf_scan_cuda(qt, xt, k=k)
+        torch.cuda.synchronize()
+        rd, _ = leaf_scan_ref(qt, xt, k=k)
+        dead = np.zeros((3, lp), bool)
+        dead[1, lp - 3:] = True
+    else:
+        q, codes, meta = _code_inputs(3, 128, lp, 10, code, seed=lp + k)
+        kd, ki, rd, _, x = _scan_codes(dev, q, codes, meta, k)
+        dead = np.unpackbits(meta["dead"], axis=1)[:, :lp].astype(bool)
+    _assert_scan_matches(q, x, kd, ki, rd)
+    sel_dead = dead[np.arange(3)[:, None, None], ki.cpu().numpy()]
+    assert (np.diff(sel_dead.astype(int), axis=-1) >= 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["f32", "u8", "f16"])
+@pytest.mark.parametrize("k", LONG_KS)
+def test_kernel_long_lists_lattice_bit_for_bit(code, k):
+    """Integer lattices at the main path's width (every value exact, ties
+    everywhere; codes with 30 % dead rows): distances and the lowest-index
+    tie order equal the plain version bit for bit."""
+    dev = _device()
+    rng = np.random.default_rng(100 + k)
+    lp = 4096 if k in (18, 74) else 300
+    q = rng.integers(-2, 3, size=(2, 128, 10)).astype(np.float32)
+    lattice = rng.integers(0, 5, size=(2, lp, 10))
+    if code == "f32":
+        x = (lattice - 2).astype(np.float32)
+        kd, ki = knn_scan.leaf_scan_cuda(torch.from_numpy(q).to(dev),
+                                         torch.from_numpy(x).to(dev), k=k)
+        rd, ri = leaf_scan_ref(torch.from_numpy(q), torch.from_numpy(x), k=k)
+    else:
+        meta = {"dead": pack_dead(rng.random((2, lp)) < 0.3)}
+        if code == "u8":
+            codes = lattice.astype(np.uint8)
+            meta.update(scale=np.ones((2, 10), np.float32),
+                        offset=np.full((2, 10), -2, np.float32))
+        else:
+            codes = (lattice - 2).astype(np.float16)
+        kd, ki, rd, ri, _ = _scan_codes(dev, q, codes, meta, k)
+    np.testing.assert_array_equal(kd.cpu().numpy(), rd.cpu().numpy())
+    np.testing.assert_array_equal(ki.cpu().numpy(), ri.cpu().numpy())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision,n_chunks", [("fp16", 1), ("int8", 1), ("int8", 3)])
 def test_buffer_kdtree_on_card_quantized_is_exact(precision, n_chunks):

@@ -326,6 +326,157 @@ def test_kernel_selection_scheme_matches_reference(lp, d, k, lattice):
         np.testing.assert_array_equal(mi, np.asarray(ri)[0])
 
 
+# --- the long lists: a register buffer merged into the list by rank ---
+
+_INT_MAX = 2**31 - 1
+
+
+def _merge_model(list_d, list_i, buf_d, buf_i):
+    """torch model of csrc/leaf_scan.cu ``BufList::merge`` for one query: a
+    sorted list of kl entries and a sorted buffer of NB entries (free slots
+    +inf), every list row below every buffer row.  pos[j], the list entries
+    at or below buffer entry j, by a binary search; then from the back, list
+    segment [pos[j], pos[j+1]) moves up by j + 1 in place and buffer entry
+    j lands at pos[j] + j, each only below kl."""
+    kl, nb = list_d.shape[0], buf_d.shape[0]
+    d, i = list_d.clone(), list_i.clone()
+    pos = [0] * nb + [kl]
+    step = 1 << (kl.bit_length() - 1)
+    while step:
+        for j in range(nb):
+            c = pos[j] + step
+            if c <= kl and d[c - 1] <= buf_d[j]:
+                pos[j] = c
+        step >>= 1
+    for j in range(nb - 1, -1, -1):
+        for r in range(min(pos[j + 1], kl - 1 - j) - 1, pos[j] - 1, -1):
+            d[r + j + 1], i[r + j + 1] = d[r], i[r]
+        if pos[j] + j < kl:
+            d[pos[j] + j], i[pos[j] + j] = buf_d[j], buf_i[j]
+    return d, i
+
+
+def _buffered_kernel_model(q, x, k, buf, merge_p=0.0, seed=0):
+    """numpy model of the narrow kernel's selection for lists longer than a
+    register list: the filter and row order of ``_narrow_kernel_model``, but
+    a row that beats the list's k-th distance goes into a sorted buffer of
+    ``buf`` entries, merged into the list (``_merge_model``) when it is
+    full and at the end; the threshold and the filter bound change only at
+    a merge.  With ``merge_p`` > 0 a non-empty buffer is also merged after
+    a row with that probability, as when another lane of the warp forces a
+    merge."""
+    rng = np.random.default_rng(seed)
+    tq, d = q.shape
+    qn = np.zeros(tq, np.float32)
+    xn = np.zeros(x.shape[0], np.float32)
+    for j in range(d):
+        qn = _fma(q[:, j], q[:, j], qn)
+        xn = _fma(x[:, j], x[:, j], xn)
+    acc = np.broadcast_to(xn, (tq, x.shape[0])).astype(np.float32)
+    for j in range(d):
+        acc = _fma(-2 * q[:, j, None], x[None, :, j], acc)
+    out_d = np.empty((tq, k), np.float32)
+    out_i = np.empty((tq, k), np.int32)
+    n = x.shape[0]
+    flushes = sorted({0, min(32, n), *range(64, n, 64), n})
+    for t in range(tq):
+        state = {"d": torch.full((k,), np.inf), "i": torch.full((k,), _INT_MAX, dtype=torch.int32),
+                 "thr": np.float32(np.inf)}
+        bd, bi = [], []
+
+        def merge():
+            pad = buf - len(bd)
+            state["d"], state["i"] = _merge_model(
+                state["d"], state["i"], torch.tensor(bd + [np.inf] * pad, dtype=torch.float32),
+                torch.tensor(bi + [_INT_MAX] * pad, dtype=torch.int32))
+            state["thr"] = np.float32(state["d"][-1].item())
+            bd.clear()
+            bi.clear()
+
+        for r0, r1 in zip(flushes[:-1], flushes[1:]):
+            thr = state["thr"]
+            bound = _round_up_sub(thr, qn[t]) if thr > 0 else -np.inf
+            for r in range(r0, r1):
+                if not acc[t, r] < bound:
+                    continue
+                dist = max(np.float32(acc[t, r] + qn[t]), np.float32(0))
+                if dist < state["thr"]:
+                    pos = sum(1 for e in bd if e <= dist)
+                    bd.insert(pos, dist)
+                    bi.insert(pos, r)
+                if len(bd) == buf or (bd and rng.random() < merge_p):
+                    merge()
+        if bd:
+            merge()
+        out_d[t] = state["d"].numpy()
+        out_i[t] = state["i"].numpy()
+    return out_d, out_i
+
+
+# (L_pad, d, kl, B): kl just past the register lists, the quantized path's
+# 18, 33 and the refining pass's 74, with L_pad below and above kl + B
+BUFFERED = [
+    (30, 3, 17, 16), (200, 3, 17, 16), (20, 10, 18, 8), (300, 10, 18, 16),
+    (40, 5, 33, 8), (300, 5, 33, 16), (80, 10, 74, 16), (400, 10, 74, 8),
+]
+
+
+@pytest.mark.parametrize("lp,d,k,buf", BUFFERED)
+@pytest.mark.parametrize("merge_p", [0.0, 0.3])
+def test_buffered_selection_matches_insert_at_a_time(lp, d, k, buf, merge_p):
+    """The register buffer merged by rank gives the lists an insert at a
+    time gives, bit for bit, whenever the merges come (when the buffer is
+    full, or earlier as when another lane forces one): a stale threshold
+    only lets more rows into the buffer."""
+    rng = np.random.default_rng(lp + k + buf)
+    q = rng.normal(size=(8, d)).astype(np.float32)
+    x = rng.normal(size=(lp, d)).astype(np.float32)
+    bd, bi = _buffered_kernel_model(q, x, k, buf, merge_p, seed=lp)
+    md, mi = _narrow_kernel_model(q, x, k)
+    np.testing.assert_array_equal(bd, md)
+    np.testing.assert_array_equal(bi, mi)
+
+
+@pytest.mark.parametrize("lp,d,k,buf", BUFFERED)
+def test_buffered_selection_matches_reference_exact_ties(lp, d, k, buf):
+    """On an integer lattice every value is exact and ties are everywhere:
+    the buffered lists equal ``repro``'s ``leaf_scan_ref`` bit for bit,
+    distances and the lowest-index tie order."""
+    rng = np.random.default_rng(7 * lp + k)
+    q = rng.integers(-2, 3, size=(8, d)).astype(np.float32)
+    x = rng.integers(-2, 3, size=(lp, d)).astype(np.float32)
+    bd, bi = _buffered_kernel_model(q, x, k, buf, merge_p=0.2, seed=k)
+    rd, ri = jax_leaf_scan_ref(jnp.asarray(q[None]), jnp.asarray(x[None]), k=k)
+    np.testing.assert_array_equal(bd, np.asarray(rd)[0])
+    np.testing.assert_array_equal(bi, np.asarray(ri)[0])
+
+
+@pytest.mark.parametrize("kl,buf,used", [(17, 16, 16), (18, 8, 5), (33, 16, 16),
+                                          (74, 16, 16), (74, 8, 1), (74, 16, 0)])
+def test_back_to_front_merge_equals_rank_merge(kl, buf, used):
+    """The kernel's in-place merge from the back equals the port's
+    ``_rank_merge`` of the list and the buffer (padded with +inf to kl), the
+    list winning ties: distances drawn from a few values, so equal
+    distances fall across the two lists; the list's tail may still hold
+    its +inf start."""
+    rng = np.random.default_rng(kl * buf + used)
+    for trial in range(20):
+        filled = kl if trial % 2 else int(rng.integers(0, kl))
+        ld = np.sort(rng.integers(0, 6, size=kl)).astype(np.float32)
+        ld[filled:] = np.inf
+        li = np.where(np.isfinite(ld), np.arange(kl), _INT_MAX).astype(np.int32)
+        bd = np.full(buf, np.inf, np.float32)
+        bi = np.full(buf, _INT_MAX, np.int32)
+        bd[:used] = np.sort(rng.integers(0, 7, size=used))
+        bi[:used] = 1000 + np.arange(used)      # later rows than the list's
+        got_d, got_i = _merge_model(*map(torch.from_numpy, (ld, li, bd, bi)))
+        pad_d = np.concatenate([bd, np.full(kl - buf, np.inf, np.float32)])
+        pad_i = np.concatenate([bi, np.full(kl - buf, _INT_MAX, np.int32)])
+        want_d, want_i = knn_scan._rank_merge(
+            *(torch.from_numpy(a)[None] for a in (ld, li, pad_d, pad_i)), kl)
+        assert torch.equal(got_d, want_d[0]) and torch.equal(got_i, want_i[0]), trial
+
+
 # --- code slabs (fp16 / uint8): the launch choice and the tile copy ---
 
 @pytest.mark.parametrize("code", ["f16", "u8"])
