@@ -14,14 +14,14 @@ Phases, each printing its own lines:
   3. kernel   the CUDA leaf scan against its plain torch version on the
               card: the reference's kernel sweep, one case per narrow
               width, pad rows, exact ties (lattice, also at the main-path
-              width at k = 10, 18 and 74), lists in shared memory and in the output rows
-              (k = 40, 129, 300), the wide kernel (d = 130, 300), every
-              list placement bit-identical, the indexed form, and the
-              main-path shape (W=4096 units, TQ=128, L_pad=4096, d=10
-              unpadded as the main path passes it, k=10), timed beside the
-              plain version and beside torch.baddbmm + torch.topk; the
-              fp32 k = 18 and k = 74 (the refining pass) shared-memory-list
-              instances timed; then the kernel reading uint8 and float16
+              width at k = 10, 18 and 74), heaps in shared memory and in
+              the output rows (k = 40, 129, 300), the wide kernel (d = 130,
+              300), every list placement bit-identical, the indexed form,
+              and the main-path shape (W=4096 units, TQ=128, L_pad=4096,
+              d=10 unpadded as the main path passes it, k=10), timed beside
+              the plain version and beside torch.baddbmm + torch.topk; the
+              fp32 k = 18 and k = 74 (the refining pass) heap instances
+              timed; then the kernel reading uint8 and float16
               codes (the budgeted store) at the main-path shape at k = 18
               (the overfetched k of a k = 10 query), k = 10 and k = 74,
               each timed beside its plain version and beside a torch
@@ -239,9 +239,9 @@ def phase_kernel(torch, dev, seed: int) -> dict:
         ("pad_rows_lt_k", 1, 16, 16, 10, 16, 8, 11, False),   # 5 real rows, k=8
         ("exact_ties", 2, 128, 300, 3, 8, 9, 0, True),
         ("odd_width_d9", 2, 128, 300, 9, 9, 10, 0, False),
-        ("smem_list_k40", 2, 128, 300, 10, 16, 40, 0, False),
-        ("smem_list_k129", 2, 128, 600, 10, 10, 129, 0, False),
-        ("out_list_k300", 2, 128, 600, 10, 10, 300, 0, False),
+        ("smem_heap_k40", 2, 128, 300, 10, 16, 40, 0, False),
+        ("smem_heap_k129", 2, 128, 600, 10, 10, 129, 0, False),
+        ("out_heap_k300", 2, 128, 600, 10, 10, 300, 0, False),
         ("wide_d130", 2, 128, 300, 130, 130, 10, 0, False),
         ("wide_d300", 2, 128, 300, 300, 300, 10, 0, False),
         ("wide_d300_k300", 1, 128, 320, 300, 300, 300, 37, False),
@@ -260,7 +260,7 @@ def phase_kernel(torch, dev, seed: int) -> dict:
             max_abs_err=err, ok=True)
 
     # every instance forms the same values: a register list (k=16), the first
-    # 16 entries of a shared-memory (k=17) and an output-row list (k=300),
+    # 16 entries of a heap in shared memory (k=17) and in the output rows (k=300),
     # and the wide kernel on the rows with a zero 17th column agree bit for bit
     q, x = inputs(2, 128, 1000, 16, 17)
     q16, x16 = q[..., :16].contiguous(), x[..., :16].contiguous()

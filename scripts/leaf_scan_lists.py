@@ -1,25 +1,22 @@
 #!/usr/bin/env python3
-"""Time the narrow leaf scan's long-list designs against each other on one GPU.
+"""Time the narrow leaf scan's list placements against each other on one GPU.
 
-    python3 scripts/leaf_scan_lists.py            # main-path shape, k = 18 and 74
+    python3 scripts/leaf_scan_lists.py            # main-path shape, k = 16, 18, 74
     python3 scripts/leaf_scan_lists.py --reps 20
 
 At the main-path shape (W=4096 units, TQ=128, L_pad=4096, d=10) and for
-fp32 rows, uint8 codes and float16 codes, runs every design of the list at
-k = 18 (a quantized k = 10 query's list) and k = 74 (the refining pass):
-the sorted list inserted into shared memory one row at a time (the design
-before these), the sorted list behind a register buffer of 8 or 16 entries
-merged by rank, a max-heap of (distance, index) pairs, each in shared
-memory or in the output rows ("_out"); in shared memory the heap with one
-query per thread (twice the warps per block), a heap of 64-bit keys with
-two or one queries per thread, the latter also filled with the first k
-rows in row order and then heapified; and at k = 18 register lists of 24
-and 32 entries.  At k = 16 the register list, also with a k = 74 list's
-shared memory (so as few blocks per SM).  Every design must give the first
-one's outputs bit for bit (the script exits non-zero if one does not).
-Each is timed with CUDA events twice, in the order listed and then
-in reverse, so drift of the card falls on all alike.  Prints one line per
-design and a JSON line; needs one CUDA device.
+fp32 rows, uint8 codes and float16 codes: at k = 18 (a quantized k = 10
+query's list) and k = 74 (the refining pass) the heap in shared memory,
+which ``choose_variant`` picks, against the same heap in the output rows
+(which it takes only where shared memory is too small); at k = 16 the
+register list, also launched with the shared memory of a k = 74 heap (so
+as few blocks per SM), which shows what the heap's shared memory costs the
+filter.  Every launch must give the first one's outputs bit for bit (the
+script exits non-zero if one does not).  The first version of this script
+in the repository's history timed the designs the heap was chosen over.
+Each is timed with CUDA events twice, in the order listed and then in
+reverse, so drift of the card falls on all alike.  Prints one line per
+launch and a JSON line; needs one CUDA device.
 """
 
 import argparse
@@ -32,32 +29,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def designs(knn_scan, k, code):
-    """(name, Variant) of every design at list length k, the first being
-    the one the others are held against."""
+    """(name, Variant) of every launch timed at list length k, the first
+    being ``choose_variant``'s, which the others are held against."""
     base = knn_scan.choose_variant(10, k, 128, 4096, code)
     if base.list_at == "reg":
-        # the register list, and the same with the shared memory of a
-        # k = 74 list in shared memory (as few blocks per SM)
         big = knn_scan.choose_variant(10, 74, 128, 4096, code).smem_bytes
         return [(f"reg{base.kmax}", base),
                 (f"reg{base.kmax}_smem{big}", dataclasses.replace(base, smem_bytes=big))]
-    assert base.list_at == "smem" and base.qpt == 2 and base.threads == 64
+    assert base.list_at == "smem"
     no_list = base.smem_bytes - 8 * k * base.qpt * base.threads
-    one = dataclasses.replace(base, qpt=1, threads=128)   # one query per thread
-    out = [("insert", dataclasses.replace(base, buf=0))]
-    for name, buf in (("buf8", 8), ("buf16", 16), ("heap", 1)):
-        out.append((name, dataclasses.replace(base, buf=buf)))
-        out.append((f"{name}_out", dataclasses.replace(
-            base, buf=buf, list_at="out", smem_bytes=no_list)))
-    out += [("heap_q1", dataclasses.replace(one, buf=1)),
-            ("keyheap", dataclasses.replace(base, buf=2)),
-            ("keyheap_q1", dataclasses.replace(one, buf=2)),
-            ("keyheap_q1_fill", dataclasses.replace(one, buf=3))]
-    if k <= 32:
-        for kmax in (24, 32):
-            out.append((f"reg{kmax}", dataclasses.replace(
-                base, kmax=kmax, buf=0, list_at="reg", smem_bytes=no_list)))
-    return out
+    return [("heap_smem", base),
+            ("heap_out", dataclasses.replace(base, list_at="out", smem_bytes=no_list))]
 
 
 def main() -> int:

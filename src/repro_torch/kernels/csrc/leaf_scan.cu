@@ -29,9 +29,10 @@
 //    staging -2x), so a pair is the FMA chain acc = ||x||^2 + sum_j (-2 q_j)
 //    x_j and one compare.  The distance max(acc + ||q||^2, 0) is only formed
 //    for rows that pass.
-//  * Two queries per thread share every shared-memory load of a row (1.5
-//    LDS.128 per pair at d=10 instead of 3) and give two independent FMA
-//    chains per row; 32 rows are unrolled per filter pass.
+//  * With a register list, two queries per thread share every
+//    shared-memory load of a row (1.5 LDS.128 per pair at d=10 instead of 3)
+//    and give two independent FMA chains per row; 32 rows are unrolled per
+//    filter pass.
 //  * The compare is against a per-query bound derived from the list's
 //    current kl-th distance: acc < (thr - ||q||^2 rounded up) holds for
 //    every row whose exact clamped distance is < thr, so it never drops a
@@ -49,13 +50,13 @@
 //    own rows of tile i+2 while the block computes tile i, waits for its
 //    own copies, writes the staged rows and meets the block at one
 //    __syncthreads per tile (staged rows are double-buffered too).
-//  * Registers over occupancy: 2 queries x (DW coordinates + a KMAX list)
-//    per thread take ~106 registers at d=10, k=10 (18 warps per SM).
-//    Variants measured slower on an H100 at the main-path shape: one query
-//    per thread (higher occupancy, twice the shared loads), four per
-//    thread, one warp per block, lane pairs that split a tile's rows (half
-//    the shared loads), short unrolled row loops, and both slots' inserts
-//    in one loop.
+//  * Registers over occupancy (register lists): 2 queries x (DW
+//    coordinates + a KMAX list) per thread take ~106 registers at d=10,
+//    k=10 (18 warps per SM).  Variants measured slower on an H100 at the
+//    main-path shape: one query per thread (higher occupancy, twice the
+//    shared loads), four per thread, one warp per block, lane pairs that
+//    split a tile's rows (half the shared loads), short unrolled row loops,
+//    and both slots' inserts in one loop.
 // What still holds it back (H100, main-path shape): the filter, staging
 // included, takes more than half of the kernel's time below the issue
 // rate its instruction count allows, and the inserts the rest.  A warp's
@@ -63,6 +64,31 @@
 // the average lane's count on random data at k=10, and each iteration
 // re-computes the row's chain and rewrites the whole register list with
 // compares, selects and min/max on the half-rate ALU pipe.
+//
+// Lists longer than 16 (the quantized path's k + 8 = 18 and the refining
+// pass's k + 64 = 74 at k = 10).  The design before this one, a sorted
+// list in shared memory taking each row by insertion, pays a chain of
+// dependent loads per shift, half the list on average, and a warp waits
+// for the lane that shifts most: 112-113 ms at k = 74 on an H100 at 700 W,
+// 150x its bound.  Measured against it at the main-path shape: a sorted
+// list behind a register buffer of 8 or 16 entries merged by rank (38-47
+// ms at k = 74, and slower than insertion at k = 18: the merge's binary
+// searches and moves cost more than the shifts they save, and the buffer
+// takes 168 registers), register lists of 24 and 32 entries at k = 18
+// (4.1 and 4.7 ms), and lists in the output rows (each lane's accesses
+// touch a cache line of their own: 1.4-5x slower than in shared memory).
+// The fastest is a max-heap of 64-bit keys in shared memory with one query
+// per thread (13.2 ms at k = 74, 3.2 ms at k = 18): an insert is at most
+// log2(kl) levels of a two-child compare, a key orders (distance, index)
+// in one compare, and one query per thread doubles the warps that hide the
+// loads where the list's shared memory (8 bytes x kl x 128 slots) leaves
+// room for few blocks.
+// What still holds the heap back: at k = 74 a block takes 87 KB of shared
+// memory, so 2 blocks (8 warps) fit on an SM, and with so few warps the
+// filter alone runs at about half its rate (the k = 16 register list
+// takes 3.0 ms, and 6.2 ms when launched with 87 KB of shared memory);
+// each sift level is a dependent shared-memory load, and the final
+// heapsort costs about kl more sifts per query.
 //
 // Tensor cores are not used.  TF32 alone keeps ~3 decimal digits and can
 // drop a true neighbour; a split (3xTF32) product keeps fp32 accuracy but
@@ -232,7 +258,7 @@ struct RegList {
 };
 
 // Sorted list of kl entries in shared memory (stride = slots of the block)
-// or in the thread's own output row (stride 1).
+// or in the thread's own output row (stride 1): the wide kernel's list.
 struct MemList {
   float* d;
   int* i;
@@ -273,242 +299,118 @@ struct MemList {
   }
 };
 
-// A sorted list of kl entries in memory (shared memory, stride = the
-// block's slots, or the thread's own output row, stride 1) behind a sorted
-// register buffer of NB entries: the narrow kernel's list for kl > the
-// longest register list.  A row that beats the list's kl-th distance goes
-// into the buffer (RegList's branch-free insert, no memory traffic); the
-// buffer is merged into the list by rank when it is full (the caller keeps
-// a warp's merges together) and at the end of the unit.  Rows arrive in
-// ascending slab order, so every list entry has a lower index than every
-// buffer entry: on an equal distance the list entry comes first, the rule
-// of the reference's `_rank_merge`, and the merged list is the kl smallest
-// in (distance, index) order, the list an insert at a time would hold.
-template <int NB>
-struct BufList {
+// A list entry as one 64-bit key: the distance's bits over the index.
+// Distances are >= +0 (clamped with fmaxf(., 0) from a sum that is never
+// -0) and never NaN, so their bits order as the floats do and the keys
+// order as (distance, index) pairs: one integer compare decides a tie.
+__device__ __forceinline__ unsigned long long list_key(float dist, int idx) {
+  return (static_cast<unsigned long long>(__float_as_uint(dist)) << 32) |
+         static_cast<unsigned>(idx);
+}
+__device__ __forceinline__ float key_dist(unsigned long long k) {
+  return __uint_as_float(static_cast<unsigned>(k >> 32));
+}
+__device__ __forceinline__ int key_index(unsigned long long k) {
+  return static_cast<int>(k & 0xffffffffu);
+}
+
+// Where a heap keeps its keys: in shared memory, one 64-bit word per entry
+// ([kl][slots], so the lanes of a warp touch distinct banks at any
+// positions), or in the thread's own output rows, the distance and index
+// arrays, where the heap is sorted in place.
+struct SmemKeys {
+  unsigned long long* k;
+  int stride;
+  __device__ __forceinline__ unsigned long long load(int j) const { return k[j * stride]; }
+  __device__ __forceinline__ void put(int j, unsigned long long v) { k[j * stride] = v; }
+};
+struct RowKeys {
   float* d;
   int* i;
-  int stride, kl;
-  float worst_;  // the list's kl-th distance (exact between merges)
-  RegList<NB> buf;
-
-  __device__ __forceinline__ void init(float* d_, int* i_, int stride_, int kl_) {
-    d = d_;
-    i = i_;
-    stride = stride_;
-    kl = kl_;
-    for (int j = 0; j < kl; ++j) {
-      d[j * stride] = INFINITY;
-      i[j * stride] = INT_MAX;
-    }
-    worst_ = INFINITY;
-    buf.init(NB);
-  }
-  __device__ __forceinline__ float worst() const { return worst_; }
-  // dist < worst(), and the buffer is not full
-  __device__ __forceinline__ void push(float dist, int idx) { buf.insert(dist, idx); }
-  // buffered distances are finite (they beat the list), its free slots +inf
-  __device__ __forceinline__ bool full() const { return buf.d[NB - 1] < INFINITY; }
-  __device__ __forceinline__ bool empty() const { return !(buf.d[0] < INFINITY); }
-
-  // Merge the buffer into the list and empty it.  pos[j], the list entries
-  // at or below buffer entry j, comes from a binary search per entry (the
-  // NB searches interleave); then, from the back, list segment [pos[j],
-  // pos[j+1]) moves up by j+1 and buffer entry j lands at pos[j] + j, each
-  // only where it stays below kl.  Every read is of an entry not yet
-  // overwritten: writes land at or above the segment being read.  A free
-  // buffer slot (+inf) finds pos = kl and writes nothing.
-  __device__ __forceinline__ void merge() {
-    int pos[NB + 1];
-#pragma unroll
-    for (int j = 0; j < NB; ++j) pos[j] = 0;
-    pos[NB] = kl;
-    for (int step = 1 << (31 - __clz(kl)); step > 0; step >>= 1) {
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        const int c = pos[j] + step;
-        if (c <= kl && d[(c - 1) * stride] <= buf.d[j]) pos[j] = c;
-      }
-    }
-#pragma unroll
-    for (int j = NB - 1; j >= 0; --j) {
-      const int hi = min(pos[j + 1], kl - 1 - j);
-      for (int r = hi - 1; r >= pos[j]; --r) {
-        d[(r + j + 1) * stride] = d[r * stride];
-        i[(r + j + 1) * stride] = i[r * stride];
-      }
-      if (pos[j] + j < kl) {
-        d[(pos[j] + j) * stride] = buf.d[j];
-        i[(pos[j] + j) * stride] = buf.i[j];
-      }
-    }
-    worst_ = d[(kl - 1) * stride];
-    buf.init(NB);
-  }
-  __device__ __forceinline__ void store(float* od, int* oi, int) {
-    if (!empty()) merge();
-    if (d == od) return;  // the list is the output row
-    for (int j = 0; j < kl; ++j) {
-      od[j] = d[j * stride];
-      oi[j] = i[j * stride];
-    }
+  __device__ __forceinline__ unsigned long long load(int j) const { return list_key(d[j], i[j]); }
+  __device__ __forceinline__ void put(int j, unsigned long long v) {
+    d[j] = key_dist(v);
+    i[j] = key_index(v);
   }
 };
 
-// A max-heap of kl entries in (distance, index) order in memory (shared
-// memory, stride = the block's slots, or the thread's own output row,
-// stride 1): the root is the list's kl-th entry.  An insert replaces the
-// root and sifts it down, at most log2(kl) levels with two loads each
-// level, where a sorted list shifts half of its entries on average.  A new
-// row's index is above every held row's, so `dist < worst()` is the test of
-// the (distance, index) order.  At the end of the unit a heapsort leaves
-// the entries ascending.
+// The narrow kernel's list for kl > the longest register list: a max-heap
+// of kl keys whose root is the kl-th entry.  A row that beats the root
+// replaces it and sifts down: at most log2(kl) levels of one compare
+// between the two children and one with the row, where a sorted list
+// shifts half of its entries on average, each shift a dependent load (and
+// a warp waits for the lane that shifts most).  A new row's index is above
+// every held row's, so `dist < worst()` is the (distance, index) test, and
+// the heap holds the kl first entries in that order, the list an insert at
+// a time holds.  At the end of the unit a heapsort leaves them ascending.
+template <typename Keys>
 struct HeapList {
-  float* d;
-  int* i;
-  int stride, kl;
+  Keys keys;
+  int kl;
   float worst_;
 
-  __device__ __forceinline__ void init(float* d_, int* i_, int stride_, int kl_) {
-    d = d_;
-    i = i_;
-    stride = stride_;
+  __device__ __forceinline__ void init(Keys keys_, int kl_) {
+    keys = keys_;
     kl = kl_;
-    for (int j = 0; j < kl; ++j) {
-      d[j * stride] = INFINITY;
-      i[j * stride] = INT_MAX;
-    }
+    for (int j = 0; j < kl; ++j) keys.put(j, list_key(INFINITY, INT_MAX));
     worst_ = INFINITY;
   }
   __device__ __forceinline__ float worst() const { return worst_; }
-  // (a, ai) comes after (b, bi)
-  static __device__ __forceinline__ bool after(float a, int ai, float b, int bi) {
-    return a > b || (a == b && ai > bi);
-  }
-  // put (v, vi) at the root of the heap of the first n entries and sift it down
-  __device__ __forceinline__ void sift(float v, int vi, int n) {
+  // put v at the root of the heap of the first n entries and sift it down
+  __device__ __forceinline__ void sift(unsigned long long v, int n) {
     int at = 0;
     for (int c = 1; c < n; c = 2 * at + 1) {
-      float cd = d[c * stride];
-      int ci = i[c * stride];
+      unsigned long long ck = keys.load(c);
       if (c + 1 < n) {
-        const float c2 = d[(c + 1) * stride];
-        const int c2i = i[(c + 1) * stride];
-        if (after(c2, c2i, cd, ci)) {
-          ++c;
-          cd = c2;
-          ci = c2i;
-        }
-      }
-      if (!after(cd, ci, v, vi)) break;
-      d[at * stride] = cd;
-      i[at * stride] = ci;
-      at = c;
-    }
-    d[at * stride] = v;
-    i[at * stride] = vi;
-  }
-  __device__ __forceinline__ void insert(float dist, int idx) {
-    sift(dist, idx, kl);
-    worst_ = d[0];
-  }
-  __device__ __forceinline__ void store(float* od, int* oi, int) {
-    for (int n = kl - 1; n > 0; --n) {  // heapsort: the largest to the back
-      const float v = d[n * stride];
-      const int vi = i[n * stride];
-      d[n * stride] = d[0];
-      i[n * stride] = i[0];
-      sift(v, vi, n);
-    }
-    if (d == od) return;  // the list is the output row
-    for (int j = 0; j < kl; ++j) {
-      od[j] = d[j * stride];
-      oi[j] = i[j * stride];
-    }
-  }
-};
-
-// The heap with each entry one 64-bit key, distance bits over the index
-// (distances are >= +0, so their bits order as the floats do): one load
-// per child, one compare for the (distance, index) order.
-template <bool FILL>
-struct PackedHeapList {
-  unsigned long long* k;
-  int stride, kl, fill;
-  float worst_;
-
-  static __device__ __forceinline__ unsigned long long key(float dist, int idx) {
-    return (static_cast<unsigned long long>(__float_as_uint(dist)) << 32) |
-           static_cast<unsigned>(idx);
-  }
-  __device__ __forceinline__ void init(unsigned long long* k_, int stride_, int kl_) {
-    k = k_;
-    stride = stride_;
-    kl = kl_;
-    fill = FILL ? 0 : kl;
-    if (!FILL)
-      for (int j = 0; j < kl; ++j) k[j * stride] = key(INFINITY, INT_MAX);
-    worst_ = INFINITY;
-  }
-  __device__ __forceinline__ float worst() const { return worst_; }
-  // put v at node `at` of the heap of the first n entries and sift it down
-  __device__ __forceinline__ void sift(unsigned long long v, int at, int n) {
-    for (int c = 2 * at + 1; c < n; c = 2 * at + 1) {
-      unsigned long long ck = k[c * stride];
-      if (c + 1 < n) {
-        const unsigned long long c2 = k[(c + 1) * stride];
+        const unsigned long long c2 = keys.load(c + 1);
         if (c2 > ck) {
           ++c;
           ck = c2;
         }
       }
       if (!(ck > v)) break;
-      k[at * stride] = ck;
+      keys.put(at, ck);
       at = c;
     }
-    k[at * stride] = v;
+    keys.put(at, v);
   }
   __device__ __forceinline__ void insert(float dist, int idx) {
-    if (FILL && fill < kl) {  // the first kl rows: in row order, then heapify
-      k[fill * stride] = key(dist, idx);
-      if (++fill < kl) return;
-      for (int n = kl / 2 - 1; n >= 0; --n) sift(k[n * stride], n, kl);
-    } else {
-      sift(key(dist, idx), 0, kl);
-    }
-    worst_ = __uint_as_float(static_cast<unsigned>(k[0] >> 32));
+    sift(list_key(dist, idx), kl);
+    worst_ = key_dist(keys.load(0));
   }
   __device__ __forceinline__ void store(float* od, int* oi, int) {
-    for (int n = kl - 1; n > 0; --n) {
-      const unsigned long long v = k[n * stride];
-      k[n * stride] = k[0];
-      sift(v, 0, n);
+    for (int n = kl - 1; n > 0; --n) {  // heapsort: the largest to the back
+      const unsigned long long v = keys.load(n);
+      keys.put(n, keys.load(0));
+      sift(v, n);
     }
-    for (int j = 0; j < kl; ++j) {
-      const unsigned long long v = k[j * stride];
-      od[j] = __uint_as_float(static_cast<unsigned>(v >> 32));
-      oi[j] = static_cast<int>(v & 0xffffffffu);
+    if constexpr (std::is_same<Keys, SmemKeys>::value) {
+      for (int j = 0; j < kl; ++j) {
+        const unsigned long long v = keys.load(j);
+        od[j] = key_dist(v);
+        oi[j] = key_index(v);
+      }
     }
   }
 };
 
 // Point a memory list of query slot `slot` at shared memory or its row.
-template <typename L>
-__device__ __forceinline__ void init_mem_list(L& l, int list_at, float* lsd, int* lsi,
-                                              int slots, float* out_d, int* out_i, size_t o,
-                                              int slot, int kl) {
+__device__ __forceinline__ void init_mem_list(MemList& l, int list_at, float* lsd,
+                                              int* lsi, int slots, float* out_d,
+                                              int* out_i, size_t o, int slot, int kl) {
   if (list_at == LIST_SMEM)
     l.init(lsd + slot, lsi + slot, slots, kl);
   else
     l.init(out_d + o, out_i + o, 1, kl);
 }
 
-// Narrow kernel, d <= DW <= 16: one block per plan row, QPT query slots per
-// thread (slot t + s * blockDim.x), KMAX > 0 a register list, KMAX == 0 a
-// memory list behind an NB-entry register buffer (NB == 0: inserted into
-// one row at a time).
-template <int DW, int KMAX, int NB, int QPT>
-__global__ void __launch_bounds__(MAX_TQ / QPT)
+// Narrow kernel, d <= DW <= 16: one block per plan row.  KMAX > 0: a
+// register list of KMAX entries and two query slots per thread (slots t and
+// t + blockDim.x); KMAX == 0: a heap in shared memory or in the output rows
+// (LIST) and one query per thread, twice the warps for the heap's
+// dependent loads (the list's shared memory bounds the blocks per SM).
+template <int DW, int KMAX, int LIST>
+__global__ void __launch_bounds__(MAX_TQ / (KMAX > 0 ? 2 : 1))
 leaf_scan_narrow_kernel(const float* __restrict__ qpad, const void* __restrict__ slab,
                         const Codes codes, const int* __restrict__ unit_leaf,
                         const int* __restrict__ unit_query,
@@ -516,17 +418,10 @@ leaf_scan_narrow_kernel(const float* __restrict__ qpad, const void* __restrict__
                         int* __restrict__ out_i, int tq, int l_pad, int d, int kl,
                         int list_at) {
   constexpr int S = row_stride(DW);
-  constexpr bool BUFFERED = KMAX == 0 && NB >= 8;
-  using List = typename std::conditional<
-      (KMAX > 0), RegList<KMAX>,
-      typename std::conditional<
-          BUFFERED, BufList<NB>,
-          typename std::conditional<
-              NB == 1, HeapList,
-              typename std::conditional<
-                  NB == 2, PackedHeapList<false>,
-                  typename std::conditional<NB == 3, PackedHeapList<true>,
-                                            MemList>::type>::type>::type>::type>::type;
+  constexpr int QPT = KMAX > 0 ? 2 : 1;  // query slots per thread
+  using Keys = typename std::conditional<LIST == LIST_SMEM, SmemKeys, RowKeys>::type;
+  using List =
+      typename std::conditional<(KMAX > 0), RegList<KMAX>, HeapList<Keys>>::type;
   const int w = blockIdx.x;
   if (w >= *n_units) return;  // uniform per block: before any barrier
   extern __shared__ __align__(16) float smem[];
@@ -539,8 +434,8 @@ leaf_scan_narrow_kernel(const float* __restrict__ qpad, const void* __restrict__
   // [2][rtb] tiles as stored
   unsigned char* raw = reinterpret_cast<unsigned char*>(smem + meta_floats(code, d));
   float* xs = smem + raw_region_bytes(code, d) / 4;  // [2][TILE * S] staged rows
-  float* lsd = xs + 2 * TILE * S;       // [kl][QPT * nt] list in shared memory
-  int* lsi = reinterpret_cast<int*>(lsd + (size_t)kl * QPT * nt);
+  // [kl][nt] heap keys in shared memory (16-byte aligned)
+  unsigned long long* lsk = reinterpret_cast<unsigned long long*>(xs + 2 * TILE * S);
 
   float q[QPT][DW], qn[QPT], bound[QPT];
   List list[QPT];
@@ -560,13 +455,12 @@ leaf_scan_narrow_kernel(const float* __restrict__ qpad, const void* __restrict__
     qn[s] = n;
     if constexpr (KMAX > 0) {
       list[s].init(kl);
-    } else if constexpr (NB == 2 || NB == 3) {
-      if (active) list[s].init(reinterpret_cast<unsigned long long*>(lsd) + slot, QPT * nt, kl);
     } else if (active) {
-      init_mem_list(list[s], list_at, lsd, lsi, QPT * nt, out_d, out_i,
-                    ((size_t)w * tq + slot) * kl, t + s * nt, kl);
-    } else if constexpr (BUFFERED) {
-      list[s].buf.init(NB);  // never full: an unused slot takes part in no merge
+      const size_t o = ((size_t)w * tq + slot) * kl;
+      if constexpr (LIST == LIST_SMEM)
+        list[s].init(SmemKeys{lsk + slot, nt}, kl);
+      else
+        list[s].init(RowKeys{out_d + o, out_i + o}, kl);
     }
     bound[s] = active ? INFINITY : -INFINITY;  // an unused slot takes no row
   }
@@ -684,39 +578,17 @@ leaf_scan_narrow_kernel(const float* __restrict__ qpad, const void* __restrict__
     // inserts in ascending row order, each re-checked against the list as
     // it is then (the same FMA chain gives the same acc)
     auto flush = [&](int s, int p, unsigned m) {
-      if constexpr (BUFFERED) {
-        // the lanes of a warp take their rows in step, and a full buffer in
-        // any lane merges every lane's buffer at once: a warp pays for a
-        // merge when its first lane needs one, not once per lane
-        while (__any_sync(0xffffffffu, m != 0u)) {
-          if (m) {
-            const int r = p * PASS + __ffs(m) - 1;
-            m &= m - 1;
-            const float* xr = xt + r * S;
-            float a = xr[DW];
+      while (m) {
+        const int r = p * PASS + __ffs(m) - 1;
+        m &= m - 1;
+        const float* xr = xt + r * S;
+        float a = xr[DW];
 #pragma unroll
-            for (int j = 0; j < DW; ++j) a = fmaf(q[s][j], xr[j], a);
-            const float dist = fmaxf(a + qn[s], 0.f);
-            if (dist < list[s].worst()) list[s].push(dist, r0 + r);
-          }
-          if (__any_sync(0xffffffffu, list[s].full()) && !list[s].empty()) {
-            list[s].merge();
-            bound[s] = filter_bound(list[s].worst(), qn[s]);
-          }
-        }
-      } else {
-        while (m) {
-          const int r = p * PASS + __ffs(m) - 1;
-          m &= m - 1;
-          const float* xr = xt + r * S;
-          float a = xr[DW];
-#pragma unroll
-          for (int j = 0; j < DW; ++j) a = fmaf(q[s][j], xr[j], a);
-          const float dist = fmaxf(a + qn[s], 0.f);
-          if (dist < list[s].worst()) {
-            list[s].insert(dist, r0 + r);
-            bound[s] = filter_bound(list[s].worst(), qn[s]);
-          }
+        for (int j = 0; j < DW; ++j) a = fmaf(q[s][j], xr[j], a);
+        const float dist = fmaxf(a + qn[s], 0.f);
+        if (dist < list[s].worst()) {
+          list[s].insert(dist, r0 + r);
+          bound[s] = filter_bound(list[s].worst(), qn[s]);
         }
       }
     };
@@ -902,33 +774,17 @@ int launch(Kernel kernel, const Launch& a) {
 constexpr int NO_INSTANCE = -2;
 
 // The narrow instances of this library's width.
-int narrow(int dw, int kmax, int buf, int qpt, const Launch& a) {
+int narrow(int dw, int kmax, int list_at, const Launch& a) {
 #if LEAF_SCAN_PART > 0
   constexpr int DW = LEAF_SCAN_PART;
   if (dw == DW) {
-    if (kmax == 0 && qpt == 2) {
-      switch (buf) {
-        case 0: return launch(leaf_scan_narrow_kernel<DW, 0, 0, 2>, a);
-        case 1: return launch(leaf_scan_narrow_kernel<DW, 0, 1, 2>, a);
-        case 2: return launch(leaf_scan_narrow_kernel<DW, 0, 2, 2>, a);
-        case 8: return launch(leaf_scan_narrow_kernel<DW, 0, 8, 2>, a);
-        case 16: return launch(leaf_scan_narrow_kernel<DW, 0, 16, 2>, a);
-      }
-    } else if (kmax == 0 && qpt == 1) {
-      switch (buf) {
-        case 1: return launch(leaf_scan_narrow_kernel<DW, 0, 1, 1>, a);
-        case 2: return launch(leaf_scan_narrow_kernel<DW, 0, 2, 1>, a);
-        case 3: return launch(leaf_scan_narrow_kernel<DW, 0, 3, 1>, a);
-      }
-    } else if (buf == 0 && qpt == 2) {
-      switch (kmax) {
-        case 4: return launch(leaf_scan_narrow_kernel<DW, 4, 0, 2>, a);
-        case 8: return launch(leaf_scan_narrow_kernel<DW, 8, 0, 2>, a);
-        case 10: return launch(leaf_scan_narrow_kernel<DW, 10, 0, 2>, a);
-        case 16: return launch(leaf_scan_narrow_kernel<DW, 16, 0, 2>, a);
-        case 24: return launch(leaf_scan_narrow_kernel<DW, 24, 0, 2>, a);
-        case 32: return launch(leaf_scan_narrow_kernel<DW, 32, 0, 2>, a);
-      }
+    if (list_at == LIST_SMEM) return launch(leaf_scan_narrow_kernel<DW, 0, LIST_SMEM>, a);
+    if (list_at == LIST_OUT) return launch(leaf_scan_narrow_kernel<DW, 0, LIST_OUT>, a);
+    switch (kmax) {
+      case 4: return launch(leaf_scan_narrow_kernel<DW, 4, LIST_REG>, a);
+      case 8: return launch(leaf_scan_narrow_kernel<DW, 8, LIST_REG>, a);
+      case 10: return launch(leaf_scan_narrow_kernel<DW, 10, LIST_REG>, a);
+      case 16: return launch(leaf_scan_narrow_kernel<DW, 16, LIST_REG>, a);
     }
   }
 #endif
@@ -960,7 +816,7 @@ extern "C" {
 int leaf_scan_units(const float* qpad, const void* slab, const int* unit_leaf,
                     const int* unit_query, const int* n_units, float* out_d, int* out_i,
                     int w_rows, int tq, int l_pad, int d, int kl, int kind, int width,
-                    int kmax, int buf, int qpt, int list_at, int threads, int smem_bytes, int code,
+                    int kmax, int qpt, int list_at, int threads, int smem_bytes, int code,
                     const float* scale, const float* offset, const unsigned char* dead,
                     void* stream) {
   if (w_rows <= 0) return 0;
@@ -980,11 +836,12 @@ int leaf_scan_units(const float* qpad, const void* slab, const int* unit_leaf,
                  w_rows, tq,   l_pad, d,         kl,         list_at, threads,
                  smem_bytes, static_cast<cudaStream_t>(stream)};
   if (kind == NARROW) {
-    if (d > width || (qpt != 1 && qpt != 2) || threads > MAX_TQ / qpt) return -1;
-    return narrow(width, kmax, buf, qpt, a);
+    // a register list takes two query slots per thread, a heap one
+    if (d > width || qpt != (reg ? 2 : 1) || threads > MAX_TQ / qpt) return -1;
+    return narrow(width, kmax, list_at, a);
   }
   if (kind == WIDE) {
-    if (reg || buf != 0 || qpt != 1 || width != WIDE_DC || threads > MAX_TQ) return -1;
+    if (reg || qpt != 1 || width != WIDE_DC || threads > MAX_TQ) return -1;
 #if LEAF_SCAN_PART == 0
     return launch(leaf_scan_wide_kernel, a);
 #else

@@ -64,7 +64,6 @@ MAX_TQ = 128
 SMEM_LIMIT = 232_448             # dynamic shared memory one block may use
 NARROW_WIDTHS = (2, 4, 6, 8, 10, 12, 14, 16)
 REG_KMAX = (4, 8, 10, 16)        # register-list lengths
-LIST_BUF = 16                    # narrow: register buffer in front of a memory list
 TILE = 64                        # narrow: slab rows per pipeline stage
 WIDE_ROWS, WIDE_DC = 32, 16      # wide: rows per sub-tile, features per chunk
 _KINDS = {"narrow": 0, "wide": 1}
@@ -78,11 +77,12 @@ _CODE_OF_DTYPE = {dt: name for name, (_, _, dt) in CODES.items()}
 @dataclasses.dataclass(frozen=True)
 class Variant:
     """One launch of the leaf-scan library: ``kind`` "narrow" (rows of
-    d <= ``width`` staged whole, ``qpt`` = 2 queries per thread) or "wide"
-    (features in chunks of ``width``, one query per thread); the list in
-    registers (``kmax`` entries), in shared memory or in the output rows
-    (``list_at``); ``threads`` per block, ``smem_bytes`` of dynamic shared
-    memory."""
+    d <= ``width`` staged whole) or "wide" (features in chunks of
+    ``width``); ``list_at`` "reg" (a sorted list of ``kmax`` entries in
+    registers, narrow only), "smem" or "out" (the list in shared memory or
+    in the output rows: the narrow kernel's heap, the wide kernel's sorted
+    list); ``qpt`` queries per thread (2 with a register list, else 1),
+    ``threads`` per block, ``smem_bytes`` of dynamic shared memory."""
 
     kind: str
     width: int
@@ -92,16 +92,15 @@ class Variant:
     threads: int
     smem_bytes: int
     code: str = "f32"
-    buf: int = 0
-
 
     @property
     def name(self) -> str:
         suffix = "" if self.code == "f32" else f"/{self.code}"
         if self.kind == "wide":
             return f"wide/{self.list_at}{suffix}"
-        buf = f"+buf{self.buf}" if self.buf else ""
-        return f"narrow<{self.width},{self.kmax}>/{self.list_at}{buf}{suffix}"
+        if self.list_at == "reg":
+            return f"narrow<{self.width},{self.kmax}>/reg{suffix}"
+        return f"narrow<{self.width},heap>/{self.list_at}{suffix}"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -123,11 +122,12 @@ def _raw_region_bytes(code: str, d: int) -> int:
 def choose_variant(d: int, k: int, tq: int, l_pad: int, code: str = "f32") -> Variant:
     """The kernel launch for rows of width ``d`` stored as ``code`` ("f32",
     "f16" or "u8"), lists of ``k``, ``tq`` query slots and ``l_pad`` slab
-    rows.  Rows of d <= 16 take the narrow kernel at d rounded up to even
-    (two queries per thread), with a register list when k <= 16; longer
-    lists go to shared memory while they fit, else to the output rows.
-    Wider rows take the wide kernel.  The code type changes only the
-    narrow kernel's raw tile bytes."""
+    rows.  Rows of d <= 16 take the narrow kernel at d rounded up to even:
+    k <= 16 a register list with two queries per thread; longer lists a
+    heap of 64-bit keys with one query per thread, in shared memory while
+    it fits (k up to 216 at TQ = 128), else in the output rows.  Wider rows
+    take the wide kernel, its sorted list in shared memory or the output
+    rows.  The code type changes only the narrow kernel's raw tile bytes."""
     if code not in CODES:
         raise ValueError(f"code={code!r}: the leaf scan reads {sorted(CODES)}")
     if not 1 <= k <= l_pad:
@@ -138,21 +138,21 @@ def choose_variant(d: int, k: int, tq: int, l_pad: int, code: str = "f32") -> Va
         raise ValueError(f"TQ={tq}: the CUDA leaf scan takes 1 <= TQ <= {MAX_TQ} "
                          "(one block per query tile)")
     if d <= NARROW_WIDTHS[-1]:
-        kind, width, qpt = "narrow", d + d % 2, 2
+        width = d + d % 2
+        kmax = next((km for km in REG_KMAX if km >= k), 0)
+        kind, qpt = "narrow", 2 if kmax else 1
         threads = max(32, _round_up(-(-tq // qpt), 32))
         base = _raw_region_bytes(code, d) + 4 * 2 * TILE * _round_up(width + 1, 4)
-        kmax = next((km for km in REG_KMAX if km >= k), 0)
     else:
         kind, width, qpt, kmax = "wide", WIDE_DC, 1, 0
         threads = _round_up(tq, 32)
         base = 4 * (WIDE_ROWS * WIDE_DC + WIDE_ROWS)
     if kmax:
         return Variant(kind, width, kmax, qpt, "reg", threads, base, code)
-    buf = LIST_BUF if kind == "narrow" else 0
     in_smem = base + 8 * k * qpt * threads
     if in_smem <= SMEM_LIMIT:
-        return Variant(kind, width, 0, qpt, "smem", threads, in_smem, code, buf)
-    return Variant(kind, width, 0, qpt, "out", threads, base, code, buf)
+        return Variant(kind, width, 0, qpt, "smem", threads, in_smem, code)
+    return Variant(kind, width, 0, qpt, "out", threads, base, code)
 
 
 def _extract_topk(cand_d, cand_i, k):
@@ -280,7 +280,7 @@ def _lib(v: Variant) -> ctypes.CDLL:
     lib = build.load(*_part(v)).lib
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.leaf_scan_units.argtypes = [p] * 7 + [i] * 14 + [p] * 4
+        lib.leaf_scan_units.argtypes = [p] * 7 + [i] * 13 + [p] * 4
         lib.leaf_scan_units.restype = i
         lib.leaf_scan_error_string.argtypes = [i]
         lib.leaf_scan_error_string.restype = ctypes.c_char_p
@@ -378,7 +378,7 @@ def _launch(v: Variant, qpad, slab, unit_leaf, unit_query, n_units, k, scale, of
         qpad.data_ptr(), slab.data_ptr(), unit_leaf.data_ptr(),
         unit_query.data_ptr(), n_units.data_ptr(), out_d.data_ptr(),
         out_i.data_ptr(), w, tq, l_pad, d, k, _KINDS[v.kind], v.width,
-        v.kmax, v.buf, v.qpt, _LIST_AT[v.list_at], v.threads, v.smem_bytes,
+        v.kmax, v.qpt, _LIST_AT[v.list_at], v.threads, v.smem_bytes,
         CODES[code][0], ptr(scale), ptr(offset), ptr(dead),
         torch.cuda.current_stream(qpad.device).cuda_stream,
     )

@@ -326,46 +326,62 @@ def test_kernel_selection_scheme_matches_reference(lp, d, k, lattice):
         np.testing.assert_array_equal(mi, np.asarray(ri)[0])
 
 
-# --- the long lists: a register buffer merged into the list by rank ---
+# --- the long lists (k > 16): a heap of 64-bit keys ---
 
 _INT_MAX = 2**31 - 1
 
 
-def _merge_model(list_d, list_i, buf_d, buf_i):
-    """torch model of csrc/leaf_scan.cu ``BufList::merge`` for one query: a
-    sorted list of kl entries and a sorted buffer of NB entries (free slots
-    +inf), every list row below every buffer row.  pos[j], the list entries
-    at or below buffer entry j, by a binary search; then from the back, list
-    segment [pos[j], pos[j+1]) moves up by j + 1 in place and buffer entry
-    j lands at pos[j] + j, each only below kl."""
-    kl, nb = list_d.shape[0], buf_d.shape[0]
-    d, i = list_d.clone(), list_i.clone()
-    pos = [0] * nb + [kl]
-    step = 1 << (kl.bit_length() - 1)
-    while step:
-        for j in range(nb):
-            c = pos[j] + step
-            if c <= kl and d[c - 1] <= buf_d[j]:
-                pos[j] = c
-        step >>= 1
-    for j in range(nb - 1, -1, -1):
-        for r in range(min(pos[j + 1], kl - 1 - j) - 1, pos[j] - 1, -1):
-            d[r + j + 1], i[r + j + 1] = d[r], i[r]
-        if pos[j] + j < kl:
-            d[pos[j] + j], i[pos[j] + j] = buf_d[j], buf_i[j]
-    return d, i
+def _key(dist, idx):
+    """csrc/leaf_scan.cu ``list_key``: the fp32 distance's bits over the
+    index, as an unsigned 64-bit integer."""
+    return (int(np.float32(dist).view(np.uint32)) << 32) | int(idx)
 
 
-def _buffered_kernel_model(q, x, k, buf, merge_p=0.0, seed=0):
-    """numpy model of the narrow kernel's selection for lists longer than a
-    register list: the filter and row order of ``_narrow_kernel_model``, but
-    a row that beats the list's k-th distance goes into a sorted buffer of
-    ``buf`` entries, merged into the list (``_merge_model``) when it is
-    full and at the end; the threshold and the filter bound change only at
-    a merge.  With ``merge_p`` > 0 a non-empty buffer is also merged after
-    a row with that probability, as when another lane of the warp forces a
-    merge."""
-    rng = np.random.default_rng(seed)
+def _key_pair(key):
+    return np.uint32(key >> 32).view(np.float32), np.int32(key & 0xFFFFFFFF)
+
+
+class _HeapModel:
+    """Model of csrc/leaf_scan.cu ``HeapList``: a max-heap of kl keys
+    starting at (+inf, INT_MAX); an insert replaces the root and sifts it
+    down, taking the larger child (the right one only when strictly
+    larger); ``sorted`` is the kernel's final heapsort."""
+
+    def __init__(self, kl):
+        self.keys = [_key(np.inf, _INT_MAX)] * kl
+
+    def worst(self):
+        return _key_pair(self.keys[0])[0]
+
+    def _sift(self, v, n):
+        k, at, c = self.keys, 0, 1
+        while c < n:
+            if c + 1 < n and k[c + 1] > k[c]:
+                c += 1
+            if not k[c] > v:
+                break
+            k[at] = k[c]
+            at, c = c, 2 * c + 1
+        k[at] = v
+
+    def insert(self, dist, idx):
+        self._sift(_key(dist, idx), len(self.keys))
+
+    def sorted(self):
+        k = self.keys
+        for n in range(len(k) - 1, 0, -1):
+            v = k[n]
+            k[n] = k[0]
+            self._sift(v, n)
+        pairs = [_key_pair(v) for v in k]
+        return (np.array([p[0] for p in pairs], np.float32),
+                np.array([p[1] for p in pairs], np.int32))
+
+
+def _heap_kernel_model(q, x, k):
+    """numpy model of the narrow kernel's selection for k > 16: the filter
+    and row order of ``_narrow_kernel_model``, each passing row that beats
+    the heap's root inserted into ``_HeapModel``, then the heapsort."""
     tq, d = q.shape
     qn = np.zeros(tq, np.float32)
     xn = np.zeros(x.shape[0], np.float32)
@@ -380,101 +396,111 @@ def _buffered_kernel_model(q, x, k, buf, merge_p=0.0, seed=0):
     n = x.shape[0]
     flushes = sorted({0, min(32, n), *range(64, n, 64), n})
     for t in range(tq):
-        state = {"d": torch.full((k,), np.inf), "i": torch.full((k,), _INT_MAX, dtype=torch.int32),
-                 "thr": np.float32(np.inf)}
-        bd, bi = [], []
-
-        def merge():
-            pad = buf - len(bd)
-            state["d"], state["i"] = _merge_model(
-                state["d"], state["i"], torch.tensor(bd + [np.inf] * pad, dtype=torch.float32),
-                torch.tensor(bi + [_INT_MAX] * pad, dtype=torch.int32))
-            state["thr"] = np.float32(state["d"][-1].item())
-            bd.clear()
-            bi.clear()
-
+        heap = _HeapModel(k)
         for r0, r1 in zip(flushes[:-1], flushes[1:]):
-            thr = state["thr"]
+            thr = heap.worst()
             bound = _round_up_sub(thr, qn[t]) if thr > 0 else -np.inf
             for r in range(r0, r1):
                 if not acc[t, r] < bound:
                     continue
                 dist = max(np.float32(acc[t, r] + qn[t]), np.float32(0))
-                if dist < state["thr"]:
-                    pos = sum(1 for e in bd if e <= dist)
-                    bd.insert(pos, dist)
-                    bi.insert(pos, r)
-                if len(bd) == buf or (bd and rng.random() < merge_p):
-                    merge()
-        if bd:
-            merge()
-        out_d[t] = state["d"].numpy()
-        out_i[t] = state["i"].numpy()
+                if dist < heap.worst():
+                    heap.insert(dist, r)
+        out_d[t], out_i[t] = heap.sorted()
     return out_d, out_i
 
 
-# (L_pad, d, kl, B): kl just past the register lists, the quantized path's
-# 18, 33 and the refining pass's 74, with L_pad below and above kl + B
-BUFFERED = [
-    (30, 3, 17, 16), (200, 3, 17, 16), (20, 10, 18, 8), (300, 10, 18, 16),
-    (40, 5, 33, 8), (300, 5, 33, 16), (80, 10, 74, 16), (400, 10, 74, 8),
+# (L_pad, d, kl): kl just past the register lists, the quantized path's
+# 18, 33, the refining pass's 74 and a list past shared memory (217), each
+# with L_pad just above kl and well above it
+HEAP_CASES = [
+    (30, 3, 17), (200, 3, 17), (20, 10, 18), (300, 10, 18), (40, 5, 33),
+    (300, 5, 33), (80, 10, 74), (400, 10, 74), (260, 4, 217),
 ]
 
 
-@pytest.mark.parametrize("lp,d,k,buf", BUFFERED)
-@pytest.mark.parametrize("merge_p", [0.0, 0.3])
-def test_buffered_selection_matches_insert_at_a_time(lp, d, k, buf, merge_p):
-    """The register buffer merged by rank gives the lists an insert at a
-    time gives, bit for bit, whenever the merges come (when the buffer is
-    full, or earlier as when another lane forces one): a stale threshold
-    only lets more rows into the buffer."""
-    rng = np.random.default_rng(lp + k + buf)
+@pytest.mark.parametrize("lp,d,k", HEAP_CASES)
+def test_heap_selection_matches_insert_at_a_time(lp, d, k):
+    """The heap gives the lists the sorted list inserted into one row at a
+    time gives (the kernel's design for k > 16 before the heap), bit for
+    bit: the same rows pass the filter, and the heap holds the k first
+    (distance, index) pairs as the sorted list does."""
+    rng = np.random.default_rng(lp + k)
     q = rng.normal(size=(8, d)).astype(np.float32)
     x = rng.normal(size=(lp, d)).astype(np.float32)
-    bd, bi = _buffered_kernel_model(q, x, k, buf, merge_p, seed=lp)
+    hd, hi = _heap_kernel_model(q, x, k)
     md, mi = _narrow_kernel_model(q, x, k)
-    np.testing.assert_array_equal(bd, md)
-    np.testing.assert_array_equal(bi, mi)
+    np.testing.assert_array_equal(hd, md)
+    np.testing.assert_array_equal(hi, mi)
 
 
-@pytest.mark.parametrize("lp,d,k,buf", BUFFERED)
-def test_buffered_selection_matches_reference_exact_ties(lp, d, k, buf):
+@pytest.mark.parametrize("lp,d,k", HEAP_CASES)
+def test_heap_selection_matches_reference_exact_ties(lp, d, k):
     """On an integer lattice every value is exact and ties are everywhere:
-    the buffered lists equal ``repro``'s ``leaf_scan_ref`` bit for bit,
+    the heap's lists equal ``repro``'s ``leaf_scan_ref`` bit for bit,
     distances and the lowest-index tie order."""
     rng = np.random.default_rng(7 * lp + k)
     q = rng.integers(-2, 3, size=(8, d)).astype(np.float32)
     x = rng.integers(-2, 3, size=(lp, d)).astype(np.float32)
-    bd, bi = _buffered_kernel_model(q, x, k, buf, merge_p=0.2, seed=k)
+    hd, hi = _heap_kernel_model(q, x, k)
     rd, ri = jax_leaf_scan_ref(jnp.asarray(q[None]), jnp.asarray(x[None]), k=k)
-    np.testing.assert_array_equal(bd, np.asarray(rd)[0])
-    np.testing.assert_array_equal(bi, np.asarray(ri)[0])
+    np.testing.assert_array_equal(hd, np.asarray(rd)[0])
+    np.testing.assert_array_equal(hi, np.asarray(ri)[0])
 
 
-@pytest.mark.parametrize("kl,buf,used", [(17, 16, 16), (18, 8, 5), (33, 16, 16),
-                                          (74, 16, 16), (74, 8, 1), (74, 16, 0)])
-def test_back_to_front_merge_equals_rank_merge(kl, buf, used):
-    """The kernel's in-place merge from the back equals the port's
-    ``_rank_merge`` of the list and the buffer (padded with +inf to kl), the
-    list winning ties: distances drawn from a few values, so equal
-    distances fall across the two lists; the list's tail may still hold
-    its +inf start."""
-    rng = np.random.default_rng(kl * buf + used)
-    for trial in range(20):
-        filled = kl if trial % 2 else int(rng.integers(0, kl))
-        ld = np.sort(rng.integers(0, 6, size=kl)).astype(np.float32)
-        ld[filled:] = np.inf
-        li = np.where(np.isfinite(ld), np.arange(kl), _INT_MAX).astype(np.int32)
-        bd = np.full(buf, np.inf, np.float32)
-        bi = np.full(buf, _INT_MAX, np.int32)
-        bd[:used] = np.sort(rng.integers(0, 7, size=used))
-        bi[:used] = 1000 + np.arange(used)      # later rows than the list's
-        got_d, got_i = _merge_model(*map(torch.from_numpy, (ld, li, bd, bi)))
-        pad_d = np.concatenate([bd, np.full(kl - buf, np.inf, np.float32)])
-        pad_i = np.concatenate([bi, np.full(kl - buf, _INT_MAX, np.int32)])
-        want_d, want_i = knn_scan._rank_merge(
-            *(torch.from_numpy(a)[None] for a in (ld, li, pad_d, pad_i)), kl)
-        assert torch.equal(got_d, want_d[0]) and torch.equal(got_i, want_i[0]), trial
+@pytest.mark.parametrize("kl,width", [(17, 17), (17, 40), (18, 300), (33, 100),
+                                      (74, 74), (74, 500)])
+def test_heap_equals_extract_topk(kl, width):
+    """The heap on its own: candidates taken in index order (each only if it
+    beats the root, as the kernel tests it) and heapsorted equal the port's
+    ``_extract_topk`` (the reference's per-tile selection, ties to the
+    first position) of the same row, distances drawn from a few values so
+    ties cross every level of the heap."""
+    rng = np.random.default_rng(kl * width)
+    cand_d = rng.integers(0, 6, size=(4, width)).astype(np.float32)
+    cand_d[1] = 0.0                              # one row of nothing but ties
+    cand_i = np.broadcast_to(np.arange(width, dtype=np.int32), (4, width))
+    want_d, want_i = knn_scan._extract_topk(torch.from_numpy(cand_d),
+                                            torch.from_numpy(cand_i.copy()), kl)
+    for row in range(4):
+        heap = _HeapModel(kl)
+        for j in range(width):
+            if cand_d[row, j] < heap.worst():
+                heap.insert(cand_d[row, j], j)
+        got_d, got_i = heap.sorted()
+        np.testing.assert_array_equal(got_d, want_d[row].numpy())
+        np.testing.assert_array_equal(got_i, want_i[row].numpy())
+
+
+def test_heap_keys_order_as_distance_index_pairs():
+    """A key's unsigned order is the (distance, index) order for every
+    distance the kernel forms (>= +0, subnormals and +inf included)."""
+    dists = np.array([0.0, 1e-45, 1e-38, 1e-30, 0.5, 1.0, 1.0000001, 3e37, np.inf],
+                     np.float32)
+    pairs = [(float(d), i) for d in dists for i in (0, 1, 7, 4095, _INT_MAX)]
+    by_key = sorted(pairs, key=lambda p: _key(*p))
+    assert by_key == sorted(pairs)
+    assert all(_key_pair(_key(d, i)) == (np.float32(d), i) for d, i in pairs)
+
+
+def test_choose_variant_long_lists_take_the_heap():
+    """Past the longest register list the narrow kernel takes the heap with
+    one query per thread: in shared memory while 8 bytes x k per slot fit,
+    then in the output rows; the wide kernel keeps its sorted list."""
+    for tq in (8, 128):
+        for k in (17, 18, 74, 216, 217, 300):
+            v = knn_scan.choose_variant(10, k, tq, 4096)
+            assert (v.kind, v.kmax, v.qpt, v.threads) == ("narrow", 0, 1, max(32, tq))
+            base = knn_scan.choose_variant(10, 10, tq, 4096).smem_bytes   # no list there
+            in_smem = base + 8 * k * v.threads <= knn_scan.SMEM_LIMIT
+            assert v.list_at == ("smem" if in_smem else "out")
+            assert v.smem_bytes == (base + 8 * k * v.threads if in_smem else base)
+            assert v.name == f"narrow<10,heap>/{v.list_at}"
+    assert knn_scan.choose_variant(10, 216, 128, 4096).list_at == "smem"
+    assert knn_scan.choose_variant(10, 217, 128, 4096).list_at == "out"
+    assert knn_scan.choose_variant(10, 16, 128, 4096).name == "narrow<10,16>/reg"
+    wide = knn_scan.choose_variant(130, 74, 128, 4096)
+    assert (wide.kind, wide.qpt, wide.list_at, wide.name) == ("wide", 1, "smem", "wide/smem")
 
 
 # --- code slabs (fp16 / uint8): the launch choice and the tile copy ---
@@ -501,10 +527,11 @@ def test_choose_variant_for_codes(code, d):
         if v.list_at == f32.list_at:
             assert v.smem_bytes - f32.smem_bytes == delta
         assert v.name.endswith("/" + code)
-    # the quantized main path: k = 10 overfetched to 18 takes the
-    # shared-memory list, not a register list (REG_KMAX stops at 16)
+    # the quantized main path: k = 10 overfetched to 18 takes the heap in
+    # shared memory, not a register list (REG_KMAX stops at 16)
     main = knn_scan.choose_variant(10, 18, 128, 4096, code="u8")
     assert (main.kind, main.width, main.kmax, main.list_at) == ("narrow", 10, 0, "smem")
+    assert (main.qpt, main.threads, main.name) == (1, 128, "narrow<10,heap>/smem/u8")
     with pytest.raises(ValueError, match="code="):
         knn_scan.choose_variant(10, 10, 128, 4096, code="bf16")
 
