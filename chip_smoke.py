@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ooc-shift 0   # the streamed cells at full depth too
     python3 chip_smoke.py --shift 2    # n and m divided by 2**2 (a quick run)
     python3 chip_smoke.py --shift 4    # phase 3 at full size, cells in little time
+    python3 chip_smoke.py --host-shift 0  # the host cells at full size too
 
 Phases, each printing its own lines:
 
@@ -28,8 +29,12 @@ Phases, each printing its own lines:
               dequantize + baddbmm + topk, uint8 at d = 130, k = 150 (the
               wide kernel), and integer-lattice codes with dead rows (tie
               order bit for bit, dead rows last; also at the main-path
-              width at k = 18 and 74); then KNNIndex at k = 150
-              and at d = 130 against knn_brute;
+              width at k = 18 and 74); the indexed form with a 256-slot
+              tile (two launches of 128); the wide kernel (d = 130) timed
+              at W=4096, TQ=128, L_pad=4096, k = 10 and 74; then KNNIndex
+              at k = 150 and at d = 130 against knn_brute, and
+              IndexSpec(tile_q=256) equal to tile_q=128 on chunked and
+              host;
   4. main     KNNIndex.build(points).query(q, 10) with no spec: n points,
               m queries, d=10, from a seeded clustered Gaussian mixture;
               the plan must be the chunked engine with N=1, the kernel must
@@ -65,7 +70,23 @@ Phases, each printing its own lines:
               pair_count streamed in chunks (memory_budget = slab_bytes //
               3, histograms equal); radius and kde on 1024 queries against
               radius_brute / kde_brute over all points, pair_count on the
-              first n / 2**4 points against pair_count_brute.
+              first n / 2**4 points against pair_count_brute; each op
+              prints the pairs its rounding band sent to the direct form;
+ 12. host     IndexSpec(engine="host") (the paper's Algorithm 1: host
+              queues, leaf buffers, work plans) on the first n / 2**host_shift
+              points and m / 2**host_shift queries of main's data
+              (--host-shift, default 2; 0: main's data whole): every scan the
+              CUDA kernel (launches = chunk rounds), answers equal to main's
+              (or ooc's, on the same points) with fp32_rows_missed = 0;
+ 13. host_ooc the same under memory_budget = slab_bytes // 3, fp32 (N = 7,
+              the paper's out-of-core setting), answers equal to host's;
+ 14. kdtree   the paper's CPU baseline on the host cell's points, 2**14
+              queries, timed beside host and chunked on the same rows;
+              answers equal to host's;
+ 15. persist  main's index and the quant index saved to a temporary
+              directory and loaded again: save_s, load_s and bytes on disk
+              beside build_s; 2**16 queries answered bit for bit as before
+              the save.
 
 Phase 3 times the main path's fp32 instance at k = 10 + FP32_OVERFETCH
 (the k the fp32 main path runs) beside k = 10, k = 18 and k = 10 +
@@ -75,7 +96,9 @@ with its launches and, where phase 3 timed it, its times.  main and ooc
 must miss no row against brute force (``fp32_rows_missed`` = 0).
 
 Every cell sets the kernel's launch counts to 0 just before its query and
-reads them just after.  Then one JSON line describing the kernels, and
+reads them just after; the JSON line gives each cell's counts
+(``launches_by_cell``).  A ``[done]`` line gives the script's seconds from
+the CUDA check on (the kernels' build included).  Then one JSON line describing the kernels, and
 last the device line.  Any failed check raises (non-zero exit); without a
 CUDA device the script exits non-zero before printing any result.  Nothing
 here imports jax or the JAX package.
@@ -120,6 +143,9 @@ MAIN_K_EFF = 10
 # set in main() from the package)
 REFINE_K = 74
 STREAM_M = 2 ** 16   # queries of the stream cell
+KDTREE_M = 2 ** 14   # queries of the kdtree cell
+PERSIST_M = 2 ** 16  # queries the persist cell answers before and after
+WIDE_D = 130         # the wide kernel's timed rows (d > 16)
 DUAL_CHECK_SHIFT = 4  # the dual cell's pair_count_brute check on n / 2**4 points
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -290,6 +316,21 @@ def phase_kernel(torch, dev, seed: int) -> dict:
                      kd[:50], ki[:50], rd[:50], ri[:50])
     log("kernel", case="indexed_form", rows=64, n_units=50, max_abs_err=err, ok=True)
 
+    # a tile of 256 query slots: two launches of 128, rows side by side
+    unit_query = torch.randint(-1, 5000, (64, 256), device=dev, generator=gen).int()
+    before = knn_scan.leaf_scan_units.launches
+    kd, ki = knn_scan.leaf_scan_units(qpad, slab, unit_leaf, unit_query, n_units, k=10)
+    split = knn_scan.leaf_scan_units.launches - before
+    rd, ri = knn_scan.leaf_scan_units_ref(qpad, slab, unit_leaf, unit_query, n_units, k=10)
+    torch.cuda.synchronize()
+    uq = unit_query[:50]
+    q_tiles = torch.where((uq >= 0)[..., None], qpad[uq.clamp(min=0).long()], 0.0)
+    err = check_scan(torch, q_tiles, slab[unit_leaf[:50].long()],
+                     kd[:50], ki[:50], rd[:50], ri[:50])
+    assert split == 2, split
+    log("kernel", case="indexed_form_tq256", rows=64, launches=split, max_abs_err=err,
+        ok=True)
+
     # main-path shape: time the kernel, its plain version, and the library,
     # at k = 10, at the k the fp32 main path runs (k + FP32_OVERFETCH) and
     # at the refining pass's k
@@ -331,7 +372,63 @@ def phase_kernel(torch, dev, seed: int) -> dict:
                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
     del xn, xt
     codes = phase_kernel_codes(torch, dev, gen, q, x, qpad, ul, uq, nu)
-    return {f"f32_k{k}": t for k, t in timed.items()}, codes
+    timed = {f"f32_k{k}": t for k, t in timed.items()}
+    del q, x, qpad
+    torch.cuda.empty_cache()
+    timed.update(phase_kernel_wide(torch, dev, gen))
+    return timed, codes
+
+
+def phase_kernel_wide(torch, dev, gen) -> dict:
+    """The wide kernel (rows of d > 16 features, in chunks of 16) at the
+    main path's W, TQ and L_pad with d = WIDE_D, at k = 10 and at the
+    refining pass's k, timed beside its plain version and the library;
+    keyed ``"f32_d130_k10"``.  No main-path cell launches it (d = 10)."""
+    from repro_torch.kernels import knn_scan
+
+    s = MAIN_SHAPE
+    w, tq, lp, d = s["w"], s["tq"], s["l_pad"], WIDE_D
+    q = torch.randn((w, tq, d), device=dev, generator=gen)
+    x = torch.randn((w, lp, d), device=dev, generator=gen)
+    qpad = q.reshape(w * tq, d)
+    ul = torch.arange(w, dtype=torch.int32, device=dev)
+    uq = torch.arange(w * tq, dtype=torch.int32, device=dev).reshape(w, tq)
+    nu = torch.tensor(w, dtype=torch.int32, device=dev)
+    xn = (x * x).sum(-1)[:, None, :]
+    xt = x.transpose(1, 2)
+    out = {}
+    for k in (s["k"], REFINE_K):
+        kd, ki = knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=k)
+        rd, ri = knn_scan.leaf_scan_units_ref(qpad, x, ul, uq, nu, k=k)
+        torch.cuda.synchronize()
+        # every distance; the indices on the first units (the float64
+        # gather of all [W, TQ, k, d] would not fit)
+        torch.testing.assert_close(kd, rd, **TOL)
+        err = max(float((kd - rd).abs().max()),
+                  check_scan(torch, q[:256], x[:256], kd[:256], ki[:256], rd[:256], ri[:256]))
+        del kd, ki, rd, ri
+        kernel_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=k),
+                            reps=3)
+        plain_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units_ref(
+            qpad, x, ul, uq, nu, k=k), reps=2)
+
+        def library():
+            d2 = torch.baddbmm(xn, q, xt, alpha=-2.0)
+            return torch.topk(d2, k, dim=-1, largest=False)
+
+        library_ms = cuda_ms(torch, library, reps=2)
+        bound_ms, bound_by = scan_bound(w, tq, lp, d, k)
+        log("kernel", case=f"wide_d{d}_k{k}", shape=(w, tq, lp, d), k=k,
+            variant=knn_scan.choose_variant(d, k, tq, lp).name, max_abs_err=err,
+            kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            gflops=f"{w * tq * lp * (2 * d + 3) / kernel_ms / 1e6:.1f}")
+        out[f"f32_d{d}_k{k}"] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                                     library_ms=library_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by)
+    del q, x, qpad, xn, xt
+    torch.cuda.empty_cache()
+    return out
 
 
 def pack_rows(torch, dead):
@@ -470,6 +567,7 @@ def phase_facade(torch, dev, seed: int) -> None:
     than 128 features, against knn_brute."""
     from repro_torch.api import IndexSpec, KNNIndex
     from repro_torch.core.brute import knn_brute
+    from repro_torch.kernels import knn_scan
 
     rng = np.random.default_rng(seed)
     for d, k in ((10, 150), (130, 10)):
@@ -481,6 +579,20 @@ def phase_facade(torch, dev, seed: int) -> None:
         np.testing.assert_allclose(res.dists, bd, rtol=1e-5, atol=1e-6)
         log("kernel", case=f"facade_d{d}_k{k}", ids_equal=f"{(res.idx == bi).mean():.6f}",
             ok=True)
+    # a tile of 256 query slots answers as one of 128, on chunked and host
+    pts = rng.standard_normal((40000, 10), dtype=np.float32)
+    q = rng.standard_normal((5000, 10), dtype=np.float32)
+    for engine in ("chunked", "host"):
+        runs = []
+        for tq in (128, 256):
+            index = KNNIndex.build(pts, IndexSpec(engine=engine, tile_q=tq, height=5,
+                                                  devices=(dev,)))
+            knn_scan.reset_launches()
+            runs.append((index.query(q, 10), knn_scan.leaf_scan_units.launches))
+        (r128, l128), (r256, l256) = runs
+        assert np.array_equal(r256.idx, r128.idx) and np.array_equal(r256.dists, r128.dists)
+        log("kernel", case=f"facade_{engine}_tile_q256", launches_tq128=l128,
+            launches_tq256=l256, answers_equal=True, ok=True)
 
 
 def mixture(rng, n: int, d: int, centers: np.ndarray, scales: np.ndarray) -> np.ndarray:
@@ -558,7 +670,8 @@ def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
     by_code = dict(knn_scan.leaf_scan_units.launches_by_code)
     launches = dict(by_code, by_instance=dict(knn_scan.leaf_scan_units.launches_by_instance))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9   # this build + query
-    assert index._state._engine.backend == "cuda", index._state._engine.backend
+    if index.plan.engine != "kdtree":
+        assert index._state._engine.backend == "cuda", index._state._engine.backend
     assert np.isfinite(res.dists).all() and res.dists.shape == (queries.shape[0], 10)
     assert (res.idx >= 0).all()
     ties = check_exact(torch, res, points, queries, dev, n_check)
@@ -568,6 +681,7 @@ def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
         resident_bytes=index.resident_bytes(),
         build_s=f"{build_s:.3f}", query_s=f"{query_s:.3f}",
         qps=f"{queries.shape[0] / query_s:.1f}", rounds=st.iterations,
+        flushes=st.flushes, plan_shapes=st.plan_shapes,
         chunk_rounds=st.chunk_rounds, units=st.units_scanned,
         steady_rounds=st.steady_rounds, tail_rounds=st.tail_rounds,
         compactions=st.compactions, chunk_copies=st.chunk_copies,
@@ -581,7 +695,7 @@ def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
         print(f"[{phase}]   plan: {r}", flush=True)
     if profile:
         profile_query(torch, phase, index, queries)
-    return index, res, launches
+    return index, res, launches, build_s
 
 
 def main(argv=None) -> int:
@@ -595,15 +709,20 @@ def main(argv=None) -> int:
                     help="run the streamed cells (ooc, quant_ooc) on n / 2**ooc_shift "
                          "points (default 2, which keeps the whole script within "
                          "half of its time limit; 0 runs them at full depth)")
+    ap.add_argument("--host-shift", type=int, default=2,
+                    help="run the host cells (host, host_ooc, kdtree) on n / "
+                         "2**host_shift points and m / 2**host_shift queries (default "
+                         "2, the ooc cells' depth; 0: main's data whole)")
     ap.add_argument("--profile", nargs="?", const="main,ooc", default="",
                     help="also run these cells' query once under torch.profiler "
-                         "(comma-separated, of main, ooc, quant, quant_ooc, jit; "
-                         "no value: main,ooc)")
+                         "(comma-separated, of main, ooc, quant, quant_ooc, jit, "
+                         "host; no value: main,ooc)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.api import IndexSpec, estimate_slab_bytes
     from repro_torch.core.brute import knn_brute
@@ -630,12 +749,15 @@ def main(argv=None) -> int:
     log("main", n=n, m=m, d=d, k=10, data_s=f"{time.perf_counter() - t0:.3f}")
 
     profiled = set(filter(None, args.profile.split(",")))
-    index, res, launches = run_query(
+    cells = {}
+    index, res, launches, build_s = run_query(
         torch, "main", points, queries, None, 1024, dev, "main" in profiled)
     assert index.plan.engine == "chunked", index.plan.engine
     assert index.plan.n_chunks == 1, index.plan.n_chunks
     assert launches["f32"] > 0, "the leaf-scan kernel did not run on the main path"
+    cells["main"] = launches
     slab_bytes = index.plan.slab_bytes
+    cells["persist_main"] = run_persist(torch, "main", index, build_s, queries[:PERSIST_M])
     del index
     torch.cuda.empty_cache()
 
@@ -663,11 +785,12 @@ def main(argv=None) -> int:
     ooc_points = points[: n >> args.ooc_shift]
     ooc_slab = estimate_slab_bytes(ooc_points.shape[0], d, suggest_height(ooc_points.shape[0]))
     spec = IndexSpec(precision="fp32", memory_budget=ooc_slab // 3)
-    ooc, res2, launches2 = run_query(
+    ooc, res2, launches2, _ = run_query(
         torch, "ooc", ooc_points, queries, spec, 1024, dev, "ooc" in profiled)
     assert ooc.plan.n_chunks >= 2, ooc.plan.n_chunks
     assert res2.stats.chunk_copies > 0
     assert launches2["f32"] > 0
+    cells["ooc"] = launches2
     ooc_ref = res if args.ooc_shift == 0 else res2
     if args.ooc_shift == 0:
         same_answers("ooc", res2)
@@ -676,38 +799,52 @@ def main(argv=None) -> int:
 
     # planner rule 4 under a budget, the precision not pinned: int8, N = 1
     budget = slab_bytes // 3
-    quant, res3, launches3 = run_query(
+    quant, res3, launches3, build_s = run_query(
         torch, "quant", points, queries, IndexSpec(memory_budget=budget), 1024, dev,
         "quant" in profiled)
     assert (quant.plan.precision, quant.plan.n_chunks) == ("int8", 1), quant.describe()
     assert quant.resident_bytes() <= budget, (quant.resident_bytes(), budget)
     assert launches3["u8"] > 0 and launches3["f32"] == 0, launches3
     same_answers("quant", res3)
+    cells["quant"] = launches3
+    cells["persist_quant"] = run_persist(torch, "quant", quant, build_s, queries[:PERSIST_M])
     del quant, res3
     torch.cuda.empty_cache()
 
-    quant_ooc, res4, launches4 = run_query(
+    quant_ooc, res4, launches4, _ = run_query(
         torch, "quant_ooc", ooc_points, queries, IndexSpec(memory_budget=ooc_slab // 12),
         1024, dev, "quant_ooc" in profiled)
     assert quant_ooc.plan.precision == "int8" and quant_ooc.plan.n_chunks >= 2, (
         quant_ooc.describe())
     assert res4.stats.chunk_copies > 0 and launches4["u8"] > 0
     same_answers("quant_ooc", res4, ooc_ref, ooc_points)
-    del quant_ooc, res2, res4
+    cells["quant_ooc"] = launches4
+    del quant_ooc, res4
     torch.cuda.empty_cache()
 
-    run_stream(torch, points, queries[: min(m, STREAM_M)], res, dev)
-    run_fp16(torch, points[: n // 4], queries[: m // 4], dev)
+    cells["stream"] = run_stream(torch, points, queries[: min(m, STREAM_M)], res, dev)
+    cells["fp16"] = run_fp16(torch, points[: n // 4], queries[: m // 4], dev)
     run_jit(torch, points, queries, res, dev, same_answers, "jit" in profiled)
-    del points, queries, res
+
+    # the host cells: the paper's Algorithm 1 on main's data, whole or at
+    # the ooc cell's depth (whose fp32 answers they must equal)
+    hs = args.host_shift
+    if hs not in (0, args.ooc_shift):
+        raise SystemExit(f"--host-shift must be 0 or --ooc-shift ({args.ooc_shift})")
+    host_ref = res if hs == 0 else res2
+    cells.update(run_host(torch, points[: n >> hs], queries[: m >> hs], host_ref, dev,
+                          same_answers, "host" in profiled))
+    del points, queries, res, res2
     torch.cuda.empty_cache()
     run_dual(torch, dev, args.seed, args.shift)
 
     def entry(name, code, first_k, cell, timed):
         """The JSON line's entry: the instance a k = 10 query first runs,
-        and under ``instances`` every instance the cell ran, its launches
-        beside its phase-3 times (when phase 3 timed it)."""
+        under ``instances`` every instance phase 3 timed or the cell ran,
+        its launches in the cell beside its phase-3 times, and under
+        ``launches_by_cell`` each cell's launches of this code type."""
         head = timed[f"{code}_k{first_k}"]
+        keys = sorted(set(cell["by_instance"]) | set(timed))
         return {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/leaf_scan.cu",
@@ -716,13 +853,16 @@ def main(argv=None) -> int:
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "instances": {key: dict(launches=n, **timed.get(key, {}))
-                          for key, n in cell["by_instance"].items()},
+            "instances": {key: dict(launches=cell["by_instance"].get(key, 0),
+                                    **timed.get(key, {})) for key in keys},
+            "launches_by_cell": {c: launches[code] for c, launches in cells.items()
+                                 if launches[code]},
         }
 
     kernels = [entry("leaf_scan", "f32", MAIN_K_EFF, launches, scan),
                # the same kernel reading uint8 codes (quant cell, k = 10 -> 18)
                entry("leaf_scan_codes", "u8", CODE_K, launches3, codes)]
+    log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -763,6 +903,8 @@ def run_stream(torch, points, queries, main_res, dev) -> None:
     same = r.idx == ref_i
     if not same.all():
         np.testing.assert_allclose(r.dists, ref_d, rtol=1e-5, atol=1e-6)
+    cell = dict(knn_scan.leaf_scan_units.launches_by_code,
+                by_instance=dict(knn_scan.leaf_scan_units.launches_by_instance))
     log("stream", m=ms, emissions=len(at), early_retired=r.stats.early_retired,
         first_s=f"{at[0] - t0:.3f}", last_s=f"{at[-1] - t0:.3f}",
         query_stream_s=f"{total_s:.3f}", rounds=r.stats.iterations,
@@ -770,19 +912,21 @@ def run_stream(torch, points, queries, main_res, dev) -> None:
         ok=True)
     del index
     torch.cuda.empty_cache()
+    return cell
 
 
 def run_fp16(torch, points, queries, dev) -> None:
     """precision pinned to fp16: the kernel reading float16 codes end to end."""
     from repro_torch.api import IndexSpec
 
-    index, res, launches = run_query(
+    index, res, launches, _ = run_query(
         torch, "fp16", points, queries, IndexSpec(engine="chunked", precision="fp16"), 1024,
         dev)
     assert index.plan.precision == "fp16", index.plan.precision
     assert launches["f16"] > 0 and launches["f32"] == 0, launches
     del index
     torch.cuda.empty_cache()
+    return launches
 
 
 def run_jit(torch, points, queries, main_res, dev, same_answers, profile=False) -> None:
@@ -847,6 +991,119 @@ def run_jit(torch, points, queries, main_res, dev, same_answers, profile=False) 
     torch.cuda.empty_cache()
 
 
+def run_host(torch, points, queries, ref, dev, same_answers, profile=False) -> dict:
+    """The host cells on ``points`` / ``queries`` (``ref``: fp32 answers of
+    another engine on the same points, for the first rows): ``host``
+    (IndexSpec(engine="host")), ``host_ooc`` (the same, fp32, under
+    memory_budget = slab_bytes // 3) and ``kdtree`` (the paper's CPU
+    baseline, KDTREE_M queries, timed beside host and chunked on the same
+    rows).  Every scan of the host loop must be a launch of the CUDA kernel
+    (one per chunk round).  Returns each cell's launch counts."""
+    from types import SimpleNamespace
+
+    from repro_torch.api import IndexSpec, KNNIndex
+    from repro_torch.kernels import knn_scan
+
+    m = queries.shape[0]
+    mine = SimpleNamespace(dists=ref.dists[:m], idx=ref.idx[:m])
+    out = {}
+    host, res, launches, _ = run_query(torch, "host", points, queries,
+                                       IndexSpec(engine="host"), 1024, dev, profile)
+    st = res.stats
+    assert host.plan.engine == "host" and host.plan.n_chunks == 1, host.describe()
+    assert launches["f32"] == st.chunk_rounds > 0, (launches, st.chunk_rounds)
+    same_answers("host", res, mine, points)
+    out["host"] = launches
+    slab = host.plan.slab_bytes
+    spec = IndexSpec(engine="host", precision="fp32", memory_budget=slab // 3)
+    ooc, res_ooc, launches, _ = run_query(torch, "host_ooc", points, queries, spec, 1024, dev)
+    assert ooc.plan.n_chunks >= 2 and res_ooc.stats.chunk_copies > 0, ooc.describe()
+    assert launches["f32"] == res_ooc.stats.chunk_rounds > 0, launches
+    same_answers("host_ooc", res_ooc, res, points)
+    out["host_ooc"] = launches
+    del ooc, res_ooc
+    torch.cuda.empty_cache()
+
+    # the paper's comparison: classic traversal against the buffered engines
+    q = queries[:KDTREE_M]
+    t0 = time.perf_counter()
+    kdtree = KNNIndex.build(points, IndexSpec(engine="kdtree", devices=(dev,)))
+    build_s = time.perf_counter() - t0
+    knn_scan.reset_launches()
+    t0 = time.perf_counter()
+    kd = kdtree.query(q, 10)
+    kd_s = time.perf_counter() - t0
+    out["kdtree"] = dict(knn_scan.leaf_scan_units.launches_by_code,
+                         by_instance=dict(knn_scan.leaf_scan_units.launches_by_instance))
+    assert out["kdtree"]["f32"] == 0 and kdtree.resident_bytes() == 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hq = host.query(q, 10)
+    host_s = time.perf_counter() - t0
+    del host
+    torch.cuda.empty_cache()
+    chunked = KNNIndex.build(points, IndexSpec(engine="chunked"))
+    chunked.query(q[:1024], 10)       # first call on this index, untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cq = chunked.query(q, 10)
+    chunked_s = time.perf_counter() - t0
+    del chunked
+    torch.cuda.empty_cache()
+    np.testing.assert_allclose(kd.dists, hq.dists, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(cq.dists, hq.dists, rtol=1e-5, atol=1e-6)
+    d_of_idx = np.sqrt(np.sum((q[:, None, :] - points[kd.idx]) ** 2, -1))
+    np.testing.assert_allclose(d_of_idx, hq.dists, rtol=1e-5, atol=1e-6)
+    log("kdtree", n=points.shape[0], m=q.shape[0], build_s=f"{build_s:.3f}",
+        query_s=f"{kd_s:.3f}", qps=f"{q.shape[0] / kd_s:.1f}",
+        host_query_s=f"{host_s:.3f}", host_qps=f"{q.shape[0] / host_s:.1f}",
+        chunked_query_s=f"{chunked_s:.3f}", chunked_qps=f"{q.shape[0] / chunked_s:.1f}",
+        speedup_host=f"{kd_s / host_s:.2f}", speedup_chunked=f"{kd_s / chunked_s:.2f}",
+        ids_equal_host=f"{(kd.idx == hq.idx).mean():.6f}", answers_equal_host=True)
+    return out
+
+
+def run_persist(torch, phase, index, build_s, queries) -> dict:
+    """Save ``index`` to a temporary directory on local disk and load it
+    onto the card: save_s, load_s (to a ready index on the card) and bytes
+    on disk beside build_s; ``queries`` answered bit for bit as before the
+    save.  Returns the launch counts of the loaded index's query."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import KNNIndex
+    from repro_torch.kernels import knn_scan
+
+    before = index.query(queries, 10)
+    root = tempfile.mkdtemp(prefix="chip_smoke_persist_")
+    try:
+        t0 = time.perf_counter()
+        index.save(root)
+        save_s = time.perf_counter() - t0
+        on_disk = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, files in os.walk(root) for f in files)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = KNNIndex.load(root)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        knn_scan.reset_launches()
+        after = loaded.query(queries, 10)
+        launches = dict(knn_scan.leaf_scan_units.launches_by_code,
+                        by_instance=dict(knn_scan.leaf_scan_units.launches_by_instance))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert np.array_equal(after.idx, before.idx) and np.array_equal(after.dists, before.dists)
+    assert loaded.plan.precision == index.plan.precision
+    assert sum(launches[c] for c in ("f32", "f16", "u8")) > 0, launches
+    log("persist", index=phase, engine=loaded.plan.engine, precision=loaded.plan.precision,
+        build_s=f"{build_s:.3f}", save_s=f"{save_s:.3f}", load_s=f"{load_s:.3f}",
+        bytes_on_disk=on_disk, queries=queries.shape[0], answers_bit_for_bit=True)
+    del loaded
+    torch.cuda.empty_cache()
+    return launches
+
+
 def catalog(rng, n: int) -> np.ndarray:
     """n points from 64 uniform blobs of radius 0.02 in the unit cube, 3-d
     (benchmarks/dualtree_bench.py's catalogue: clustered sources)."""
@@ -906,7 +1163,8 @@ def run_dual(torch, dev, seed: int, shift: int) -> None:
         st = res.stats
         log("dual", op=op, seconds=f"{sec:.3f}", leaf_pairs=st.units_scanned,
             batches=st.flushes, chunk_visits=st.chunk_rounds, levels=st.iterations,
-            points_paired=st.points_scanned, batch_shapes=st.plan_shapes)
+            points_paired=st.points_scanned, batch_shapes=st.plan_shapes,
+            retested_pairs=st.retested_pairs)
     log("dual", radius_hits=int(rad.indptr[-1]),
         mean_neighbours=f"{rad.indptr[-1] / m:.1f}", kde_error_bound=kde.error_bound,
         hist=",".join(str(int(v)) for v in pc.values), peak_mem_gb=f"{peak_gb:.3f}")
@@ -938,7 +1196,8 @@ def run_dual(torch, dev, seed: int, shift: int) -> None:
     log("dual", op="pair_count_streamed", n_chunks=streamed.plan.n_chunks,
         build_s=f"{sbuild_s:.3f}", seconds=f"{spair_s:.3f}",
         leaf_pairs=spc.stats.units_scanned, batches=spc.stats.flushes,
-        chunk_visits=spc.stats.chunk_rounds, hist_equal=True)
+        chunk_visits=spc.stats.chunk_rounds, retested_pairs=spc.stats.retested_pairs,
+        hist_equal=True)
     del streamed
     torch.cuda.empty_cache()
 

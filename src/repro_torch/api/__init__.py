@@ -5,9 +5,10 @@
     index = KNNIndex.build(points)             # planner picks the engine
     dists, idx = index.query(queries, k=10)    # exact kNN
 
-Counterpart of ``repro.api`` with the ``brute``, ``chunked``,
-``streaming`` and ``jit`` engines and the dual-tree ops (``radius``,
-``kde``, ``pair_count``).  ``knn_brute`` is re-exported as the
+Counterpart of ``repro.api`` with the ``brute``, ``kdtree``, ``host``,
+``chunked``, ``streaming`` and ``jit`` engines, the dual-tree ops
+(``radius``, ``kde``, ``pair_count``) and snapshots (``KNNIndex.save`` /
+``KNNIndex.load``, in the reference's format).  ``knn_brute`` is re-exported as the
 ground-truth oracle, ``knn_round_cache_size`` counts the distinct
 chunk-round shapes run and ``dualtree_cache_size`` the distinct
 leaf-pair batch shapes.

@@ -5,8 +5,10 @@ capabilities (``EngineCaps``) so the planner selects by constraint, and
 implements ``build(points, spec, plan)``, ``query(state, queries, k)`` and
 ``resident_bytes(plan, state)``; engines declaring the dual-tree ops in
 ``caps.ops`` implement ``radius`` / ``kde`` / ``pair_count`` and
-``warm_ops``.  Engines of the reference that are not ported yet raise a
-``KeyError`` saying so from ``get_engine``.
+``warm_ops``; engines with a host-side snapshot implement
+``snapshot_state`` / ``restore_state`` (``KNNIndex.save`` / ``load``).
+Engines of the reference that are not ported yet raise a ``KeyError``
+saying so from ``get_engine``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Dict, Optional, Tuple, Type
 import numpy as np
 
 from repro_torch.core.lazysearch import SearchStats
+from repro_torch.persist.format import PersistUnsupported
 
 __all__ = [
     "Engine",
@@ -25,6 +28,7 @@ __all__ = [
     "KNOWN_OPS",
     "MutabilityError",
     "OpUnsupported",
+    "PersistUnsupported",
     "StreamingUnsupported",
     "register_engine",
     "get_engine",
@@ -36,8 +40,6 @@ KNOWN_OPS = frozenset({"knn", "radius", "kde", "pair_count"})
 
 # engines of the reference not ported yet -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "host": "Queue 1 item 17",
-    "kdtree": "Queue 1 item 17",
     "dynamic": "Queue 1 item 14",
     "sharded": "Queue 1 item 18",
     "forest": "Queue 1 item 18",
@@ -105,16 +107,23 @@ class EngineBase:
         expected pair_count edge count).  Default: nothing to warm."""
         return None
 
-    def snapshot_state(self, state):
-        raise NotImplementedError(
-            f"engine {self.name!r}: snapshots are not ported yet (ROADMAP "
-            "Queue 1 item 15)"
+    def snapshot_state(self, state) -> Tuple[Dict[str, np.ndarray], dict]:
+        """Serialize the built state: (flat {path: ndarray} map, JSON-able
+        meta dict), what ``KNNIndex.save`` hands to ``repro_torch.persist``.
+        Engines without a host-side snapshot raise the typed
+        ``PersistUnsupported``."""
+        raise PersistUnsupported(
+            f"engine {self.name!r} has no snapshot representation; "
+            "rebuild from source points on restart (docs/OPERATIONS.md)"
         )
 
-    def restore_state(self, arrays, meta, spec, plan):
-        raise NotImplementedError(
-            f"engine {self.name!r}: restoring a snapshot is not ported yet "
-            "(ROADMAP Queue 1 item 15)"
+    def restore_state(self, arrays: Dict[str, np.ndarray], meta: dict, spec, plan):
+        """Reconstruct engine state from ``snapshot_state``'s output (or the
+        reference's, the same format) on ``spec.devices[0]``, without the
+        build-phase work that was persisted."""
+        raise PersistUnsupported(
+            f"engine {self.name!r} has no snapshot representation; "
+            "rebuild from source points on restart (docs/OPERATIONS.md)"
         )
 
 

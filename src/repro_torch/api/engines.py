@@ -1,6 +1,10 @@
 """Registered engines (counterpart of ``repro.api.engines``).
 
   brute      tiled brute-force (paper baseline (3); also the oracle)
+  kdtree     classic unbuffered k-d traversal on the host (paper baseline
+             (2)); host numpy, nothing on a device
+  host       the paper's Algorithm 1: host queues and leaf buffers around
+             the device's traversal, leaf scan and merge
   chunked    chunk-resident bulk-synchronous LazySearch (§3 out-of-core path)
   streaming  the chunked engine plus per-row delivery (``query_stream``):
              each query's result is emitted the round it retires
@@ -9,10 +13,14 @@
 
 All translate their native conventions into the one ``QueryResult``
 contract: ascending Euclidean f32[m, k] distances and i64[m, k] ids in the
-caller's original ordering.  ``brute``, ``chunked`` and ``streaming``
-declare the dual-tree ops (``radius``, ``kde``, ``pair_count``): brute by
-its all-pairs oracles, the tree engines by ``core/dualtree.py`` over the
-index's own tree and leaf store.
+caller's original ordering.  ``brute``, ``host``, ``chunked`` and
+``streaming`` declare the dual-tree ops (``radius``, ``kde``,
+``pair_count``): brute by its all-pairs oracles, the tree engines by
+``core/dualtree.py`` over the index's own tree and leaf store.  Every
+engine here has a host-side snapshot (``snapshot_state`` /
+``restore_state``) in the reference's format: tree arrays, fp32 points,
+and a quantized store's codes with their columns padded to a multiple of 8
+as the reference lays them out.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from repro_torch.api.engine import KNOWN_OPS, EngineBase, EngineCaps, register_e
 from repro_torch.api.planner import chunked_resident_bytes
 from repro_torch.core import dualtree
 from repro_torch.core.brute import knn_brute
+from repro_torch.core.hostkdtree import knn_host_kdtree
 from repro_torch.core.jitsearch import (
     RoundsCache, TreeArrays, lazy_knn_jit, tree_arrays_from,
 )
@@ -34,12 +43,50 @@ from repro_torch.core.lazysearch import (
     BufferKDTree,
     SearchStats,
     certify,
+    orig_ids,
 )
+from repro_torch.core.quantize import QuantizedSlabs
 from repro_torch.core.streaming import stream_query
-from repro_torch.core.toptree import TopTree, build_top_tree
+from repro_torch.core.toptree import (
+    TopTree,
+    build_top_tree,
+    tree_from_arrays,
+    tree_to_arrays,
+)
 from repro_torch.kernels import ops as kops
 
 __all__ = []  # engines are reached through the registry, not imports
+
+# the reference pads the feature columns of its slabs and codes to a
+# multiple of this; snapshots carry that layout
+_D_PAD = 8
+
+
+def _device(spec) -> torch.device:
+    return kops.resolve_device(spec.devices[0] if spec.devices else None)
+
+
+def _pad_cols(a: np.ndarray, fill: float = 0.0) -> np.ndarray:
+    """``a`` [..., d] with columns of ``fill`` up to the reference's width
+    (a multiple of ``_D_PAD``)."""
+    d = a.shape[-1]
+    width = max(_D_PAD, -(-d // _D_PAD) * _D_PAD)
+    if width == d:
+        return np.asarray(a)
+    pad = np.full(a.shape[:-1] + (width - d,), fill, a.dtype)
+    return np.concatenate([a, pad], axis=-1)
+
+
+def _tree_snapshot(tree: TopTree):
+    arrays = dict(tree_to_arrays(tree, include_derived=True))
+    return arrays, {"height": tree.height, "leaf_pad": tree.leaf_pad}
+
+
+def _tree_restore(arrays, meta) -> TopTree:
+    return tree_from_arrays(
+        np.ascontiguousarray(arrays["points"], np.float32), arrays,
+        height=int(meta["height"]), leaf_pad=int(meta["leaf_pad"]),
+    )
 
 
 @register_engine
@@ -52,8 +99,7 @@ class BruteEngine(EngineBase):
     )
 
     def build(self, points, spec, plan):
-        dev = kops.resolve_device(spec.devices[0] if spec.devices else None)
-        return torch.as_tensor(np.asarray(points, np.float32), device=dev)
+        return torch.as_tensor(np.asarray(points, np.float32), device=_device(spec))
 
     def _stats(self, state, m: int) -> SearchStats:
         return SearchStats(iterations=1, points_scanned=m * state.shape[0],
@@ -83,31 +129,95 @@ class BruteEngine(EngineBase):
         )
         return d, i, stats
 
+    def snapshot_state(self, state):
+        return {"points": state.cpu().numpy()}, {}
+
+    def restore_state(self, arrays, meta, spec, plan):
+        points = np.ascontiguousarray(arrays["points"], np.float32)
+        return torch.as_tensor(points, device=_device(spec))
+
     def resident_bytes(self, plan, state=None) -> int:
         return plan.n * plan.d * 4   # the reference points, unpadded
 
 
 @register_engine
+class HostKDTreeEngine(EngineBase):
+    """The paper's CPU baseline (2): host numpy over the top tree, so it
+    holds nothing on a device whatever ``spec.devices`` says."""
+
+    name = "kdtree"
+    caps = EngineCaps(
+        exact=True, out_of_core=True, multi_device=False,
+        description="classic unbuffered k-d traversal (CPU baseline)",
+    )
+
+    def build(self, points, spec, plan):
+        return build_top_tree(np.asarray(points, np.float32), plan.height)
+
+    def query(self, state: TopTree, queries, k):
+        d, i = knn_host_kdtree(queries, state, k)
+        return d, i, SearchStats(queries_advanced=queries.shape[0])
+
+    def snapshot_state(self, state: TopTree):
+        return _tree_snapshot(state)
+
+    def restore_state(self, arrays, meta, spec, plan):
+        return _tree_restore(arrays, meta)
+
+    def resident_bytes(self, plan, state=None) -> int:
+        return 0
+
+
+@register_engine
 class ChunkedEngine(EngineBase):
     name = "chunked"
+    _tier = "chunked"   # BufferKDTree's engine
     caps = EngineCaps(
         exact=True, out_of_core=True, multi_device=False, stateful_query=True,
         ops=KNOWN_OPS,
         description="chunk-resident bulk-synchronous LazySearch (§3)",
     )
 
-    def build(self, points, spec, plan):
+    def _tree_engine(self, points, spec, plan, **kw) -> BufferKDTree:
         return BufferKDTree(
             points,
-            height=plan.height,
             n_chunks=plan.n_chunks,
             buffer_size=plan.buffer_size,
+            fetch_m=plan.fetch_m,
             tile_q=plan.tile_q,
             backend=plan.backend,
+            engine=self._tier,
             starvation_deadline=plan.starvation_deadline,
             device=spec.devices[0] if spec.devices else None,
-            precision=plan.precision,
+            **kw,
         )
+
+    def build(self, points, spec, plan):
+        return self._tree_engine(points, spec, plan, height=plan.height,
+                                 precision=plan.precision)
+
+    def snapshot_state(self, state: BufferKDTree):
+        arrays, meta = _tree_snapshot(state.tree)
+        meta["precision"] = state.precision
+        if state.store.quantized:
+            qs = state.store.quantized_state()
+            # the reference's layout: pad columns of code 0, scale 0 (int8)
+            # or 1 (fp16) and offset 0 dequantize to the zeros it stores
+            arrays.update(dataclasses.replace(
+                qs, codes=_pad_cols(qs.codes),
+                scale=_pad_cols(qs.scale, 1.0 if qs.precision == "fp16" else 0.0),
+                offset=_pad_cols(qs.offset)).to_arrays())
+        return arrays, meta
+
+    def restore_state(self, arrays, meta, spec, plan):
+        tree = _tree_restore(arrays, meta)
+        # snapshots without a precision field predate it: fp32
+        precision = str(meta.get("precision", "fp32"))
+        store_state = None
+        if precision != "fp32":
+            store_state = QuantizedSlabs.from_arrays(arrays, precision)
+        return self._tree_engine(tree.points, spec, plan, tree=tree, precision=precision,
+                                 store_state=store_state)
 
     def query(self, state: BufferKDTree, queries, k):
         d, i = state.query(queries, k=k)
@@ -135,6 +245,22 @@ class ChunkedEngine(EngineBase):
         if state is not None:
             return state.store.resident_bytes()   # measured, not estimated
         return chunked_resident_bytes(plan)
+
+
+@register_engine
+class HostLoopEngine(ChunkedEngine):
+    """The paper's Algorithm 1 (``BufferKDTree(engine="host")``): the same
+    tree, store, passes and dual-tree ops as ``chunked``, with the host
+    loop of queues, leaf buffers and work plans in place of the round
+    loop.  Never picked by the planner: pinned only."""
+
+    name = "host"
+    _tier = "host"
+    caps = EngineCaps(
+        exact=True, out_of_core=True, multi_device=False, stateful_query=True,
+        ops=KNOWN_OPS,
+        description="paper-faithful Alg. 1 host loop (reference tier)",
+    )
 
 
 @register_engine
@@ -181,8 +307,11 @@ class JitEngine(EngineBase):
     )
 
     def build(self, points, spec, plan):
-        dev = kops.resolve_device(spec.devices[0] if spec.devices else None)
-        top = build_top_tree(np.asarray(points, np.float32), plan.height)
+        return self._state(build_top_tree(np.asarray(points, np.float32), plan.height),
+                           spec, plan)
+
+    def _state(self, top: TopTree, spec, plan) -> _JitState:
+        dev = _device(spec)
         backend = kops.resolve_backend(plan.backend, dev)
         norms = np.sqrt(np.sum(top.points.astype(np.float64) ** 2, axis=1))
         return _JitState(
@@ -190,6 +319,37 @@ class JitEngine(EngineBase):
             tq=kops.engine_tile_q(plan.tile_q, backend), backend=backend,
             x_norm_max=float(norms.max()),
         )
+
+    def snapshot_state(self, state: _JitState):
+        """The reference's ``tree/*`` arrays (its ``TreeArrays``: i32 split
+        dims and ids, slabs with columns padded to a multiple of 8)."""
+        top = state.top
+        arrays = {
+            "tree/split_dim": top.split_dim.astype(np.int32),
+            "tree/split_val": top.split_val,
+            "tree/leaf_start": top.leaf_start.astype(np.int32),
+            "tree/leaf_size": top.leaf_sizes().astype(np.int32),
+            "tree/slabs": _pad_cols(top.points_padded),
+            "tree/orig_idx": top.orig_idx.astype(np.int32),
+        }
+        # the port's backend follows the device it is restored on
+        meta = {"first_leaf_heap": top.first_leaf_heap, "d": top.d, "tq": state.tq,
+                "backend": "auto"}
+        return arrays, meta
+
+    def restore_state(self, arrays, meta, spec, plan):
+        d = int(meta["d"])
+        slabs = np.ascontiguousarray(arrays["tree/slabs"][..., :d], np.float32)
+        start = np.asarray(arrays["tree/leaf_start"], np.int32)
+        size = np.asarray(arrays["tree/leaf_size"], np.int32)
+        # the leaves hold the reordered points in order
+        points = slabs[np.arange(slabs.shape[1])[None, :] < size[:, None]]
+        tree = {"split_dim": arrays["tree/split_dim"], "split_val": arrays["tree/split_val"],
+                "leaf_start": start, "leaf_end": start + size,
+                "orig_idx": arrays["tree/orig_idx"], "points_padded": slabs}
+        top = tree_from_arrays(points, tree, height=int(meta["first_leaf_heap"]).bit_length() - 1,
+                               leaf_pad=slabs.shape[1])
+        return self._state(top, spec, plan)
 
     def query(self, state: _JitState, queries, k):
         top, n = state.top, state.top.n
@@ -209,7 +369,7 @@ class JitEngine(EngineBase):
         rows = np.nonzero(~ok)[0]
         if rows.size:
             bd, bi = knn_brute(queries[rows], top.points, k, device=q.device)
-            dists[rows], idx[rows] = bd, top.orig_idx[bi]
+            dists[rows], idx[rows] = bd, orig_ids(top, bi)
         stats = SearchStats(iterations=rounds, queries_advanced=rounds * m,
                             exact_rows=int(rows.size))
         return dists.astype(np.float32), idx.astype(np.int64), stats

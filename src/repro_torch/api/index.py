@@ -10,15 +10,19 @@ without a card; pass ``devices=(torch.device("cpu"),)`` for the CPU.
 ``query_stream`` delivers per-row results on an index built with
 ``IndexSpec(engine="streaming")``; ``radius``, ``kde`` and ``pair_count``
 run the dual-tree ops on the engines that declare them (``caps.ops``), and
-raise the typed ``OpUnsupported`` elsewhere.  Persistence and mutation
-wait for their ROADMAP items; their entry points raise the reference's
-typed errors.
+raise the typed ``OpUnsupported`` elsewhere.  ``save`` / ``load`` write and
+read snapshots in the reference's format (``repro_torch.persist``), so
+either package loads the other's.  Mutation waits for its ROADMAP item
+(Queue 1 item 14); its entry points raise the reference's typed error.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import threading
-from typing import Optional
+import time
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -39,8 +43,22 @@ from repro_torch.api.spec import (
     SearchStats,
     StatResult,
 )
+from repro_torch.persist import PersistError, VersionStore, WriteAheadLog
 
 __all__ = ["KNNIndex"]
+
+# IndexSpec fields a snapshot manifest records (the reference's list): the
+# host-bound ones (devices, persist_dir) are not in it.  ``mutable``,
+# ``merge_async`` and ``wal_fsync`` belong to the mutable engine (ROADMAP
+# Queue 1 item 14): the port writes the reference's defaults and fsyncs
+# every WAL record.
+_SPEC_MANIFEST_FIELDS = (
+    "engine", "op", "height", "n_chunks", "n_shards", "buffer_size",
+    "tile_q", "backend", "k_hint", "m_hint", "memory_budget", "precision",
+    "strict_budget", "mutable", "merge_async", "snapshot_keep", "wal_fsync",
+)
+_UNPORTED_DEFAULTS = {"mutable": None, "merge_async": None, "wal_fsync": True}
+_BACKENDS = ("auto", "cuda", "ref")
 
 
 class KNNIndex:
@@ -55,6 +73,12 @@ class KNNIndex:
         self.n = n
         self.d = d
         self._last_stats: Optional[SearchStats] = None
+        # the persisted lifecycle (spec.persist_dir / load): snapshot store,
+        # WAL and acknowledged-mutation count; None / 0 in memory only
+        self._store: Optional[VersionStore] = None
+        self._wal: Optional[WriteAheadLog] = None
+        self._mutation_seq: int = 0
+        self._extra_arrays: Dict[str, np.ndarray] = {}
         # engines declaring stateful_query stream chunk slots during a
         # query: one batch at a time per index
         self._qlock = threading.Lock() if engine.caps.stateful_query else None
@@ -98,7 +122,147 @@ class KNNIndex:
         )
         engine = get_engine(pl.engine)
         state = engine.build(points, spec, pl)
-        return cls(spec=spec, plan=pl, engine=engine, state=state, n=n, d=d)
+        idx = cls(spec=spec, plan=pl, engine=engine, state=state, n=n, d=d)
+        if spec.persist_dir:
+            idx._init_persistence()
+        return idx
+
+    # -- persistence (counterpart of repro/api/index.py:183-340) ---------
+    def _init_persistence(self) -> None:
+        """Root a fresh persist dir: a baseline snapshot and an empty WAL.
+        A directory that already holds versions is refused: resume it with
+        ``KNNIndex.load``."""
+        root = self.spec.persist_dir
+        store = VersionStore(os.path.join(root, "versions"))
+        if store.versions():
+            raise PersistError(
+                f"persist_dir {root!r} already holds snapshot versions; "
+                "resume it with KNNIndex.load(...) or point build at a "
+                "fresh directory"
+            )
+        self._store = store
+        self._wal = WriteAheadLog(os.path.join(root, "wal"), fsync=True)
+        self.plan = self.plan.replace(reasons=self.plan.reasons + (
+            f"persistence: versioned snapshots + mutation WAL at {root}",
+        ))
+        self.save()
+
+    def save(self, path: Optional[str] = None, *,
+             extra_arrays: Optional[Dict[str, np.ndarray]] = None) -> int:
+        """Write one complete snapshot version; returns its number.
+
+        With ``path=None`` the version goes to the index's persist dir
+        (``spec.persist_dir``; an error without one), the WAL rotates to a
+        fresh segment and segments no kept snapshot needs are dropped.  A
+        ``path`` writes a one-off export.  ``extra_arrays`` ride along
+        under ``extra/`` and come back from ``load``.  Crash-atomic: a
+        version is complete (manifest present) or invisible to ``load``."""
+        if path is None:
+            if self._store is None:
+                raise PersistError(
+                    "index has no live persist dir: build with "
+                    "IndexSpec(persist_dir=...) or pass save(path=...)"
+                )
+            store = self._store
+        else:
+            store = VersionStore(os.path.join(path, "versions"))
+        arrays, meta = self._serialized(self._engine.snapshot_state, self._state)
+        arrays = dict(arrays)
+        for key, value in (extra_arrays or self._extra_arrays).items():
+            arrays[f"extra/{key}"] = np.asarray(value)
+        pl = self.plan
+        manifest = {
+            "engine": pl.engine,
+            "n": int(self.n),
+            "d": int(self.d),
+            "mutation_seq": int(self._mutation_seq),
+            "spec": {f: getattr(self.spec, f, _UNPORTED_DEFAULTS.get(f))
+                     for f in _SPEC_MANIFEST_FIELDS},
+            # the built geometry, so load plans the layout the state has
+            "plan": {"height": pl.height, "n_chunks": pl.n_chunks,
+                     "n_shards": pl.n_shards, "buffer_size": pl.buffer_size},
+            "meta": meta,
+            "created": time.time(),
+        }
+        version = store.commit(arrays, manifest, keep=max(1, self.spec.snapshot_keep))
+        if store is self._store and self._wal is not None:
+            self._wal.rotate(self._mutation_seq)
+            kept = store.versions()
+            self._wal.gc(min(int(store.read_manifest(v)["mutation_seq"]) for v in kept))
+        return version
+
+    @classmethod
+    def load(cls, path: str, *, devices=None) -> "KNNIndex":
+        """Restore an index from a persist dir (the port's or the
+        reference's): the latest complete snapshot, then the WAL records
+        acknowledged after it (none until a mutable engine is ported).
+        The state is restored onto ``devices`` (default ``(cuda:0,)``);
+        the snapshot itself is host-side and holds no device.  The loaded
+        index continues the same lifecycle: a later ``save()`` adds a
+        version."""
+        store = VersionStore(os.path.join(path, "versions"))
+        # copy-on-write mmap: the bulk arrays page in as they are read
+        arrays, manifest, version = store.read(mmap=True)
+        devs = tuple(devices) if devices else default_devices()
+        # the spec fields of parts not ported (a mutable index's engine,
+        # "dynamic", raises with its ROADMAP item when it is planned)
+        fields = {f.name for f in dataclasses.fields(IndexSpec)}
+        pins = manifest["plan"]
+        spec = IndexSpec(**{k: v for k, v in manifest["spec"].items() if k in fields}).replace(
+            engine=manifest["engine"],
+            devices=devs,
+            persist_dir=str(path),
+            height=pins["height"],
+            n_chunks=pins["n_chunks"],
+            n_shards=pins["n_shards"],
+            buffer_size=pins["buffer_size"],
+        )
+        if spec.backend not in _BACKENDS:
+            # a backend name of the reference's (its Pallas kernel): the
+            # port picks its own by the device
+            spec = spec.replace(backend="auto")
+        n, d = int(manifest["n"]), int(manifest["d"])
+        pl = make_plan(
+            max(1, n), d,
+            m=spec.m_hint,
+            k=spec.k_hint,
+            devices=devs,
+            memory_budget=spec.memory_budget,
+            engine=spec.engine,
+            height=spec.height,
+            n_chunks=spec.n_chunks,
+            n_shards=spec.n_shards,
+            buffer_size=spec.buffer_size,
+            tile_q=spec.tile_q,
+            backend=spec.backend,
+            precision=spec.precision,
+            strict_budget=spec.strict_budget,
+            op=spec.op,
+        )
+        engine = get_engine(pl.engine)
+        state = engine.restore_state(
+            {k: v for k, v in arrays.items() if not k.startswith("extra/")},
+            manifest["meta"], spec, pl,
+        )
+        idx = cls(spec=spec, plan=pl, engine=engine, state=state, n=n, d=d)
+        idx._extra_arrays = {
+            k[len("extra/"):]: v for k, v in arrays.items() if k.startswith("extra/")
+        }
+        seq = int(manifest["mutation_seq"])
+        wal = WriteAheadLog(os.path.join(path, "wal"), fsync=True)
+        records = wal.replay(min_seq=seq)
+        if records:
+            raise PersistError(
+                f"{path}: {len(records)} WAL record(s) after the snapshot; "
+                "replaying mutations needs the mutable engine (ROADMAP Queue "
+                "1 item 14)"
+            )
+        idx._store, idx._wal, idx._mutation_seq = store, wal, seq
+        idx.plan = pl.replace(reasons=pl.reasons + (
+            f"restored from {path} v{version} (format {manifest['format']}, "
+            f"snapshot seq {manifest['mutation_seq']}, replayed 0 WAL record(s))",
+        ))
+        return idx
 
     def _check_queries(self, queries) -> np.ndarray:
         queries = np.asarray(queries, dtype=np.float32)

@@ -7,17 +7,20 @@ Planning rules ported so far (numbering of ``docs/API.md``):
      ROADMAP Queue 1 item 18; raises ``NotImplementedError``);
   4. under a ``memory_budget`` the slab precision is decided first
      (fp32 -> fp16 -> int8, the first whose codes plus dequantize metadata
-     fit device-resident; int8 when none does);
+     fit device-resident; int8 when none does), for the engines whose leaf
+     slabs live in a ``ChunkedLeafStore`` (``PRECISION_ENGINES``); the
+     others keep fp32 arrays;
   5. a budget below the resident bytes => ``chunked`` with the smallest N
      such that TWO chunk buffers fit (§3's double-buffered streaming);
+     a pinned ``host`` or ``streaming`` engine streams by the same rule;
   6. otherwise ``chunked`` with N=1, the device-resident workflow.
 
 ``op`` (the primary operation, ``IndexSpec.op``) restricts the choice to
 engines declaring it in ``EngineCaps.ops``: a pinned engine that lacks it
 raises, an automatic choice that lacks it is rerouted to ``chunked``, and
 ``mutable=True`` with a dual-tree op is a contradiction (the mutable
-engine, ROADMAP Queue 1 item 14, is knn-only).  ``jit`` is taken only when
-pinned, as in the reference.
+engine, ROADMAP Queue 1 item 14, is knn-only).  ``jit``, ``host`` and
+``kdtree`` are taken only when pinned, as in the reference.
 
 Without a ``memory_budget`` the reference plans N=1 whatever the device
 holds.  On a CUDA device the port reads the free device memory
@@ -49,6 +52,7 @@ __all__ = [
     "default_devices",
     "BRUTE_N_MAX",
     "BRUTE_WORK_MAX",
+    "PRECISION_ENGINES",
 ]
 
 
@@ -59,6 +63,9 @@ class BudgetError(ValueError):
 
 BRUTE_N_MAX = 2048
 BRUTE_WORK_MAX = 1 << 21
+# engines whose leaf slabs live in a ChunkedLeafStore: they honor a
+# precision choice and stream chunks under a budget (rules 4 and 5)
+PRECISION_ENGINES = ("chunked", "host", "streaming")
 _F32 = 4
 # share of the free device memory the leaf structure may take when the
 # caller gives no budget: the round state, work plan and merge buffers of a
@@ -147,6 +154,7 @@ class Plan:
     n_shards: int = 1
     n_devices: int = 1
     buffer_size: int = 4096
+    fetch_m: int = 40960     # host loop: queries fetched per iteration
     tile_q: int = 128
     backend: str = "auto"
     slab_bytes: int = 0
@@ -285,7 +293,7 @@ def plan(
     slab = estimate_slab_bytes(n, d, h, precision=prec)
     meta = estimate_meta_bytes(n, d, h, precision=prec)
     base = dict(
-        height=h, n=n, d=d, n_devices=p, buffer_size=b,
+        height=h, n=n, d=d, n_devices=p, buffer_size=b, fetch_m=10 * b,
         tile_q=tile_q, backend=backend, slab_bytes=slab,
         memory_budget=memory_budget,
     )
@@ -354,9 +362,18 @@ def plan(
             )
             engine = "chunked"
 
+    if engine not in PRECISION_ENGINES and prec != "fp32":
+        reasons.append(
+            f"precision request {prec} not applicable: engine {engine} "
+            "stores fp32 reference arrays (no leaf slabs to quantize)"
+        )
+        prec = "fp32"
+        base["slab_bytes"] = slab = estimate_slab_bytes(n, d, h)
+        meta = 0
+
     over_budget = False
     over_detail = ""
-    if engine == "chunked":
+    if engine in PRECISION_ENGINES:
         if n_chunks is None:
             budget = memory_budget
             if budget is None:

@@ -3,8 +3,8 @@
 Counterpart of ``repro.api.spec``: ``IndexSpec`` is what a caller asks for
 (``None`` = let the planner decide), ``QueryResult`` what a query returns,
 ``RadiusResult`` and ``StatResult`` what the dual-tree ops return.  The
-fields of the reference's spec that belong to engines not ported yet
-(calibration, compile cache, mutation, persistence) are not here.
+fields of the reference's spec that belong to parts not ported yet
+(calibration, compile cache, mutation and its WAL's fsync) are not here.
 """
 
 from __future__ import annotations
@@ -38,6 +38,12 @@ class IndexSpec:
     memory_budget: Optional[int] = None   # device bytes for the leaf structure
     precision: Optional[str] = None       # "fp32" | "fp16" | "int8"
     strict_budget: bool = False           # over-budget plan raises BudgetError
+    # -- crash-safe lifecycle (docs/OPERATIONS.md) ---------------------
+    persist_dir: Optional[str] = None     # versioned snapshots + a mutation
+                                          # WAL rooted here: build writes a
+                                          # baseline snapshot, KNNIndex.load
+                                          # resumes it
+    snapshot_keep: int = 2                # complete versions save() keeps
 
     def replace(self, **kw) -> "IndexSpec":
         return dataclasses.replace(self, **kw)

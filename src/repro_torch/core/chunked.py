@@ -26,7 +26,8 @@ copies are plain copies.
 
 ``precision="fp16"`` / ``"int8"`` keep the slabs as codes
 (``core/quantize.py``): float16, or uint8 with a per-leaf, per-feature
-scale and offset.  Chunks of codes stream like fp32 chunks, at 1/2 or 1/4
+scale and offset; a ``QuantizedSlabs`` (a snapshot's, from
+``quantized_state``) is adopted as it is.  Chunks of codes stream like fp32 chunks, at 1/2 or 1/4
 of the bytes.  The dequantize metadata (int8 scale and offset, and the
 bit-packed dead-row mask of every leaf) is uploaded once and stays
 resident (``device_meta``); the leaf scan reads the codes and the metadata
@@ -41,7 +42,12 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.quantize import PRECISIONS, pack_dead, quantize_slabs
+from repro_torch.core.quantize import (
+    PRECISIONS,
+    QuantizedSlabs,
+    pack_dead,
+    quantize_slabs,
+)
 from repro_torch.kernels.ops import PAD_COORD, resolve_device
 
 __all__ = ["ChunkedLeafStore"]
@@ -61,7 +67,7 @@ class ChunkedLeafStore:
 
     def __init__(
         self,
-        leaf_slabs: np.ndarray,
+        leaf_slabs,
         n_chunks: int = 1,
         *,
         device=None,
@@ -69,16 +75,22 @@ class ChunkedLeafStore:
         precision: str = "fp32",
         leaf_sizes: Optional[np.ndarray] = None,
     ):
-        if leaf_slabs.ndim != 3:
+        adopted = isinstance(leaf_slabs, QuantizedSlabs)
+        if adopted:
+            precision = leaf_slabs.precision
+        elif leaf_slabs.ndim != 3:
             raise ValueError(
                 f"leaf_slabs must be [n_leaves, leaf_pad, d], got {leaf_slabs.shape}"
             )
-        if precision not in PRECISIONS:
-            raise ValueError(f"precision={precision!r} not in {PRECISIONS}")
+        if precision not in PRECISIONS or (adopted and precision == "fp32"):
+            raise ValueError(f"precision={precision!r} not in {PRECISIONS}"
+                             + (" (adopted codes are fp16 or int8)" if adopted else ""))
         self.precision = precision
         self.quantized = precision != "fp32"
         if self.quantized:
-            qs = quantize_slabs(leaf_slabs, precision, leaf_sizes)
+            # adopted codes (a snapshot's) are kept as they are: quantizing
+            # the restored points again would re-fit the scales
+            qs = leaf_slabs if adopted else quantize_slabs(leaf_slabs, precision, leaf_sizes)
             host, scale, offset, dead = qs.codes, qs.scale, qs.offset, qs.dead
             self.quant_eps = float(qs.eps)
         else:
@@ -195,11 +207,15 @@ class ChunkedLeafStore:
             "index) is not ported yet: ROADMAP Queue 1 item 14"
         )
 
-    def quantized_state(self):
-        raise NotImplementedError(
-            "ChunkedLeafStore.quantized_state (the snapshot view of the "
-            "store) is not ported yet: ROADMAP Queue 1 item 15"
-        )
+    def quantized_state(self) -> QuantizedSlabs:
+        """Snapshot view of a quantized store: codes, scale, offset and dead
+        mask of the real leaves (the uniform chunk padding is made again
+        when a store adopts it), and eps."""
+        if not self.quantized:
+            raise ValueError("an fp32 store has no codes to snapshot")
+        n = self.n_leaves
+        return QuantizedSlabs(self.precision, self.host[:n].numpy(), self.q_scale[:n],
+                              self.q_offset[:n], self.dead[:n], self.quant_eps)
 
     # -- streaming ----------------------------------------------------------
     def _copy_chunk(self, j: int, slot: _Slot) -> None:

@@ -63,6 +63,7 @@ from repro_torch.kernels import ops as kops
 
 __all__ = [
     "ChunkResidentEngine",
+    "scan_merge",
     "chunk_round_cache_size",
     "compaction_ladder",
 ]
@@ -153,31 +154,14 @@ def _chunk_round(
     m = leaf.shape[0]
     c = dev_slab.shape[0]
     _ROUND_SHAPES.add((m, tq, tuple(dev_slab.shape), k, dev_slab.dtype))
-    # one leaf holds at most L_pad candidates
-    kl = min(k, dev_slab.shape[1])
 
     in_chunk = (leaf >= lo) & (leaf < lo + c)
     local = torch.where(in_chunk, leaf - lo, -1)
     unit_leaf, unit_query, n_units = _build_plan(local, tq, c)
-    # the slab is indexed by the chunk's leaf, the metadata by the global one
-    scale, offset, dead = (None if t is None else t[lo : lo + c] for t in meta)
-    nd, nli = kops.leaf_scan_units(
-        qpad, dev_slab, unit_leaf, unit_query, n_units, k=kl, backend=backend,
-        scale=scale, offset=offset, dead=dead,
-    )
-
-    # merge (rows >= n_units hold unit_query == -1: they land on the dump
-    # row m together with the empty slots, whatever the kernel left there)
-    gl = unit_leaf.long() + lo
-    valid = nli < leaf_size[gl][:, None, None]
-    if dead is not None:
-        # a dead row below the leaf size (a PAD_COORD row baked into the
-        # slab, or a tombstone) can still be selected into a sparse leaf's
-        # tail; the exact re-rank would rescore it at its true coordinates
-        r = nli.clamp(0, dev_slab.shape[1] - 1).long()
-        bits = dead[unit_leaf.long()[:, None, None], r >> 3].long()
-        valid &= ((bits >> (7 - (r & 7))) & 1) == 0
-    _merge(knn_d, knn_i, nd, nli, valid, leaf_start[gl], unit_query, k)
+    # rows >= n_units hold unit_query == -1: they land on the dump row m
+    # together with the empty slots, whatever the kernel left there
+    scan_merge(knn_d, knn_i, qpad, dev_slab, lo, unit_leaf, unit_query, n_units,
+               leaf_start, leaf_size, meta, k=k, backend=backend)
 
     # exit the just-scanned leaves (only this chunk's queries move) and
     # advance them; everyone else is frozen by advance's pause predicate
@@ -193,6 +177,37 @@ def _chunk_round(
     node.copy_(st.node)
     fromc.copy_(st.fromc)
     return new_leaf, n_units
+
+
+def scan_merge(knn_d, knn_i, qpad, dev_slab, lo: int, unit_leaf, unit_query, n_units,
+               leaf_start, leaf_size, meta=(None, None, None), *, k: int,
+               backend: str) -> None:
+    """ProcessAllBuffers on one resident chunk: the leaf scan of a work
+    plan's units (``unit_leaf`` i32[W], leaves of ``dev_slab``, which starts
+    at global leaf ``lo``; ``unit_query`` i32[W, TQ] rows of ``qpad``, -1 =
+    empty; ``n_units`` the device scalar of units to scan), then the merge
+    of their candidates into the running top-k ``knn_d`` / ``knn_i`` [m+1,
+    k], in place (empty slots land on the dump row m).  ``meta`` is a
+    quantized store's (scale, offset, dead) over every leaf."""
+    c = dev_slab.shape[0]
+    # one leaf holds at most L_pad candidates
+    kl = min(k, dev_slab.shape[1])
+    # the slab is indexed by the chunk's leaf, the metadata by the global one
+    scale, offset, dead = (None if t is None else t[lo : lo + c] for t in meta)
+    nd, nli = kops.leaf_scan_units(
+        qpad, dev_slab, unit_leaf, unit_query, n_units, k=kl, backend=backend,
+        scale=scale, offset=offset, dead=dead,
+    )
+    gl = unit_leaf.long() + lo
+    valid = nli < leaf_size[gl][:, None, None]
+    if dead is not None:
+        # a dead row below the leaf size (a PAD_COORD row baked into the
+        # slab, or a tombstone) can still be selected into a sparse leaf's
+        # tail; the exact re-rank would rescore it at its true coordinates
+        r = nli.clamp(0, dev_slab.shape[1] - 1).long()
+        bits = dead[unit_leaf.long()[:, None, None], r >> 3].long()
+        valid &= ((bits >> (7 - (r & 7))) & 1) == 0
+    _merge(knn_d, knn_i, nd, nli, valid, leaf_start[gl], unit_query, k)
 
 
 class _Readback:

@@ -19,14 +19,25 @@ product to a leaf-pair function on the device:
     counterpart of the reference's compile count.
 
 The leaf-pair functions are torch ops (the reference's are jnp, not
-Pallas).  Distances come from the ||a||^2 + ||b||^2 - 2 a.b form in fp32,
-every product and sum an elementwise op of its own in feature order
-(``_pairwise_d2``), so a pair of points gets the same bits in every batch
-shape and in the brute-force oracles below, which share the function.
-``radius`` compares with r^2 on the device and copies back only the hits;
+Pallas).  They compute a leaf pair's distances by the ||a||^2 + ||b||^2 -
+2 a.b form in fp32 (``_pairwise_d2``).  The answer they give is the one of
+the direct fp32 form, sum_j (a_j - b_j)^2 in feature order
+(``_direct_d2``), the form the brute-force oracles below use: a pair whose
+decomposed value lies within the rounding band of both forms (``_band``,
+the slack of ``lazysearch.certify``) of fp32 r^2, of fp32 h^2 or of an
+fp32 bin edge (``_edge_bounds``) is tested again directly, and every
+radius hit's distance is the direct one.  The frontier prunes and counts
+whole node pairs against the same fp32 thresholds, its float64 box
+distances widened by the band of the boxes' largest norms.
+(The reference selects by the decomposed form,
+``repro/core/dualtree.py:162``: a documented divergence.)  Every product
+and sum is an elementwise op of its own in feature order, so a pair of
+points gets the same bits in every batch shape and in the oracles.
+``radius`` compares on the device and copies back only the hits;
 ``pair_count`` evaluates a batch in sub-batches of at most
 ``_PAIR_ELEMS`` distances so the peak stays bounded; ``kde`` sums its
-parts in float64 on the device.
+parts in float64 on the device.  ``SearchStats.retested_pairs`` counts the
+pairs tested again.
 
 Semantics (shared with the brute references):
 
@@ -63,6 +74,7 @@ __all__ = [
     "radius_brute",
     "kde_brute",
     "pair_count_brute",
+    "leaf_norm_max",
     "PAIR_RUNGS",
     "QLEAF",
     "QLEAF_RUNGS",
@@ -176,6 +188,79 @@ def _pairwise_d2(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.clamp(d2, min=0.0)
 
 
+def _direct_d2(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Squared distances sum_j (A_j - B_j)^2 of broadcast rows A [..., d]
+    and B [..., d] (the direct fp32 form), summed in feature order, one
+    elementwise op per step: the same bits for a pair in any shape."""
+    diff = A[..., 0] - B[..., 0]
+    out = diff * diff
+    for j in range(1, A.shape[-1]):
+        diff = A[..., j] - B[..., j]
+        out = out + diff * diff
+    return out
+
+
+def _pairwise_direct_d2(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``_direct_d2`` of every row of A [..., a, d] against every row of
+    B [..., b, d]: [..., a, b]."""
+    return _direct_d2(A[..., :, None, :], B[..., None, :, :])
+
+
+def leaf_norm_max(tree: TopTree) -> np.ndarray:
+    """Largest norm of a real point in each leaf (float64[n_leaves], 0 for
+    an empty leaf): one side of the rounding band of a leaf pair."""
+    norms = np.sqrt(np.sum(tree.points.astype(np.float64) ** 2, axis=1))
+    leaf = np.repeat(np.arange(tree.n_leaves), tree.leaf_sizes())
+    out = np.zeros(tree.n_leaves)
+    np.maximum.at(out, leaf, norms)
+    return out
+
+
+def _band(norm_a: np.ndarray, norm_b: np.ndarray, d: int) -> np.ndarray:
+    """Rounding band of a pair of points of norms up to ``norm_a`` and
+    ``norm_b``, f64: ``lazysearch.certify``'s slack 2 (d + 2) 2^-24
+    (|a| + |b|)^2, which bounds the fp32 rounding of the decomposed form
+    plus that of the direct form, widened by an eighth to cover the
+    rounding of the band test itself.  A pair whose decomposed value, or
+    exact value, lies farther than this from a threshold falls on the same
+    side of it as its direct value."""
+    return 1.125 * 2 * (d + 2) * 2.0 ** -24 * (norm_a + norm_b) ** 2
+
+
+def _box_norm(b: NodeBounds, u: np.ndarray) -> np.ndarray:
+    """Largest norm a point in node box b[u] can have, f64."""
+    far = np.maximum(b.lo[u] ** 2, b.hi[u] ** 2)
+    return np.sqrt(far.sum(axis=1))
+
+
+def _edge_bounds(edges32: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Squared-distance bounds (lower, upper) f64[E+1] of fp32 bin edges:
+    an fp32 value x below lower[i] has fp32 sqrt(x) < edges[i], one at or
+    above upper[i] has sqrt(x) >= edges[i] (> for the last edge, which is
+    closed).  Exact for any faithfully rounded sqrt; an edge at 0 is
+    passed by every x >= 0 (-inf both)."""
+    e = edges32.astype(np.float32)
+    prev = np.nextafter(e, np.float32(-np.inf)).astype(np.float64)
+    lower = np.where(e > 0, prev * prev, -np.inf)
+    upper = np.where(e > 0, e.astype(np.float64) ** 2, -np.inf)
+    nxt = float(np.nextafter(e[-1], np.float32(np.inf)))
+    upper[-1] = nxt * nxt
+    return lower, upper
+
+
+def _hist_bounds(lower: np.ndarray, upper: np.ndarray, s: float) -> np.ndarray:
+    """f32[2 (E+1)] sorted boundaries (lower[i] - s, upper[i] + s), rounded
+    outward to fp32: a value x whose count of boundaries <= x is even, 2c,
+    lies more than ``s`` from every edge's [lower, upper) interval, so any
+    value within ``s`` of x has c edges at or below its root."""
+    lo, hi = lower - s, upper + s
+    lo32, hi32 = lo.astype(np.float32), hi.astype(np.float32)
+    lo32 = np.where(lo32 > lo, np.nextafter(lo32, np.float32(-np.inf)), lo32)
+    hi32 = np.where(hi32 < hi, np.nextafter(hi32, np.float32(np.inf)), hi32)
+    out = np.stack([lo32, hi32], axis=1).ravel()
+    return np.maximum.accumulate(out).astype(np.float32)
+
+
 def _radius_kernel(qslab, rslab, iq, ir):
     """Squared distances of query-leaf x ref-leaf pair batches.
 
@@ -196,48 +281,79 @@ def _kde_gauss_kernel(qslab, rslab, iq, ir, scale: float):
     return torch.exp(-d2 * scale).sum(dim=-1)
 
 
-def _kde_tophat_kernel(qslab, rslab, iq, ir, h2: float):
-    """Per-query-row tophat count of each pair: #{j : d2 <= h^2} (fp32 h^2)."""
+def _kde_tophat_kernel(qslab, rslab, iq, ir, h2: float, band, qn, rn):
+    """Per-query-row tophat count of each pair, #{j : d2 <= h^2} by the
+    direct form (fp32 h^2), f32[P, qlp], and the number of pairs tested
+    again: those of real rows (``qn`` / ``rn`` i64[P] row counts) whose
+    decomposed value lies within ``band`` f32[P] of h^2."""
     _SHAPES.add(("kde_tophat", iq.shape[0], tuple(qslab.shape), tuple(rslab.shape)))
-    d2 = _pairwise_d2(qslab[iq], rslab[ir])
-    return (d2 <= h2).to(torch.float32).sum(dim=-1)
+    a, b = qslab[iq], rslab[ir]
+    d2 = _pairwise_d2(a, b)
+    s = band[:, None, None]
+    inside = d2 + s <= h2
+    rows = torch.arange(a.shape[1], device=a.device)
+    cols = torch.arange(b.shape[1], device=a.device)
+    real = (rows[None, :, None] < qn[:, None, None]) & (cols[None, None, :] < rn[:, None, None])
+    p, i, j = torch.nonzero((d2 - s <= h2) & ~inside & real, as_tuple=True)
+    hit = (_direct_d2(a[p, i], b[p, j]) <= h2).to(torch.float32)
+    count = inside.to(torch.float32).sum(dim=-1)
+    count.index_put_((p, i), hit, accumulate=True)
+    return count, p.shape[0]
 
 
-def _hist_counts(dist: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
-    """np.histogram counts of each leading row of ``dist`` [S, ...] over
-    ``edges`` f32[E+1] (last edge closed; +inf and out-of-range values are
-    dropped): i64[S, E]."""
-    s = dist.shape[0]
-    e = edges.shape[0] - 1
-    flat = dist.reshape(s, -1)
-    r = torch.bucketize(flat, edges, right=True)   # searchsorted side="right"
-    r = torch.where(flat == edges[-1], e, r)
-    r = r + (e + 2) * torch.arange(s, device=dist.device)[:, None]
-    hist = torch.bincount(r.reshape(-1), minlength=s * (e + 2)).reshape(s, e + 2)
+def _bins(dist: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """np.histogram bin + 1 of each distance over ``edges`` f32[E+1]: 0
+    below the first edge, E + 1 above the last (and +inf), the last edge
+    closed; a nondecreasing function of the distance."""
+    r = torch.bucketize(dist, edges, right=True)   # searchsorted side="right"
+    return torch.where(dist == edges[-1], edges.shape[0] - 1, r)
+
+
+def _hist_counts(bins: torch.Tensor, rows: torch.Tensor, n_rows: int, e: int) -> torch.Tensor:
+    """Counts of ``bins`` (from ``_bins``) per row ``rows`` (i64, same
+    shape) in 0..n_rows-1, over the E = ``e`` real bins: i64[n_rows, E]."""
+    flat = (bins + (e + 2) * rows).reshape(-1)
+    hist = torch.bincount(flat, minlength=n_rows * (e + 2)).reshape(n_rows, e + 2)
     return hist[:, 1:e + 1]
 
 
-def _pair_hist_kernel(aslab, bslab, ia, ib, sa, sb, edges):
-    """Distance histogram of leaf x leaf pair batches, np.histogram bins.
+def _pair_hist_kernel(aslab, bslab, ia, ib, sa, sb, edges, bounds):
+    """Distance histogram of leaf x leaf pair batches, np.histogram bins of
+    the direct form's distances.
 
     Both sides gather from chunk slabs; ``sa`` / ``sb`` i64[P] are the real
-    row counts (PAD x PAD rows can cancel to a fake 0, so they are masked
-    to +inf, which the binning drops).  Returns i64[P, E] counts for E =
-    len(edges) - 1 bins.  Evaluated ``_PAIR_ELEMS`` distances at a time."""
+    row counts (PAD x PAD rows can cancel to a fake 0, so they are
+    dropped).  ``bounds`` f32[2 (E+1)] are ``_hist_bounds`` of the edges at
+    the batch's largest band: a pair whose decomposed value counts an even
+    number 2c of them is binned in c; the rest are binned by
+    ``_direct_d2``.  Returns (i64[P, E] counts for E = len(edges) - 1 bins,
+    the number of pairs tested again).  Evaluated ``_PAIR_ELEMS`` distances
+    at a time."""
     p = ia.shape[0]
+    e = edges.shape[0] - 1
     la, lb = aslab.shape[1], bslab.shape[1]
     _SHAPES.add(("pair_hist", p, tuple(aslab.shape), tuple(bslab.shape), edges.shape[0]))
     rows = torch.arange(la, device=aslab.device)
     cols = torch.arange(lb, device=aslab.device)
     step = max(1, _PAIR_ELEMS // (la * lb))
-    out = []
+    out, retested = [], 0
     for s in range(0, p, step):
-        d2 = _pairwise_d2(aslab[ia[s:s + step]], bslab[ib[s:s + step]])
+        a, b = aslab[ia[s:s + step]], bslab[ib[s:s + step]]
+        j = torch.bucketize(_pairwise_d2(a, b), bounds, right=True)
         valid = (rows[None, :, None] < sa[s:s + step, None, None]) & (
             cols[None, None, :] < sb[s:s + step, None, None])
-        dist = torch.where(valid, torch.sqrt(d2), float("inf"))
-        out.append(_hist_counts(dist, edges))
-    return torch.cat(out)
+        near = (j & 1) == 1
+        # invalid and near pairs go above the last bin, which is not counted
+        bins = torch.where(valid & ~near, j >> 1, e + 1)
+        pp = torch.arange(a.shape[0], device=a.device)[:, None, None].expand_as(bins)
+        hist = _hist_counts(bins, pp, a.shape[0], e)
+        q, i, k = torch.nonzero(valid & near, as_tuple=True)
+        if q.numel():
+            again = _bins(torch.sqrt(_direct_d2(a[q, i], b[q, k])), edges)
+            hist += _hist_counts(again, q, a.shape[0], e)
+            retested += q.numel()
+        out.append(hist)
+    return torch.cat(out), retested
 
 
 def dualtree_cache_size() -> int:
@@ -260,6 +376,7 @@ class _TraceStats:
     batches: int = 0
     chunk_visits: int = 0
     points_paired: int = 0
+    retested: int = 0
     shapes: set = dataclasses.field(default_factory=set)
 
     def freeze(self, m: int) -> SearchStats:
@@ -271,6 +388,7 @@ class _TraceStats:
             queries_advanced=m,
             chunk_rounds=self.chunk_visits,
             plan_shapes=len(self.shapes),
+            retested_pairs=self.retested,
         )
 
 
@@ -307,6 +425,7 @@ class DualTree:
         self.bounds = node_bounds(tree)
         self.d = self.store.host.shape[2]
         self._leaf_sizes = tree.leaf_sizes().astype(np.int64)
+        self._leaf_norm = leaf_norm_max(tree)
         # device slab cache for pair_count's (chunk_a, chunk_b) groups:
         # at most two chunk slabs resident, mirroring the store's two slots
         self._slab_cache: Dict[int, torch.Tensor] = {}
@@ -478,10 +597,12 @@ class DualTree:
             ix = self.tree.orig_idx.astype(np.int64)[ix]
             return ip, ix, dd, trace.freeze(m)
         qt, qb, qslab = self._build_qtree(queries)
-        r2 = r * r
+        q_norm = leaf_norm_max(qt)
+        t2 = float(np.float32(r * r))   # the fp32 threshold both forms meet
 
         def prune(u, v, dmin2, dmax2):
-            return dmin2 > r2
+            # no direct value can reach t2 (the band covers its rounding)
+            return dmin2 - _band(_box_norm(qb, u), _box_norm(self.bounds, v), self.d) > t2
 
         ql, rl = self._qr_leaf_pairs(qb, prune, trace)
         q_start = self._dev(qt.leaf_start.astype(np.int64))
@@ -491,15 +612,22 @@ class DualTree:
         q_ids, r_ids, dists = [], [], []
         for buf, qsel, rsel, rung, iq, ir in self._stream_ref(ql, rl, trace):
             real = qsel.size
-            # compared with r^2 on the device; only the hits come back
+            # the pairs the decomposed form, less the band, puts within r
+            # are rescored directly on the device; only the hits come back
             d2 = _radius_kernel(qslab, buf, iq, ir)[:real]
             trace.shapes.add((rung, qslab.shape[0]))
             qs, rs = self._dev(qsel), self._dev(rsel)
+            band = self._dev(_band(q_norm[qsel], self._leaf_norm[rsel], self.d).astype(np.float32))
             rowok = rows[None, :] < q_sizes[qs][:, None]
-            p, qi, rj = torch.nonzero((d2 <= r2) & rowok[:, :, None], as_tuple=True)
+            p, qi, rj = torch.nonzero(
+                (d2 - band[:, None, None] <= t2) & rowok[:, :, None], as_tuple=True)
+            trace.retested += int((d2[p, qi, rj] + band[p] > t2).sum())
+            dd2 = _direct_d2(qslab[iq[p], qi], buf[ir[p], rj])
+            hit = dd2 <= t2
+            p, qi, rj = p[hit], qi[hit], rj[hit]
             q_ids.append(q_start[qs[p]] + qi)
             r_ids.append(r_start[rs[p]] + rj)
-            dists.append(torch.sqrt(d2[p, qi, rj]))
+            dists.append(torch.sqrt(dd2[hit]))
         if q_ids:
             qrow = self._dev(qt.orig_idx.astype(np.int64))[torch.cat(q_ids)]
             ridx = self._dev(self.tree.orig_idx.astype(np.int64))[torch.cat(r_ids)]
@@ -572,22 +700,37 @@ class DualTree:
                     np.add.at(err, u[ok], c * 0.5 * (kmax[ok] - kmin[ok]) / n)
                 return ok
         else:
+            t2 = float(np.float32(h2))   # the direct form's threshold
+
             def prune(u, v, dmin2, dmax2):
-                inside = dmax2 <= h2
+                band = _band(_box_norm(qb, u), _box_norm(rb, v), self.d)
+                inside = dmax2 + band <= t2
                 if inside.any():
                     np.add.at(contrib, u[inside], rb.count[v[inside]].astype(np.float64) / n)
-                return inside | (dmin2 > h2)
+                return inside | (dmin2 - band > t2)
 
         ql, rl = self._qr_leaf_pairs(qb, prune, trace)
         # the leaf-pair parts, summed per query row in float64 on the device
         density = torch.zeros(qt.n, dtype=torch.float64, device=self.device)
-        kern = _kde_gauss_kernel if kernel == "gaussian" else _kde_tophat_kernel
-        karg = float(np.float32(1.0 / (2.0 * h2))) if kernel == "gaussian" else float(np.float32(h2))
         q_start = self._dev(qt.leaf_start.astype(np.int64))
         q_sizes = self._dev(qt.leaf_sizes().astype(np.int64))
+        q_norm = leaf_norm_max(qt)
+        q_sizes_h = qt.leaf_sizes().astype(np.int64)
         rows = torch.arange(qslab.shape[1], device=self.device)
         for buf, qsel, rsel, rung, iq, ir in self._stream_ref(ql, rl, trace):
-            part = kern(qslab, buf, iq, ir, karg)[: qsel.size].to(torch.float64) / n
+            if kernel == "gaussian":
+                part = _kde_gauss_kernel(qslab, buf, iq, ir, float(np.float32(1.0 / (2.0 * h2))))
+            else:
+                # tophat: the direct form decides membership (as radius)
+                pad = iq.shape[0] - qsel.size
+                band = np.pad(_band(q_norm[qsel], self._leaf_norm[rsel], self.d), (0, pad))
+                band = band.astype(np.float32)
+                qn = np.pad(q_sizes_h[qsel], (0, pad))
+                rn = np.pad(self._leaf_sizes[rsel], (0, pad))
+                part, again = _kde_tophat_kernel(qslab, buf, iq, ir, float(np.float32(h2)),
+                                                 self._dev(band), self._dev(qn), self._dev(rn))
+                trace.retested += again
+            part = part[: qsel.size].to(torch.float64) / n
             trace.shapes.add((rung, qslab.shape[0]))
             qs = self._dev(qsel)
             ok = rows[None, :] < q_sizes[qs][:, None]
@@ -625,23 +768,26 @@ class DualTree:
         E = edges.size - 1
         trace = _TraceStats()
         hist = np.zeros(E, np.int64)
-        e2 = edges * edges
+        edges32 = edges.astype(np.float32)
+        lower, upper = _edge_bounds(edges32)
         rb = self.bounds
 
         def prune(a, b, w, dmin2, dmax2):
-            below = dmax2 < e2[0]
-            above = dmin2 > e2[-1]
-            bl = np.searchsorted(e2, dmin2, side="right")
-            bh = np.searchsorted(e2, dmax2, side="right")
-            onebin = (bl == bh) & (bl >= 1) & (bl <= E)
+            # every direct value of the pair lies in [dmin2 - band, dmax2 +
+            # band]: one count of edges passed for both ends = one bin
+            band = _band(_box_norm(rb, a), _box_norm(rb, b), self.d)
+            bl = np.searchsorted(upper, dmin2 - band, side="right")
+            bh = np.searchsorted(lower, dmax2 + band, side="right")
+            same = bl == bh
+            onebin = same & (bl >= 1) & (bl <= E)
             if onebin.any():
                 width = w[onebin] * rb.count[a[onebin]] * rb.count[b[onebin]]
                 np.add.at(hist, bl[onebin] - 1, width)
-            return below | above | onebin
+            return same
 
         la, lb, lw = self._self_leaf_pairs(prune, trace)
-        edges_dev = self._dev(edges.astype(np.float32))
-        sizes = self._leaf_sizes
+        edges_dev = self._dev(edges32)
+        sizes, norm = self._leaf_sizes, self._leaf_norm
         # group leaf pairs by their (chunk_a, chunk_b) so at most two chunk
         # slabs are device-resident at a time (the store's own slot count)
         ca = np.asarray(self.store.chunk_of_leaf(la))
@@ -662,7 +808,10 @@ class DualTree:
                 lo, hi = glo + lo, glo + hi
                 ia, ib = self._pad_pairs((la - lo_a, lb - lo_b), lo, hi, rung)
                 sa, sb = self._pad_pairs((sizes[la], sizes[lb]), lo, hi, rung)
-                h = _pair_hist_kernel(buf_a, buf_b, ia, ib, sa, sb, edges_dev)
+                s = float(_band(norm[la[lo:hi]], norm[lb[lo:hi]], self.d).max())
+                h, again = _pair_hist_kernel(buf_a, buf_b, ia, ib, sa, sb, edges_dev,
+                                             self._dev(_hist_bounds(lower, upper, s)))
+                trace.retested += again
                 trace.shapes.add((rung, "pc"))
                 trace.batches += 1
                 real = hi - lo
@@ -736,16 +885,19 @@ class DualTree:
         qh = max(1, math.ceil(math.log2(max(2, -(-mm // QLEAF)))))
         qn = _rung_up(1 << qh, QLEAF_RUNGS)
         qbuf = torch.full((qn, QLEAF, self.d), PAD_COORD, device=self.device)
-        edges = torch.linspace(0.0, 1.0, int(n_edges), device=self.device)
+        edges = np.linspace(0.0, 1.0, int(n_edges)).astype(np.float32)
+        bounds = self._dev(_hist_bounds(*_edge_bounds(edges), 0.0))
+        edges = self._dev(edges)
         for rung in PAIR_RUNGS:
             iq = torch.zeros(rung, dtype=torch.int64, device=self.device)
             if "radius" in ops:
                 _radius_kernel(qbuf, buf, iq, iq)
+            band = torch.zeros(rung, device=self.device)
             if "kde" in ops:
                 _kde_gauss_kernel(qbuf, buf, iq, iq, 1.0)
-                _kde_tophat_kernel(qbuf, buf, iq, iq, 1.0)
+                _kde_tophat_kernel(qbuf, buf, iq, iq, 1.0, band, iq, iq)
             if "pair_count" in ops:
-                _pair_hist_kernel(buf, buf, iq, iq, iq, iq, edges)
+                _pair_hist_kernel(buf, buf, iq, iq, iq, iq, edges, bounds)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -772,16 +924,17 @@ def _oracle_inputs(queries, points, device, dtype=torch.float32):
 def radius_brute(
     queries: np.ndarray, points, r: float, *, tile_q: int = 512, device=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Exact all-pairs radius search (fp32 distances by ``_pairwise_d2``,
-    CSR like ``DualTree.radius``; indices into ``points``' own ordering).
+    """Exact all-pairs radius search: the pairs whose direct fp32 squared
+    distance (``_direct_d2``) is at most fp32(r^2), CSR like
+    ``DualTree.radius`` (indices into ``points``' own ordering).
     ``points`` numpy or a tensor; ``device`` defaults to the tensor's, else
     cuda:0."""
     q_all, pts = _oracle_inputs(queries, points, device)
     m = q_all.shape[0]
-    r2 = float(r) ** 2
+    r2 = float(np.float32(float(r) ** 2))
     rows, cols, dists = [], [], []
     for lo in range(0, m, tile_q):
-        d2 = _pairwise_d2(q_all[lo:lo + tile_q], pts)
+        d2 = _pairwise_direct_d2(q_all[lo:lo + tile_q], pts)
         qi, rj = torch.nonzero(d2 <= r2, as_tuple=True)
         rows.append(qi + lo)
         cols.append(rj)
@@ -809,19 +962,24 @@ def kde_brute(
     tile_q: int = 512,
     device=None,
 ) -> np.ndarray:
-    """Exact mean kernel value per query (float64 distances and sums)."""
+    """Exact mean kernel value per query: gaussian from float64 distances,
+    tophat counting the points whose direct fp32 squared distance
+    (``_direct_d2``) is at most fp32(h^2); sums in float64."""
     if kernel not in _KERNELS:
         raise ValueError(f"kernel={kernel!r} not in {_KERNELS}")
-    q_all, pts = _oracle_inputs(queries, points, device, torch.float64)
+    gauss = kernel == "gaussian"
+    q_all, pts = _oracle_inputs(queries, points, device,
+                                torch.float64 if gauss else torch.float32)
     h2 = float(bandwidth) ** 2
     n = pts.shape[0]
     out = []
     for lo in range(0, q_all.shape[0], tile_q):
-        d2 = _pairwise_d2(q_all[lo:lo + tile_q], pts)
-        if kernel == "gaussian":
+        if gauss:
+            d2 = _pairwise_d2(q_all[lo:lo + tile_q], pts)
             out.append(torch.exp(-d2 / (2.0 * h2)).sum(1) / n)
         else:
-            out.append((d2 <= h2).sum(1).to(torch.float64) / n)
+            d2 = _pairwise_direct_d2(q_all[lo:lo + tile_q], pts)
+            out.append((d2 <= float(np.float32(h2))).sum(1).to(torch.float64) / n)
     if not out:
         return np.zeros(0, np.float32)
     return torch.cat(out).cpu().numpy().astype(np.float32)
@@ -831,8 +989,9 @@ def pair_count_brute(
     points, edges: np.ndarray, *, tile_q: int = 1024, device=None,
 ) -> np.ndarray:
     """Exact all-ordered-pairs (i != j) distance histogram: query tiles of
-    the points against all points, distances by ``_pairwise_d2``, then
-    the n self-pairs removed from the bin containing 0."""
+    the points against all points, distances the roots of the direct fp32
+    form (``_direct_d2``), then the n self-pairs removed from the bin
+    containing 0."""
     pts, _ = _oracle_inputs(points, points, device)
     n = pts.shape[0]
     edges = np.asarray(edges, np.float64).ravel()
@@ -840,8 +999,8 @@ def pair_count_brute(
     edges_dev = torch.as_tensor(edges.astype(np.float32), device=pts.device)
     hist = torch.zeros(E, dtype=torch.int64, device=pts.device)
     for lo in range(0, n, tile_q):
-        dist = torch.sqrt(_pairwise_d2(pts[lo:lo + tile_q], pts))
-        hist += _hist_counts(dist[None], edges_dev)[0]
+        bins = _bins(torch.sqrt(_pairwise_direct_d2(pts[lo:lo + tile_q], pts)), edges_dev)
+        hist += _hist_counts(bins, torch.zeros_like(bins), 1, E)[0]
     hist = hist.cpu().numpy()
     zbin = np.searchsorted(edges, 0.0, side="right")
     if zbin == 0 and edges[0] == 0.0:

@@ -1,16 +1,22 @@
 """LazySearch: the buffer k-d tree query engine (paper Algorithm 1 + §3.2).
 
-Counterpart of ``repro.core.lazysearch`` on the ``chunked`` engine: the
-chunk-resident bulk-synchronous round loop
-(``chunked_jit.ChunkResidentEngine``) over a double-buffered
-``ChunkedLeafStore``, followed by an exact fp32 re-rank of the selected
-candidates on the host (``finalize_candidates``).  A store of fp16/int8
+Counterpart of ``repro.core.lazysearch``, with two tiers over one
+double-buffered ``ChunkedLeafStore``:
+
+  * ``engine="chunked"`` (default): the chunk-resident bulk-synchronous
+    round loop (``chunked_jit.ChunkResidentEngine``);
+  * ``engine="host"``: the paper's own host loop (``HostLoop``): query
+    queues, per-leaf buffers and ProcessAllBuffers work plans on the host
+    (``core/buffers.py``), around the device's traversal, leaf scan and
+    merge.
+
+Both end in an exact fp32 re-rank of the selected candidates on the host
+(``finalize_candidates``).  A store of fp16/int8
 codes runs the engine at ``k + QUANT_OVERFETCH`` and an fp32 store at
 ``k + FP32_OVERFETCH`` (``_engine_k``); the re-rank from the fp32
 ``tree.points`` slices back to k, and rows whose answer the quantization
 band or the decomposed distance's rounding leaves unproven (``certify``)
-are searched again (``BufferKDTree.search``).  The paper-faithful host loop
-(``engine="host"``) is not ported yet (ROADMAP Queue 1 item 17).
+are searched again (``BufferKDTree.search``), on either tier.
 
 Defaults follow the paper's footnote 8: for tree height h, buffer capacity
 B = 2^(24-h) (capped), the input of the B/2 chunk-visit rule.
@@ -25,13 +31,20 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import traversal
 from repro_torch.core.brute import knn_brute
+from repro_torch.core.buffers import LeafBuffers, QueryQueues, build_work_plan
 from repro_torch.core.chunked import ChunkedLeafStore
 from repro_torch.core.chunked_jit import (
     DEFAULT_STARVATION_DEADLINE,
     ChunkResidentEngine,
+    scan_merge,
 )
-from repro_torch.core.quantize import QUANT_OVERFETCH, QUANT_REFINE_OVERFETCH
+from repro_torch.core.quantize import (
+    QUANT_OVERFETCH,
+    QUANT_REFINE_OVERFETCH,
+    QuantizedSlabs,
+)
 from repro_torch.core.toptree import (
     TopTree,
     build_top_tree,
@@ -42,8 +55,11 @@ from repro_torch.kernels import ops as kops
 
 __all__ = [
     "BufferKDTree",
+    "HostLoop",
+    "PLAN_LADDER",
     "SearchStats",
     "finalize_candidates",
+    "orig_ids",
     "certify",
     "FP32_OVERFETCH",
 ]
@@ -77,10 +93,16 @@ def finalize_candidates(
     order = np.argsort(d2, axis=1, kind="stable")
     d2 = np.take_along_axis(d2, order, axis=1)
     gi = np.take_along_axis(gi, order, axis=1)
-    dists = np.sqrt(np.maximum(d2, 0.0))
-    idx_out = tree.orig_idx[np.clip(gi, 0, None)].astype(np.int64)
-    idx_out[gi < 0] = -1
-    return dists, idx_out
+    return np.sqrt(np.maximum(d2, 0.0)), orig_ids(tree, gi)
+
+
+def orig_ids(tree: TopTree, ri: np.ndarray) -> np.ndarray:
+    """``knn_brute``'s row ids over ``tree.points`` as the caller's original
+    ids (i64); -1 ("no finite neighbour": a NaN or overflowing query) stays
+    -1, as in ``finalize_candidates``."""
+    idx = tree.orig_idx[np.clip(ri, 0, None)].astype(np.int64)
+    idx[ri < 0] = -1
+    return idx
 
 
 def certify(queries, d2, dists, k: int, k_eff: int, *, eps: float,
@@ -125,7 +147,9 @@ class SearchStats:
                              # the round loop finished (0 on batch queries)
     refined_rows: int = 0    # rows run again at the wider overfetch
     exact_rows: int = 0      # rows answered by fp32 brute force
-    plan_shapes: int = 0     # dual-tree ops: distinct leaf-pair batch shapes
+    plan_shapes: int = 0     # distinct batch shapes: dual-tree leaf-pair
+                             # batches; host loop: padded plan widths
+    retested_pairs: int = 0  # dual-tree ops: pairs tested again directly
 
     @classmethod
     def from_info(cls, info, leaf_pad: int) -> "SearchStats":
@@ -133,8 +157,8 @@ class SearchStats:
         runs of one search)."""
         get = info.get
         return cls(
-            iterations=get("rounds", 0),
-            flushes=get("rounds", 0),
+            iterations=get("iterations", get("rounds", 0)),
+            flushes=get("flushes", get("rounds", 0)),
             units_scanned=get("units", 0),
             points_scanned=get("units", 0) * leaf_pad,
             queries_advanced=get("queries_advanced", 0),
@@ -149,17 +173,159 @@ class SearchStats:
             early_retired=get("early_retired", 0),
             refined_rows=get("refined_rows", 0),
             exact_rows=get("exact_rows", 0),
+            plan_shapes=get("plan_shapes", 0),
         )
 
 
+# The reference host loop pads every flush's plan width up to one of these
+# rungs, which bounds its XLA compiles.  A CUDA launch takes any number of
+# units, so the port scans the plan as it is and keeps the rungs only for the
+# ``plan_shapes`` statistic.
+PLAN_LADDER = (16, 64, 256, 1024, 4096, 16384, 65536)
+
+
+def _plan_pad(w: int) -> int:
+    """Smallest ladder rung >= w (quadrupling beyond the table)."""
+    for rung in PLAN_LADDER:
+        if w <= rung:
+            return rung
+    rung = PLAN_LADDER[-1]
+    while rung < w:
+        rung *= 4
+    return rung
+
+
+class HostLoop:
+    """The paper's Algorithm 1 as a host loop (the reference's
+    ``engine="host"``, ``repro/core/lazysearch.py:525-612``).
+
+    Per iteration, FindLeafBatch: fetch up to ``fetch_m`` queries from the
+    host queues (reinsert first), advance them on the device
+    (``traversal.advance``, radius sqrt(k-th distance) + the store's
+    ``quant_eps``) and read back their leaf ids, the one readback of an
+    iteration: that is the paper's host queue.  Queries that reached a
+    leaf go into its buffer.  When a buffer holds B/2 queries (or the
+    queues are empty), ProcessAllBuffers: the buffers become a work plan
+    (``build_work_plan``), the chunks it touches are streamed
+    (``store.stream``), each chunk's units take one leaf-scan launch on the
+    resident chunk slot (the kernel reads the codes and the dead mask of a
+    quantized store itself) and the merge (``chunked_jit.scan_merge``),
+    and the scanned queries exit their leaf and go back to the reinsert
+    queue.  The traversal state and the running top-k stay on the device.
+    ``run`` has ``ChunkResidentEngine.run``'s interface."""
+
+    def __init__(self, store: ChunkedLeafStore, split_dim, split_val, leaf_start,
+                 leaf_size, first_leaf_heap: int, *, backend: str = "auto",
+                 fetch_m: int):
+        self.store = store
+        self._split_dim = split_dim.long()
+        self._split_val = split_val
+        self._leaf_start = leaf_start
+        self._leaf_size = leaf_size
+        self.first_leaf_heap = int(first_leaf_heap)
+        self.backend = kops.resolve_backend(backend, store.device)
+        self.fetch_m = int(fetch_m)
+        self._meta = store.device_meta() if store.quantized else (None, None, None)
+        self._qeps = float(store.quant_eps)
+
+    def warm(self, m: int, k: int, tq: int) -> int:
+        """Nothing to warm: the loop's shapes follow the flushes."""
+        return 0
+
+    def run(self, q: torch.Tensor, k: int, tq: int, buffer_size: int, on_retire=None):
+        """Returns (sq-dists f32[m, k], reordered-global idx i32[m, k], info
+        counters); distances are pre-rescoring.  ``on_retire``, when given,
+        receives every row once, at the end."""
+        store = self.store
+        dev = store.device
+        m = q.shape[0]
+        q = q.to(dev)
+        first_leaf = self.first_leaf_heap
+        knn_d = torch.full((m + 1, k), kops.INVALID_DIST, device=dev)
+        knn_i = torch.full((m + 1, k), -1, dtype=torch.int32, device=dev)
+        st = traversal.init_state(m, dev)
+        node, fromc = st.node, st.fromc
+        queues = QueryQueues(m)
+        buffers = LeafBuffers(store.n_leaves, buffer_size)
+        fetch_m = max(tq, min(self.fetch_m, m))
+        info = {"iterations": 0, "flushes": 0, "chunk_rounds": 0, "units": 0,
+                "queries_advanced": 0}
+        widths = set()
+        copies_before = store.copies
+
+        def up(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        while True:
+            progressed = False
+            if not queues.empty:
+                idx = queues.fetch(fetch_m)
+                rows = up(idx.astype(np.int64))
+                radius = torch.sqrt(knn_d[rows, k - 1]) + self._qeps
+                leaf, adv = traversal.advance(
+                    traversal.TraversalState(node[rows], fromc[rows]), q[rows], radius,
+                    self._split_dim, self._split_val, first_leaf_heap=first_leaf,
+                )
+                node[rows], fromc[rows] = adv.node, adv.fromc
+                leaf = leaf.cpu().numpy()
+                live = leaf >= 0
+                buffers.insert(leaf[live], idx[live])
+                info["iterations"] += 1
+                info["queries_advanced"] += int(idx.size)
+                progressed = True
+
+            if buffers.should_flush(force=queues.empty):
+                bl, bq = buffers.drain()
+                plan = build_work_plan(bl, bq, tq)
+                chunk_of_unit = store.chunk_of_leaf(plan.unit_leaf)
+                for cid, slab, lo in store.stream(sorted(set(chunk_of_unit.tolist()))):
+                    sel = chunk_of_unit == cid
+                    w = int(sel.sum())
+                    scan_merge(
+                        knn_d, knn_i, q, slab, lo, up(plan.unit_leaf[sel] - np.int32(lo)),
+                        up(plan.unit_query[sel]), torch.tensor(w, dtype=torch.int32, device=dev),
+                        self._leaf_start, self._leaf_size, self._meta, k=k,
+                        backend=self.backend,
+                    )
+                    widths.add((_plan_pad(w), tq))
+                    info["chunk_rounds"] += 1
+                    info["units"] += w
+                # the scanned queries resume by exiting their leaf
+                done = np.unique(bq)
+                rows = up(done.astype(np.int64))
+                ex = traversal.exit_leaf(
+                    traversal.TraversalState(node[rows], fromc[rows]), first_leaf)
+                node[rows], fromc[rows] = ex.node, ex.fromc
+                queues.push_reinsert(done)
+                info["flushes"] += 1
+                progressed = True
+
+            if queues.empty and buffers.total == 0:
+                break
+            if not progressed:  # pragma: no cover - safety valve
+                raise RuntimeError("LazySearch made no progress (engine bug)")
+
+        d2 = knn_d[:m].cpu().numpy()
+        gi = knn_i[:m].cpu().numpy()
+        if on_retire is not None:
+            on_retire(np.arange(m), d2, gi)
+        info["plan_shapes"] = len(widths)
+        info["chunk_copies"] = store.copies - copies_before
+        return d2, gi, info
+
+
 class BufferKDTree:
-    """Buffer k-d tree: build + LazySearch queries on the chunked engine.
+    """Buffer k-d tree: build + LazySearch queries on the ``chunked`` or
+    the ``host`` tier.
 
     Example:
         index = BufferKDTree(points, height=9, n_chunks=3,
                              device=torch.device("cuda", 0))
         dists, idx = index.query(queries, k=10)
         index.stats          # immutable stats of the LAST query
+
+    ``store_state`` (a snapshot's ``QuantizedSlabs``) is adopted as the
+    store's codes instead of quantizing the points again.
     """
 
     def __init__(
@@ -169,6 +335,7 @@ class BufferKDTree:
         height: Optional[int] = None,
         n_chunks: int = 1,
         buffer_size: Optional[int] = None,
+        fetch_m: Optional[int] = None,
         backend: str = "auto",
         tile_q: int = 128,
         device=None,
@@ -176,14 +343,10 @@ class BufferKDTree:
         starvation_deadline: int = DEFAULT_STARVATION_DEADLINE,
         tree: Optional[TopTree] = None,
         precision: str = "fp32",
+        store_state: Optional[QuantizedSlabs] = None,
     ):
-        if engine != "chunked":
-            if engine == "host":
-                raise NotImplementedError(
-                    "engine='host' (the paper-faithful host loop) is not "
-                    "ported yet: ROADMAP Queue 1 item 17"
-                )
-            raise ValueError(f"engine={engine!r} not in ('chunked',)")
+        if engine not in ("chunked", "host"):
+            raise ValueError(f"engine={engine!r} not in ('chunked', 'host')")
         self.engine = engine
         self.device = kops.resolve_device(device)
         points = np.asarray(points, dtype=np.float32)
@@ -205,33 +368,46 @@ class BufferKDTree:
         # slabs keep the points' own width d: the kernel pads each row with
         # zeros in registers and shared memory, so the device holds no pad
         # columns
+        if store_state is not None:
+            # a snapshot's codes, at the points' width d (a snapshot written
+            # by the reference carries codes padded to a multiple of 8)
+            store_state = dataclasses.replace(
+                store_state, codes=np.ascontiguousarray(store_state.codes[..., :d]),
+                scale=np.ascontiguousarray(store_state.scale[:, :d]),
+                offset=np.ascontiguousarray(store_state.offset[:, :d]))
         self.store = ChunkedLeafStore(
-            self.tree.points_padded, n_chunks=n_chunks, device=self.device,
-            uniform=True, precision=precision,
-            leaf_sizes=self.tree.leaf_sizes(),
+            self.tree.points_padded if store_state is None else store_state,
+            n_chunks=n_chunks, device=self.device, uniform=True,
+            precision=precision, leaf_sizes=self.tree.leaf_sizes(),
         )
         self.precision = self.store.precision
         self.buffer_size = int(
             buffer_size if buffer_size is not None else default_buffer_size(h)
         )
+        self.fetch_m = int(fetch_m) if fetch_m is not None else 10 * self.buffer_size
         self._last_stats = SearchStats()
 
         resolved = kops.resolve_backend(backend, self.device)
-        self.engine_tile_q = kops.engine_tile_q(self.tile_q, resolved)
+        # the host loop scans at the tile asked for (as the reference's)
+        self.engine_tile_q = (self.tile_q if engine == "host"
+                              else kops.engine_tile_q(self.tile_q, resolved))
 
         def dev(a: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-        self._engine = ChunkResidentEngine(
+        tree_args = (
             self.store,
             dev(self.tree.split_dim),
             dev(self.tree.split_val),
             dev(self.tree.leaf_start),
             dev(self.tree.leaf_sizes().astype(np.int32)),
             self.tree.first_leaf_heap,
-            backend=resolved,
-            starvation_deadline=starvation_deadline,
         )
+        if engine == "host":
+            self._engine = HostLoop(*tree_args, backend=resolved, fetch_m=self.fetch_m)
+        else:
+            self._engine = ChunkResidentEngine(
+                *tree_args, backend=resolved, starvation_deadline=starvation_deadline)
 
     @property
     def n(self) -> int:
@@ -257,7 +433,8 @@ class BufferKDTree:
 
     def warm(self, m: int, k: int = 10) -> None:
         """Run the chunk round once at the full shape of a batch of ``m``
-        and at every compaction-ladder rung (builds the kernel)."""
+        and at every compaction-ladder rung (builds the kernel); nothing
+        for the host tier."""
         self._engine.warm(m, self._engine_k(k), self.engine_tile_q)
 
     def dualtree(self):
@@ -299,7 +476,7 @@ class BufferKDTree:
         """fp32 brute force of a few rows over the host points, one tile of
         points on the device at a time (the last resort of ``search``)."""
         dists, ri = knn_brute(queries, self.tree.points, k, device=self.device)
-        return dists, self.tree.orig_idx[ri].astype(np.int64)
+        return dists, orig_ids(self.tree, ri)
 
     def search(self, queries: np.ndarray, k: int, emit=None):
         """Exact top-k of every row: ``(dists f32[m, k], idx i64[m, k],

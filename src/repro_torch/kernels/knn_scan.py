@@ -16,7 +16,8 @@ Two call forms, one kernel:
   -> f32[W, TQ, k], i32[W, TQ, k]), the same kernel with identity indices.
 
 Both launch the kernel or raise: they take CUDA tensors only, any
-1 <= k <= L_pad, any d >= 1 and TQ <= 128.  The slab may hold fp32 rows or
+1 <= k <= L_pad, any d >= 1 and any TQ (a tile wider than 128 query slots
+is scanned as blocks of at most 128, one launch each).  The slab may hold fp32 rows or
 the budgeted store's codes (``core/chunked.py``): float16, or uint8 with a
 per-leaf scale and offset, each with the bit-packed dead-row mask.  The
 kernel reads the codes and dequantizes them as it stages a tile; the plain
@@ -135,8 +136,9 @@ def choose_variant(d: int, k: int, tq: int, l_pad: int, code: str = "f32") -> Va
     if d < 1:
         raise ValueError(f"d={d}: rows need at least one feature")
     if not 1 <= tq <= MAX_TQ:
-        raise ValueError(f"TQ={tq}: the CUDA leaf scan takes 1 <= TQ <= {MAX_TQ} "
-                         "(one block per query tile)")
+        raise ValueError(f"TQ={tq}: one launch of the CUDA leaf scan takes 1 <= TQ <= "
+                         f"{MAX_TQ} (one block per query tile; leaf_scan_units scans a "
+                         "wider tile in blocks)")
     if d <= NARROW_WIDTHS[-1]:
         width = d + d % 2
         kmax = next((km for km in REG_KMAX if km >= k), 0)
@@ -345,7 +347,8 @@ def leaf_scan_units(
     i32[W, TQ] (row of ``qpad``, -1 = empty slot); n_units i32 scalar.
     Returns (f32[W, TQ, k], i32[W, TQ, k]) for plan rows < n_units; rows
     beyond are left unwritten by the kernel.  ``choose_variant`` picks the
-    launch.  ``launches`` counts every launch, ``launches_by_code`` those
+    launch; a tile wider than ``MAX_TQ`` query slots is scanned as blocks
+    of at most ``MAX_TQ`` slots, one launch each.  ``launches`` counts every launch, ``launches_by_code`` those
     of each code type, ``launches_by_instance`` those of each (code type,
     k), keyed ``"f32_k12"``.
     """
@@ -357,8 +360,17 @@ def leaf_scan_units(
     _check_cuda_args(qpad, slab, unit_leaf, unit_query, n_units, scale, offset, dead)
     code = _check_meta(slab, scale, offset, dead)
     c, l_pad, d = slab.shape
-    v = choose_variant(d, k, unit_query.shape[1], l_pad, code)
-    return _launch(v, qpad, slab, unit_leaf, unit_query, n_units, k, scale, offset, dead)
+    tq = unit_query.shape[1]
+    if tq <= MAX_TQ:
+        v = choose_variant(d, k, tq, l_pad, code)
+        return _launch(v, qpad, slab, unit_leaf, unit_query, n_units, k, scale, offset,
+                       dead)
+    # a wider tile: one launch per block of at most MAX_TQ query slots; every
+    # slot's list is its own, so the blocks' rows are put side by side
+    parts = [leaf_scan_units(qpad, slab, unit_leaf, unit_query[:, s : s + MAX_TQ].contiguous(),
+                             n_units, k=k, scale=scale, offset=offset, dead=dead)
+             for s in range(0, tq, MAX_TQ)]
+    return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
 
 
 def _launch(v: Variant, qpad, slab, unit_leaf, unit_query, n_units, k, scale, offset,

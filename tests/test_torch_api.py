@@ -187,8 +187,9 @@ def test_planner_errors_and_limits():
         plan(50_000, 8, devices=CPU, engine="forest")
     with pytest.raises(KeyError, match="item 14"):
         plan(50_000, 8, devices=CPU, mutable=True)
-    assert sorted(available_engines()) == ["brute", "chunked", "jit", "streaming"]
-    assert sorted(available_engines(op="kde")) == ["brute", "chunked", "streaming"]
+    assert sorted(available_engines()) == ["brute", "chunked", "host", "jit", "kdtree",
+                                           "streaming"]
+    assert sorted(available_engines(op="kde")) == ["brute", "chunked", "host", "streaming"]
     assert get_engine("chunked").caps.ops == frozenset(DUAL_OPS + ("knn",))
     assert get_engine("jit").caps.ops == frozenset({"knn"})
 
@@ -233,8 +234,13 @@ def test_facade_contract():
     np.testing.assert_allclose(d8, bd, rtol=1e-5, atol=1e-6)
     assert q8.plan.precision == "int8" and "precision=int8" in q8.describe()
     assert q8.resident_bytes() < index.resident_bytes()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        BufferKDTree(pts, height=4, engine="host", device=torch.device("cpu"))
+    host = BufferKDTree(pts, height=4, engine="host", device=torch.device("cpu"))
+    hd, hi = host.query(q, 5)
+    np.testing.assert_allclose(hd, bd, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(hi, bi)
+    assert host.stats.flushes > 0 and host.stats.iterations > 0
+    with pytest.raises(ValueError, match="engine="):
+        BufferKDTree(pts, height=4, engine="warp", device=torch.device("cpu"))
 
 
 # -- multi-op front door (tests/test_api.py:784-916) ----------------------
@@ -317,11 +323,11 @@ def test_op_caps_contract():
         assert caps.ops <= KNOWN_OPS and "knn" in caps.ops, name
         assert caps.ops == ref[name].ops, name
     for op in DUAL_OPS:
-        assert sorted(available_engines(op=op)) == ["brute", "chunked", "streaming"]
+        assert sorted(available_engines(op=op)) == ["brute", "chunked", "host", "streaming"]
     assert set(available_engines(op="knn")) == set(available_engines())
     with pytest.raises(ValueError, match="unknown op"):
         available_engines(op="warp")
-    assert NON_DECLARING == ["jit"]
+    assert NON_DECLARING == ["jit", "kdtree"]
     pts, q = _lattice_data(700, 16, 4, seed=22)
     idx = KNNIndex.build(pts, IndexSpec(engine="jit", height=2, devices=CPU))
     with pytest.raises(OpUnsupported, match="radius"):
@@ -385,16 +391,34 @@ def _run(code: str, **env):
 
 
 def test_port_imports_neither_jax_nor_repro():
+    """Every module of ``repro_torch`` imported (``pkgutil.walk_packages``)
+    brings in neither jax nor ``repro``; ``chip_smoke.py`` names neither in
+    any import."""
+    import ast
+
     out = _run("""
-        import sys
+        import importlib, pkgutil, sys
         import repro_torch.api, repro_torch.core, repro_torch.kernels.ops
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "jaxlib"))
                or m == "repro" or m.startswith("repro.")]
+        print("MODULES", len(names), "persist" in " ".join(names))
         print("BAD", bad)
     """)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert "True" in out.stdout, out.stdout
+    tree = ast.parse(open(os.path.join(SRC, "..", "chip_smoke.py")).read())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else [
+                node.module or ""]
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), name
 
 
 def test_build_without_card_and_without_cpu_device_raises():

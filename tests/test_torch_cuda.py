@@ -169,8 +169,13 @@ def test_kernel_instances_agree_bit_for_bit():
 def test_kernel_raises_on_malformed_calls():
     dev = _device()
     x = torch.zeros((1, 64, 8), device=dev)
+    # one launch takes at most 128 query slots; a wider tile is scanned as
+    # blocks of 128, one launch each
     with pytest.raises(ValueError, match="TQ=129"):
-        knn_scan.leaf_scan_cuda(torch.zeros((1, 129, 8), device=dev), x, k=4)
+        knn_scan.choose_variant(8, 4, 129, 64)
+    knn_scan.reset_launches()
+    kd, _ = knn_scan.leaf_scan_cuda(torch.zeros((1, 129, 8), device=dev), x, k=4)
+    assert kd.shape == (1, 129, 4) and knn_scan.leaf_scan_units.launches == 2
     with pytest.raises(ValueError, match="k=65"):
         knn_scan.leaf_scan_cuda(torch.zeros((1, 8, 8), device=dev), x, k=65)
     with pytest.raises(ValueError, match="reads slabs"):
@@ -506,3 +511,80 @@ def test_dual_ops_on_card_equal_the_cpu(n_chunks):
     np.testing.assert_array_equal(gp[0], cp[0])
     for f in ("iterations", "flushes", "units_scanned", "points_scanned", "chunk_rounds"):
         assert getattr(gp[1], f) == getattr(cp[1], f), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["chunked", "host"])
+def test_tile_wider_than_128_answers_as_128(engine):
+    """IndexSpec(tile_q=256): the wrapper scans each 256-slot tile as two
+    launches of 128 slots, and the index answers as at tile_q=128."""
+    from repro_torch.api import IndexSpec, KNNIndex
+
+    dev = _device()
+    rng = np.random.default_rng(12)
+    pts = rng.normal(size=(30000, 10)).astype(np.float32)
+    q = rng.normal(size=(4000, 10)).astype(np.float32)
+    out = []
+    for tq in (128, 256):
+        index = KNNIndex.build(pts, IndexSpec(engine=engine, tile_q=tq, height=5,
+                                              devices=(dev,)))
+        knn_scan.reset_launches()
+        out.append((index.query(q, 10), knn_scan.leaf_scan_units.launches))
+    (r128, l128), (r256, l256) = out
+    np.testing.assert_array_equal(r256.idx, r128.idx)
+    np.testing.assert_array_equal(r256.dists, r128.dists)
+    assert l128 > 0 and l256 > 0
+    # the wide plan: its rows are the same kernel's, block by block
+    x = torch.randn((6, 512, 10), device=dev)
+    qpad = torch.randn((3000, 10), device=dev)
+    ul = torch.arange(6, dtype=torch.int32, device=dev)
+    uq = torch.randint(-1, 3000, (6, 300), dtype=torch.int32, device=dev)
+    nu = torch.tensor(6, dtype=torch.int32, device=dev)
+    knn_scan.reset_launches()
+    kd, ki = knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=10)
+    assert knn_scan.leaf_scan_units.launches == 3 and kd.shape == (6, 300, 10)
+    for s in range(0, 300, 128):
+        bd, bi = knn_scan.leaf_scan_units(qpad, x, ul, uq[:, s:s + 128].contiguous(), nu, k=10)
+        assert torch.equal(kd[:, s:s + 128], bd) and torch.equal(ki[:, s:s + 128], bi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,n_chunks", [("fp32", 1), ("fp32", 3), ("int8", 1),
+                                                 ("fp16", 3)])
+def test_host_engine_on_card_is_exact(precision, n_chunks):
+    """The host loop on the card: every scan the CUDA kernel, the answers
+    exact against knn_brute."""
+    from repro_torch.api import IndexSpec, KNNIndex
+
+    dev = _device()
+    rng = np.random.default_rng(13)
+    pts = rng.normal(size=(40000, 10)).astype(np.float32)
+    q = rng.normal(size=(5000, 10)).astype(np.float32)
+    index = KNNIndex.build(pts, IndexSpec(engine="host", precision=precision,
+                                          n_chunks=n_chunks, height=6, devices=(dev,)))
+    knn_scan.reset_launches()
+    res = index.query(q, 10)
+    assert knn_scan.leaf_scan_units.launches >= res.stats.chunk_rounds > 0
+    bd, bi = knn_brute(q, pts, 10, device=dev)
+    np.testing.assert_allclose(res.dists, bd, rtol=1e-5, atol=1e-6)
+    assert (res.idx == bi).mean() > 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,precision", [("chunked", None), ("chunked", "int8"),
+                                              ("host", None), ("jit", None), ("brute", None)])
+def test_save_and_load_on_card_answer_bit_for_bit(engine, precision, tmp_path):
+    from repro_torch.api import IndexSpec, KNNIndex
+
+    dev = _device()
+    rng = np.random.default_rng(14)
+    pts = rng.normal(size=(20000, 10)).astype(np.float32)
+    q = rng.normal(size=(2000, 10)).astype(np.float32)
+    index = KNNIndex.build(pts, IndexSpec(engine=engine, precision=precision, height=5,
+                                          devices=(dev,)))
+    d0, i0 = index.query(q, 10)
+    index.save(str(tmp_path))
+    loaded = KNNIndex.load(str(tmp_path))
+    d1, i1 = loaded.query(q, 10)
+    np.testing.assert_array_equal(d1, d0)
+    np.testing.assert_array_equal(i1, i0)

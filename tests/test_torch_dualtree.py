@@ -152,14 +152,22 @@ class TestRadius:
             assert stats.units_scanned > 0
 
     def test_prunes_vs_all_pairs(self):
+        """Pruning keeps the all-pairs rows.  Near 1000 the decomposed form
+        that ``repro.core.dualtree.radius_brute`` selects by rounds (|x|^2 ~
+        3e6 carries steps of 0.25), where the direct form is exact on these
+        quarter-integer differences: the rows are held against float64 and
+        the port's ``radius_brute``; the traversal's counters against the
+        reference's."""
         pts = np.concatenate([lattice(600, 3, seed=2), lattice(600, 3, seed=3) + 1000.0])
         q = pts[::10] + 0.25
         dual = DualTree(build_top_tree(pts, 5), device=CPU)
         ip, ix, dd, stats = dual.radius(q, RADIUS)
         total = dual.tree.n_leaves * -(-len(q) // 64)
         assert stats.units_scanned < total  # leaf pairs visited < full grid
-        bi, bj, _ = jax_radius_brute(q, pts, RADIUS)
+        bi, bj, _ = radius_brute(q, pts, RADIUS, device=CPU)
         csr_rows_equal(ip, ix, bi, bj)
+        d64 = np.sum((q[:, None, :].astype(np.float64) - pts[None]) ** 2, -1)
+        assert np.array_equal(np.diff(bi), (d64 <= RADIUS ** 2).sum(1))
         _, _, _, rstats = JaxDualTree(jax_build_top_tree(pts, 5)).radius(q, RADIUS)
         same_stats(stats, rstats)
 
@@ -309,3 +317,119 @@ class TestRecompileDiscipline:
         from repro.core import dualtree as jax_dualtree
 
         assert (QLEAF, QLEAF_RUNGS) == (jax_dualtree.QLEAF, jax_dualtree.QLEAF_RUNGS)
+
+
+# -- the exactness target: the direct fp32 form ---------------------------
+def _direct_d2_np(a, b):
+    """sum_j (a_j - b_j)^2 in fp32, feature order (numpy, independent of
+    the port's torch code)."""
+    out = np.zeros((a.shape[0], b.shape[0]), np.float32)
+    for j in range(a.shape[1]):
+        diff = (a[:, None, j] - b[None, :, j]).astype(np.float32)
+        out = (out + diff * diff).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("engine", ["brute", "chunked", "streaming", "host"])
+def test_one_twentieth_lattice_matches_the_direct_form(engine):
+    """ROADMAP Queue 3 item 2's probe: 3000 points and 200 queries on a
+    1/20 lattice in d = 3, where many pairs sit at r = 0.05 and at the bin
+    edges, so fp32 rounding decides them.  radius sets, pair_count bins and
+    tophat counts equal those of the direct fp32 form (213 radius pairs
+    and 3078 ordered pairs in [0, 0.05) here; the decomposed form, which
+    the parent selected by, gives 257 and 3970); the tree engines test
+    the pairs in the rounding band again."""
+    from repro_torch.api import IndexSpec, KNNIndex
+
+    rng = np.random.default_rng(0)
+    pts = (rng.integers(0, 20, (3000, 3)) / 20).astype(np.float32)
+    q = (rng.integers(0, 20, (200, 3)) / 20).astype(np.float32)
+    r, edges = 0.05, np.array([0.0, 0.05, 0.1, 0.2])
+    t2 = np.float32(r * r)
+    near = _direct_d2_np(q, pts) <= t2
+    index = KNNIndex.build(pts, IndexSpec(engine=engine, op="pair_count", devices=(CPU,)))
+    ip, ix, _ = res = index.radius(q, r)
+    assert ip[-1] == near.sum() == 213
+    csr_rows_equal(ip, ix, np.concatenate([[0], np.cumsum(near.sum(1))]),
+                   np.nonzero(near)[1])
+    e32 = edges.astype(np.float32)
+    hist = np.zeros(3, np.int64)
+    for lo in range(0, 3000, 500):
+        dist = np.sqrt(_direct_d2_np(pts[lo:lo + 500], pts))
+        b = np.searchsorted(e32, dist, side="right")
+        b[dist == e32[-1]] = 3
+        hist += np.bincount(b.ravel(), minlength=5)[1:4]
+    hist[0] -= 3000   # the self-pairs, at 0
+    got = index.pair_count(edges)
+    np.testing.assert_array_equal(got.values, hist)
+    assert hist[0] == 3078
+    top, _ = index.kde(q, r, kernel="tophat")
+    np.testing.assert_array_equal(top, (near.sum(1) / 3000).astype(np.float32))
+    if engine != "brute":
+        assert res.stats.retested_pairs > 0 and got.stats.retested_pairs > 0
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2])
+def test_threshold_just_off_a_representable_distance(n_chunks):
+    """Two leaves of 64 equal points each, at x = 0 and x = 0.5 (d = 2):
+    their box distance is exactly 0.5.  r = 0.5 - 1e-9 and the bin edge
+    0.5 + 1e-9 round to 0.5 in fp32, so the direct form puts the facing
+    pairs at r and in the bin above the edge.  The frontier must neither
+    drop the leaf pair against float64 r^2 nor count it whole in the bin
+    below against float64 edges."""
+    pts = np.zeros((128, 2), np.float32)
+    pts[64:, 0] = 0.5
+    tree = build_top_tree(pts, 1)
+    assert set(tree.leaf_sizes().tolist()) == {64}
+    store = ChunkedLeafStore(tree.points_padded, n_chunks=n_chunks, uniform=True,
+                             leaf_sizes=tree.leaf_sizes(), device=CPU)
+    dual = DualTree(tree, store)
+    q = np.zeros((2, 2), np.float32)
+    r = 0.5 - 1e-9
+    ip, ix, dd, _ = dual.radius(q, r)
+    assert ip.tolist() == [0, 128, 256]
+    bip, bix, bdd = radius_brute(q, pts, r, device=CPU)
+    csr_rows_equal(ip, ix, bip, bix)
+    np.testing.assert_array_equal(dd, bdd)
+    top, _, _ = dual.kde(q, r, kernel="tophat")
+    np.testing.assert_array_equal(top, np.ones(2, np.float32))
+    edges = np.array([0.0, 0.5 + 1e-9, 2.0])
+    hist, _ = dual.pair_count(edges)
+    assert hist.tolist() == [2 * 64 * 63, 2 * 64 * 64]
+    np.testing.assert_array_equal(hist, pair_count_brute(pts, edges, device=CPU))
+
+
+def test_edge_bounds_decide_the_direct_bin():
+    """``_edge_bounds`` / ``_hist_bounds`` against the rule they stand for,
+    on fp32 squared distances a few ulps around every squared edge (edges
+    at 0, at non-squares and at the closed last edge): a value counting an
+    even number 2c of boundaries has c edges at or below its fp32 root
+    (``_bins``), and so does every value within the shift ``s`` of it."""
+    from repro_torch.core.dualtree import _bins, _edge_bounds, _hist_bounds
+
+    edges = np.array([0.0, 0.05, 1 / 3, 0.5 + 1e-9, 2.0]).astype(np.float32)
+    lower, upper = _edge_bounds(edges)
+    sq = (edges.astype(np.float64) ** 2).astype(np.float32)
+    steps = np.arange(-6, 7, dtype=np.float32)
+    x = np.concatenate([v + steps * np.spacing(v) for v in sq[1:]] + [[0.0, 1e-30]])
+    x = np.maximum(x, 0).astype(np.float32)
+    root = np.sqrt(x)
+    for i, e in enumerate(edges):
+        assert np.all(root[x < lower[i]] < e)
+        above = root[x >= upper[i]]
+        assert np.all(above > e) if i == edges.size - 1 else np.all(above >= e)
+    e_t = torch.from_numpy(edges)
+    for s in (0.0, 4 * float(np.spacing(np.float32(1.0)))):
+        b = torch.from_numpy(_hist_bounds(lower, upper, s))
+        assert torch.all(b[1:] >= b[:-1])
+        j = torch.bucketize(torch.from_numpy(x), b, right=True).numpy()
+        even = j % 2 == 0
+        assert even.any() and (~even).any()
+        for shift in (-s, 0.0, s):
+            # x moved by at most s, rounded toward x
+            xs = (x.astype(np.float64) + shift).astype(np.float32)
+            over = np.abs(xs.astype(np.float64) - x) > s
+            xs[over] = np.nextafter(xs[over], x[over])
+            xs = np.maximum(xs, 0)
+            got = _bins(torch.sqrt(torch.from_numpy(xs)), e_t).numpy()
+            np.testing.assert_array_equal((j // 2)[even], got[even])

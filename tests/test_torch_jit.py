@@ -228,10 +228,16 @@ def test_jit_engine_is_registered_and_pinned_only():
     for kw in (dict(n=200_000, d=10), dict(n=1000, d=3), dict(n=50_000, d=8, m=10)):
         assert plan(devices=CPUS, **kw).engine != "jit"
     assert plan(50_000, 8, devices=CPUS, engine="jit").engine == "jit"
-    with pytest.raises(NotImplementedError, match="item 15"):
-        get_engine("jit").snapshot_state(None)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        get_engine("jit").restore_state({}, {}, None, None)
+    # its snapshot is the reference's TreeArrays and restores the same tree
+    pts, _ = _data(700, 1, 5, seed=2)
+    index = KNNIndex.build(pts, IndexSpec(engine="jit", height=3, devices=CPUS))
+    arrays, meta = get_engine("jit").snapshot_state(index._state)
+    ref = jax_tree_arrays_from(jax_build_top_tree(pts, 3))
+    for name, value in ref._asdict().items():
+        np.testing.assert_array_equal(arrays[f"tree/{name}"], np.asarray(value), name)
+    back = get_engine("jit").restore_state(arrays, meta, index.spec, index.plan)
+    for name, value in back.tree._asdict().items():
+        assert torch.equal(value, getattr(index._state.tree, name)), name
 
 
 def test_jit_warm_then_query():

@@ -123,8 +123,9 @@ def test_store_matches_reference(precision, n_chunks):
 
 def test_store_fp32_has_no_meta_and_later_items_raise():
     """An fp32 store matches ``repro.core.chunked.ChunkedLeafStore``'s byte
-    counts with no metadata; ``kill_rows`` and ``quantized_state`` name the
-    ROADMAP items that port them."""
+    counts with no metadata and has no codes to snapshot; an int8 store's
+    ``quantized_state`` is the reference's, and a store adopting it holds
+    the same codes; ``kill_rows`` names the ROADMAP item that ports it."""
     slabs, sizes = _slabs(6, 16, 8, seed=5)
     port = ChunkedLeafStore(slabs, 2, device=CPU, uniform=True, leaf_sizes=sizes)
     ref = JaxStore(slabs, 2, uniform=True, leaf_sizes=sizes)
@@ -133,11 +134,20 @@ def test_store_fp32_has_no_meta_and_later_items_raise():
     assert port.resident_bytes() == ref.resident_bytes()
     with pytest.raises(ValueError, match="no dequantize metadata"):
         port.device_meta()
-    q8 = ChunkedLeafStore(slabs, 1, device=CPU, precision="int8", leaf_sizes=sizes)
+    with pytest.raises(ValueError, match="no codes"):
+        port.quantized_state()
+    q8 = ChunkedLeafStore(slabs, 2, device=CPU, uniform=True, precision="int8",
+                          leaf_sizes=sizes)
     with pytest.raises(NotImplementedError, match="item 14"):
         q8.kill_rows(np.array([0]), np.array([0]))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        q8.quantized_state()
+    qs = q8.quantized_state()
+    ref_qs = JaxStore(slabs, 2, uniform=True, precision="int8",
+                      leaf_sizes=sizes).quantized_state()
+    for name in ("codes", "scale", "offset", "dead"):
+        np.testing.assert_array_equal(getattr(qs, name), getattr(ref_qs, name), name)
+    assert qs.eps == ref_qs.eps and qs.precision == "int8"
+    again = ChunkedLeafStore(qs, 2, device=CPU, uniform=True)
+    assert again.precision == "int8" and torch.equal(again.host, q8.host)
     with pytest.raises(ValueError, match="precision"):
         ChunkedLeafStore(slabs, 1, device=CPU, precision="bf16")
 
