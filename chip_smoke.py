@@ -6,6 +6,7 @@
     python3 chip_smoke.py --shift 2    # n and m divided by 2**2 (a quick run)
     python3 chip_smoke.py --shift 4    # phase 3 at full size, cells in little time
     python3 chip_smoke.py --host-shift 0  # the host cells at full size too
+    python3 chip_smoke.py --wide-shift 0  # the wide cell at n = 2**24, m = 2**20
 
 Phases, each printing its own lines:
 
@@ -16,8 +17,10 @@ Phases, each printing its own lines:
               card: the reference's kernel sweep, one case per narrow
               width, pad rows, exact ties (lattice, also at the main-path
               width at k = 10, 18 and 74), heaps in shared memory and in
-              the output rows (k = 40, 129, 300), the wide kernel (d = 130,
-              300), every list placement bit-identical, the indexed form,
+              the output rows (k = 40, 129, 300), the wide kernel (d = 30,
+              130, 300, and 520 in chunks of features; lattices bit for
+              bit), every list placement of both kernels bit-identical,
+              the indexed form,
               and the main-path shape (W=4096 units, TQ=128, L_pad=4096,
               d=10 unpadded as the main path passes it, k=10), timed beside
               the plain version and beside torch.baddbmm + torch.topk; the
@@ -30,8 +33,10 @@ Phases, each printing its own lines:
               wide kernel), and integer-lattice codes with dead rows (tie
               order bit for bit, dead rows last; also at the main-path
               width at k = 18 and 74); the indexed form with a 256-slot
-              tile (two launches of 128); the wide kernel (d = 130) timed
-              at W=4096, TQ=128, L_pad=4096, k = 10 and 74; then KNNIndex
+              tile (two launches of 128); the wide kernel timed at W=4096,
+              TQ=128, L_pad=4096: fp32 d = 130 at k = 10 and 74, fp32 d = 30
+              at k = 16 (the wide cell's list) and 74, uint8 d = 30 at
+              k = 18, each beside its plain version and the library; then KNNIndex
               at k = 150 and at d = 130 against knn_brute, and
               IndexSpec(tile_q=256) equal to tile_q=128 on chunked and
               host;
@@ -86,7 +91,13 @@ Phases, each printing its own lines:
  15. persist  main's index and the quant index saved to a temporary
               directory and loaded again: save_s, load_s and bytes on disk
               beside build_s; 2**16 queries answered bit for bit as before
-              the save.
+              the save;
+ 16. wide     KNNIndex.build(points).query(q, 10) with no spec on main's
+              mixture at d = 30 (the top of the paper's range), n / 2**wide_shift
+              points and m / 2**wide_shift queries (--wide-shift, default 2:
+              n = 2**22, m = 2**18): the plan must be chunked, fp32, N = 1,
+              every launch the wide kernel's (by variant name), 1024 queries
+              against knn_brute with fp32_rows_missed = 0.
 
 Phase 3 times the main path's fp32 instance at k = 10 + FP32_OVERFETCH
 (the k the fp32 main path runs) beside k = 10, k = 18 and k = 10 +
@@ -96,8 +107,10 @@ with its launches and, where phase 3 timed it, its times.  main and ooc
 must miss no row against brute force (``fp32_rows_missed`` = 0).
 
 Every cell sets the kernel's launch counts to 0 just before its query and
-reads them just after; the JSON line gives each cell's counts
-(``launches_by_cell``).  A ``[done]`` line gives the script's seconds from
+reads them just after; the JSON line gives each cell's counts by variant
+name (``launches_by_cell``), under an entry for each kernel and code type:
+``leaf_scan`` (narrow, fp32; main's launches), ``leaf_scan_codes`` (narrow,
+uint8; quant's) and ``leaf_scan_wide`` (wide, fp32; the wide cell's).  A ``[done]`` line gives the script's seconds from
 the CUDA check on (the kernels' build included).  Then one JSON line describing the kernels, and
 last the device line.  Any failed check raises (non-zero exit); without a
 CUDA device the script exits non-zero before printing any result.  Nothing
@@ -146,6 +159,7 @@ STREAM_M = 2 ** 16   # queries of the stream cell
 KDTREE_M = 2 ** 14   # queries of the kdtree cell
 PERSIST_M = 2 ** 16  # queries the persist cell answers before and after
 WIDE_D = 130         # the wide kernel's timed rows (d > 16)
+WIDE_CELL_D = 30     # the wide cell's rows (the top of the paper's range)
 DUAL_CHECK_SHIFT = 4  # the dual cell's pair_count_brute check on n / 2**4 points
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -271,6 +285,12 @@ def phase_kernel(torch, dev, seed: int) -> dict:
         ("wide_d130", 2, 128, 300, 130, 130, 10, 0, False),
         ("wide_d300", 2, 128, 300, 300, 300, 10, 0, False),
         ("wide_d300_k300", 1, 128, 320, 300, 300, 300, 37, False),
+        ("wide_d30_k16", 2, 128, 1000, 30, 30, 16, 0, False),
+        ("wide_d30_k74_pad_rows", 2, 128, 1000, 30, 30, 74, 9, False),
+        ("wide_d520_chunked_k16", 1, 128, 300, 520, 520, 16, 0, False),
+        ("wide_d520_chunked_k40", 1, 128, 300, 520, 520, 40, 5, False),
+        ("lattice_wide_d30_k16", 2, 128, 1000, 30, 30, 16, 0, True),
+        ("lattice_wide_d30_k74", 2, 128, 1000, 30, 30, 74, 0, True),
         ("lattice_main_width", 4, 128, 4096, 10, 10, 10, 0, True),
         ("lattice_main_width_k18", 4, 128, 4096, 10, 10, CODE_K, 0, True),
         ("lattice_main_width_k74", 4, 128, 4096, 10, 10, REFINE_K, 0, True),
@@ -286,14 +306,16 @@ def phase_kernel(torch, dev, seed: int) -> dict:
             max_abs_err=err, ok=True)
 
     # every instance forms the same values: a register list (k=16), the first
-    # 16 entries of a heap in shared memory (k=17) and in the output rows (k=300),
-    # and the wide kernel on the rows with a zero 17th column agree bit for bit
+    # 16 entries of a heap in shared memory (k=17) and in the output rows
+    # (k=300), and the wide kernel's register list and heaps (k = 16, 17, 300)
+    # on the rows with a zero 17th column agree bit for bit
     q, x = inputs(2, 128, 1000, 16, 17)
     q16, x16 = q[..., :16].contiguous(), x[..., :16].contiguous()
     base = knn_scan.leaf_scan_cuda(q16, x16, k=16)
     runs = [(knn_scan.choose_variant(16, k, 128, 1000), knn_scan.leaf_scan_cuda(q16, x16, k=k))
             for k in (17, 300)]
-    runs.append((knn_scan.choose_variant(17, 16, 128, 1000), knn_scan.leaf_scan_cuda(q, x, k=16)))
+    runs += [(knn_scan.choose_variant(17, k, 128, 1000), knn_scan.leaf_scan_cuda(q, x, k=k))
+             for k in (16, 17, 300)]
     torch.cuda.synchronize()
     for v, (od, oi) in runs:
         assert torch.equal(od[..., :16], base[0]) and torch.equal(oi[..., :16], base[1]), v.name
@@ -375,59 +397,80 @@ def phase_kernel(torch, dev, seed: int) -> dict:
     timed = {f"f32_k{k}": t for k, t in timed.items()}
     del q, x, qpad
     torch.cuda.empty_cache()
-    timed.update(phase_kernel_wide(torch, dev, gen))
-    return timed, codes
+    return timed, codes, phase_kernel_wide(torch, dev, gen)
 
 
 def phase_kernel_wide(torch, dev, gen) -> dict:
-    """The wide kernel (rows of d > 16 features, in chunks of 16) at the
-    main path's W, TQ and L_pad with d = WIDE_D, at k = 10 and at the
-    refining pass's k, timed beside its plain version and the library;
-    keyed ``"f32_d130_k10"``.  No main-path cell launches it (d = 10)."""
+    """The wide kernel (rows of d > 16 features) at the main path's W, TQ
+    and L_pad: fp32 at d = WIDE_D, k = 10 and the refining pass's k; at
+    d = WIDE_CELL_D (the wide cell's rows) fp32 at the k the fp32 path runs
+    (k + FP32_OVERFETCH) and the refining pass's k, and uint8 codes of the
+    same slab at the quantized path's k; each timed beside its plain
+    version and the library; keyed ``"f32_d130_k10"``."""
     from repro_torch.kernels import knn_scan
+    from repro_torch.kernels.ref import PAD_COORD
 
     s = MAIN_SHAPE
-    w, tq, lp, d = s["w"], s["tq"], s["l_pad"], WIDE_D
-    q = torch.randn((w, tq, d), device=dev, generator=gen)
-    x = torch.randn((w, lp, d), device=dev, generator=gen)
-    qpad = q.reshape(w * tq, d)
+    w, tq, lp = s["w"], s["tq"], s["l_pad"]
     ul = torch.arange(w, dtype=torch.int32, device=dev)
     uq = torch.arange(w * tq, dtype=torch.int32, device=dev).reshape(w, tq)
     nu = torch.tensor(w, dtype=torch.int32, device=dev)
-    xn = (x * x).sum(-1)[:, None, :]
-    xt = x.transpose(1, 2)
     out = {}
-    for k in (s["k"], REFINE_K):
-        kd, ki = knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=k)
-        rd, ri = knn_scan.leaf_scan_units_ref(qpad, x, ul, uq, nu, k=k)
-        torch.cuda.synchronize()
-        # every distance; the indices on the first units (the float64
-        # gather of all [W, TQ, k, d] would not fit)
-        torch.testing.assert_close(kd, rd, **TOL)
-        err = max(float((kd - rd).abs().max()),
-                  check_scan(torch, q[:256], x[:256], kd[:256], ki[:256], rd[:256], ri[:256]))
-        del kd, ki, rd, ri
-        kernel_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=k),
-                            reps=3)
-        plain_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units_ref(
-            qpad, x, ul, uq, nu, k=k), reps=2)
+    rows = [(WIDE_D, "f32", (s["k"], REFINE_K)),
+            (WIDE_CELL_D, "f32", (MAIN_K_EFF, REFINE_K)),
+            (WIDE_CELL_D, "u8", (CODE_K,))]
+    for d, code, ks in rows:
+        q = torch.randn((w, tq, d), device=dev, generator=gen)
+        x32 = torch.randn((w, lp, d), device=dev, generator=gen)
+        qpad = q.reshape(w * tq, d)
+        if code == "f32":
+            slab, meta, x = x32, {}, x32
+            dead = None
+            xn = (x * x).sum(-1)[:, None, :]   # per-slab precompute, outside the timing
+            xt = x.transpose(1, 2)
+        else:
+            slab, meta, dead = code_slab(torch, dev, gen, code, w, lp, d, x=x32)
+            x = knn_scan.dequantize(slab, meta.get("scale"), meta.get("offset"), meta["dead"])
+            del x32
+        for k in ks:
+            kd, ki = knn_scan.leaf_scan_units(qpad, slab, ul, uq, nu, k=k, **meta)
+            rd, ri = knn_scan.leaf_scan_units_ref(qpad, slab, ul, uq, nu, k=k, **meta)
+            torch.cuda.synchronize()
+            # every distance; the indices on the first units (the float64
+            # gather of all [W, TQ, k, d] would not fit)
+            torch.testing.assert_close(kd, rd, **TOL)
+            err = max(float((kd - rd).abs().max()),
+                      check_scan(torch, q[:256], x[:256], kd[:256], ki[:256], rd[:256],
+                                 ri[:256]))
+            del kd, ki, rd, ri
+            kernel_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units(
+                qpad, slab, ul, uq, nu, k=k, **meta), reps=3)
+            plain_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units_ref(
+                qpad, slab, ul, uq, nu, k=k, **meta), reps=2)
 
-        def library():
-            d2 = torch.baddbmm(xn, q, xt, alpha=-2.0)
-            return torch.topk(d2, k, dim=-1, largest=False)
+            def library():
+                if code == "f32":   # as the narrow rows: baddbmm + topk
+                    d2 = torch.baddbmm(xn, q, xt, alpha=-2.0)
+                else:   # torch dequantize (as the plain version) + baddbmm + topk
+                    xq = slab.float() * meta["scale"][:, None, :] + meta["offset"][:, None, :]
+                    xq = torch.where(dead[..., None], PAD_COORD, xq)
+                    d2 = torch.baddbmm((xq * xq).sum(-1)[:, None, :], q,
+                                       xq.transpose(1, 2), alpha=-2.0)
+                return torch.topk(d2, k, dim=-1, largest=False)
 
-        library_ms = cuda_ms(torch, library, reps=2)
-        bound_ms, bound_by = scan_bound(w, tq, lp, d, k)
-        log("kernel", case=f"wide_d{d}_k{k}", shape=(w, tq, lp, d), k=k,
-            variant=knn_scan.choose_variant(d, k, tq, lp).name, max_abs_err=err,
-            kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-            gflops=f"{w * tq * lp * (2 * d + 3) / kernel_ms / 1e6:.1f}")
-        out[f"f32_d{d}_k{k}"] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                                     library_ms=library_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by)
-    del q, x, qpad, xn, xt
-    torch.cuda.empty_cache()
+            library_ms = cuda_ms(torch, library, reps=2)
+            bound_ms, bound_by = scan_bound(w, tq, lp, d, k, code)
+            log("kernel", case=f"wide_{code}_d{d}_k{k}", shape=(w, tq, lp, d), k=k,
+                variant=knn_scan.choose_variant(d, k, tq, lp, code).name, max_abs_err=err,
+                kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+                gflops=f"{w * tq * lp * (2 * d + 3) / kernel_ms / 1e6:.1f}")
+            out[f"{code}_d{d}_k{k}"] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                                            library_ms=library_ms, bound_ms=bound_ms,
+                                            bound_by=bound_by)
+        del q, x, qpad, slab, meta, dead
+        x32 = xn = xt = None
+        torch.cuda.empty_cache()
     return out
 
 
@@ -604,10 +647,13 @@ def mixture(rng, n: int, d: int, centers: np.ndarray, scales: np.ndarray) -> np.
     return pts
 
 
-def main_data(seed: int, shift: int = 0):
+def main_data(seed: int, shift: int = 0, d: int = 10):
     """The main cell's points (n = 2**(24 - shift)) and queries (m =
-    2**(20 - shift)), d = 10, from a seeded 64-component Gaussian mixture."""
-    n, m, d = 2 ** (24 - shift), 2 ** (20 - shift), 10
+    2**(20 - shift)), d = 10, from a seeded 64-component Gaussian mixture
+    (the wide cell's: the same mixture at d = 30).
+    ``scripts/main_cell_time.py::mixture_data`` makes the same arrays
+    (``tests/test_torch_api.py::test_main_cell_time_data_is_chip_smokes``)."""
+    n, m = 2 ** (24 - shift), 2 ** (20 - shift)
     rng = np.random.default_rng(seed)
     centers = rng.normal(scale=3.0, size=(64, d)).astype(np.float32)
     scales = rng.uniform(0.3, 1.5, size=64).astype(np.float32)
@@ -616,18 +662,20 @@ def main_data(seed: int, shift: int = 0):
     return points, queries
 
 
-def check_exact(torch, index_res, points, queries, dev, n_check: int) -> int:
+def check_exact(torch, index_res, points, queries, dev, n_check: int):
     """Answers vs the port's knn_brute on the card for ``n_check`` queries:
     distances within rtol 1e-5, ids equal up to ties.  Returns the number of
-    id positions that differ (each one a tie)."""
+    id positions that differ (each one a tie) and the number of rows whose
+    distances are not all within that tolerance (0, or it raises)."""
     from repro_torch.core.brute import knn_brute
 
     bd, bi = knn_brute(queries[:n_check], points, 10, device=dev)
     dists, idx = index_res.dists[:n_check], index_res.idx[:n_check]
+    missed = int((~np.isclose(dists, bd, rtol=1e-5, atol=1e-6).all(1)).sum())
     np.testing.assert_allclose(dists, bd, rtol=1e-5, atol=1e-6)
     d_of_idx = np.sqrt(np.sum((queries[:n_check, None, :] - points[idx]) ** 2, -1))
     np.testing.assert_allclose(d_of_idx, bd, rtol=1e-5, atol=1e-6)
-    return int((idx != bi).sum())
+    return int((idx != bi).sum()), missed
 
 
 def profile_query(torch, phase, index, queries) -> None:
@@ -653,6 +701,14 @@ def profile_query(torch, phase, index, queries) -> None:
               f"{e.count:8d}x {e.key[:90]}", flush=True)
 
 
+def launch_counts(knn_scan) -> dict:
+    """The leaf-scan wrapper's counts since its last reset: per code type,
+    ``by_instance`` per (code type, k) and ``by_variant`` per launch name."""
+    w = knn_scan.leaf_scan_units
+    return dict(w.launches_by_code, by_instance=dict(w.launches_by_instance),
+                by_variant=dict(w.launches_by_variant))
+
+
 def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
     from repro_torch.api import KNNIndex
     from repro_torch.kernels import knn_scan
@@ -668,13 +724,13 @@ def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
     res = index.query(queries, 10)
     query_s = time.perf_counter() - t0
     by_code = dict(knn_scan.leaf_scan_units.launches_by_code)
-    launches = dict(by_code, by_instance=dict(knn_scan.leaf_scan_units.launches_by_instance))
+    launches = launch_counts(knn_scan)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9   # this build + query
     if index.plan.engine != "kdtree":
         assert index._state._engine.backend == "cuda", index._state._engine.backend
     assert np.isfinite(res.dists).all() and res.dists.shape == (queries.shape[0], 10)
     assert (res.idx >= 0).all()
-    ties = check_exact(torch, res, points, queries, dev, n_check)
+    ties, missed = check_exact(torch, res, points, queries, dev, n_check)
     st = res.stats
     log(phase, engine=index.plan.engine, n_chunks=index.plan.n_chunks,
         height=index.plan.height, precision=index.plan.precision,
@@ -690,6 +746,7 @@ def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
         kernel_launches=",".join(f"{c}:{n}" for c, n in by_code.items()),
         instances=",".join(f"{c}:{n}" for c, n in launches["by_instance"].items()),
         checked=n_check, tie_swaps=ties,
+        **{"fp32_rows_missed" if index.plan.precision == "fp32" else "rows_missed": missed},
         peak_mem_gb=f"{peak_gb:.3f}")
     for r in index.plan.reasons:
         print(f"[{phase}]   plan: {r}", flush=True)
@@ -713,6 +770,10 @@ def main(argv=None) -> int:
                     help="run the host cells (host, host_ooc, kdtree) on n / "
                          "2**host_shift points and m / 2**host_shift queries (default "
                          "2, the ooc cells' depth; 0: main's data whole)")
+    ap.add_argument("--wide-shift", type=int, default=2,
+                    help="run the wide cell (d = 30) on n / 2**wide_shift points and "
+                         "m / 2**wide_shift queries (default 2: n = 2**22, m = 2**18; "
+                         "0: n = 2**24, m = 2**20)")
     ap.add_argument("--profile", nargs="?", const="main,ooc", default="",
                     help="also run these cells' query once under torch.profiler "
                          "(comma-separated, of main, ooc, quant, quant_ooc, jit, "
@@ -740,7 +801,7 @@ def main(argv=None) -> int:
 
     phase_env(torch)
     phase_build()
-    scan, codes = phase_kernel(torch, dev, args.seed)
+    scan, codes, wide = phase_kernel(torch, dev, args.seed)
     phase_facade(torch, dev, args.seed)
 
     t0 = time.perf_counter()
@@ -837,31 +898,44 @@ def main(argv=None) -> int:
     del points, queries, res, res2
     torch.cuda.empty_cache()
     run_dual(torch, dev, args.seed, args.shift)
+    cells["wide"] = run_wide(torch, dev, args.seed, args.shift + args.wide_shift)
 
-    def entry(name, code, first_k, cell, timed):
-        """The JSON line's entry: the instance a k = 10 query first runs,
-        under ``instances`` every instance phase 3 timed or the cell ran,
-        its launches in the cell beside its phase-3 times, and under
-        ``launches_by_cell`` each cell's launches of this code type."""
-        head = timed[f"{code}_k{first_k}"]
+    def entry(name, kind, code, head_key, cell, timed):
+        """The JSON line's entry for the ``kind`` kernel ("narrow" or
+        "wide") reading ``code``: the instance a k = 10 query of ``cell``
+        first runs (``head_key``), under ``instances`` every instance
+        phase 3 timed or the cell ran, its launches in the cell beside its
+        phase-3 times, and under ``launches_by_cell`` each cell's launches
+        of this kernel and code type, by variant name."""
+        head = timed[head_key]
         keys = sorted(set(cell["by_instance"]) | set(timed))
+
+        def variants(launches):
+            return {v: n for v, n in launches["by_variant"].items()
+                    if v.startswith(kind + "<") and (v.rsplit("/", 1)[-1] if v.rsplit(
+                        "/", 1)[-1] in ("u8", "f16") else "f32") == code}
+
         return {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/leaf_scan.cu",
             "replaces": "src/repro/kernels/knn_scan.py:213",
-            "launches": cell[code],
+            "launches": sum(variants(cell).values()),
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "instances": {key: dict(launches=cell["by_instance"].get(key, 0),
                                     **timed.get(key, {})) for key in keys},
-            "launches_by_cell": {c: launches[code] for c, launches in cells.items()
-                                 if launches[code]},
+            "launches_by_cell": {c: dict(launches=sum(v.values()), variants=v)
+                                 for c, v in ((c, variants(n)) for c, n in cells.items())
+                                 if v},
         }
 
-    kernels = [entry("leaf_scan", "f32", MAIN_K_EFF, launches, scan),
+    kernels = [entry("leaf_scan", "narrow", "f32", f"f32_k{MAIN_K_EFF}", launches, scan),
                # the same kernel reading uint8 codes (quant cell, k = 10 -> 18)
-               entry("leaf_scan_codes", "u8", CODE_K, launches3, codes)]
+               entry("leaf_scan_codes", "narrow", "u8", f"u8_k{CODE_K}", launches3, codes),
+               # rows of d > 16 (wide cell, d = 30, k = 10 -> 16)
+               entry("leaf_scan_wide", "wide", "f32", f"f32_d{WIDE_CELL_D}_k{MAIN_K_EFF}",
+                     cells["wide"], wide)]
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -903,8 +977,7 @@ def run_stream(torch, points, queries, main_res, dev) -> None:
     same = r.idx == ref_i
     if not same.all():
         np.testing.assert_allclose(r.dists, ref_d, rtol=1e-5, atol=1e-6)
-    cell = dict(knn_scan.leaf_scan_units.launches_by_code,
-                by_instance=dict(knn_scan.leaf_scan_units.launches_by_instance))
+    cell = launch_counts(knn_scan)
     log("stream", m=ms, emissions=len(at), early_retired=r.stats.early_retired,
         first_s=f"{at[0] - t0:.3f}", last_s=f"{at[-1] - t0:.3f}",
         query_stream_s=f"{total_s:.3f}", rounds=r.stats.iterations,
@@ -1033,8 +1106,7 @@ def run_host(torch, points, queries, ref, dev, same_answers, profile=False) -> d
     t0 = time.perf_counter()
     kd = kdtree.query(q, 10)
     kd_s = time.perf_counter() - t0
-    out["kdtree"] = dict(knn_scan.leaf_scan_units.launches_by_code,
-                         by_instance=dict(knn_scan.leaf_scan_units.launches_by_instance))
+    out["kdtree"] = launch_counts(knn_scan)
     assert out["kdtree"]["f32"] == 0 and kdtree.resident_bytes() == 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1089,8 +1161,7 @@ def run_persist(torch, phase, index, build_s, queries) -> dict:
         load_s = time.perf_counter() - t0
         knn_scan.reset_launches()
         after = loaded.query(queries, 10)
-        launches = dict(knn_scan.leaf_scan_units.launches_by_code,
-                        by_instance=dict(knn_scan.leaf_scan_units.launches_by_instance))
+        launches = launch_counts(knn_scan)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     assert np.array_equal(after.idx, before.idx) and np.array_equal(after.dists, before.dists)
@@ -1100,6 +1171,29 @@ def run_persist(torch, phase, index, build_s, queries) -> dict:
         build_s=f"{build_s:.3f}", save_s=f"{save_s:.3f}", load_s=f"{load_s:.3f}",
         bytes_on_disk=on_disk, queries=queries.shape[0], answers_bit_for_bit=True)
     del loaded
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_wide(torch, dev, seed: int, shift: int) -> dict:
+    """The wide cell: ``KNNIndex.build(points).query(q, 10)`` with no spec
+    on main's mixture at d = WIDE_CELL_D, n = 2**(24 - shift) points and
+    m = 2**(20 - shift) queries.  The plan must be chunked, fp32, N = 1, and
+    every launch the wide kernel's; 1024 queries against knn_brute with
+    fp32_rows_missed = 0 (``run_query``'s check, which logs it).  Returns
+    the cell's launch counts."""
+    t0 = time.perf_counter()
+    points, queries = main_data(seed, shift, d=WIDE_CELL_D)
+    log("wide", n=points.shape[0], m=queries.shape[0], d=WIDE_CELL_D, k=10,
+        data_s=f"{time.perf_counter() - t0:.3f}")
+    index, res, launches, _ = run_query(torch, "wide", points, queries, None, 1024, dev)
+    plan = index.plan
+    assert (plan.engine, plan.precision, plan.n_chunks) == ("chunked", "fp32", 1), plan
+    by_variant = launches["by_variant"]
+    assert launches["f32"] > 0 and by_variant, launches
+    assert all(v.startswith("wide<") for v in by_variant), by_variant
+    log("wide", variants=",".join(f"{v}:{n}" for v, n in by_variant.items()), ok=True)
+    del index
     torch.cuda.empty_cache()
     return launches
 

@@ -12,7 +12,8 @@ Runs the kernel on fixed seeded inputs: the main-path shape (W=4096 units,
 TQ=128, L_pad=4096, d=10) with fp32 rows at k = 10 (a register list), 18
 (a quantized k = 10 query's list) and 74 (the refining pass's), and with
 uint8 and float16 codes (5 % dead rows) at the same k; a list of 300 and
-the wide kernel (d = 130).  ``write`` stores a SHA-256 of every output's
+the wide kernel (d = 30, 130, 300 and 520 in chunks of features; fp32,
+uint8 and float16).  ``write`` stores a SHA-256 of every output's
 distances and indices; ``check`` exits non-zero unless every one equals
 the file's.  Needs one CUDA device.
 """
@@ -31,6 +32,13 @@ CASES = [  # (name, W, TQ, L_pad, d, k, code)
     ("main_k74", 4096, 128, 4096, 10, 74, "f32"),
     ("k300", 64, 128, 600, 10, 300, "f32"),
     ("wide_d130", 64, 128, 600, 130, 10, "f32"),
+    ("wide_d130_k74", 64, 128, 600, 130, 74, "f32"),
+    ("wide_d30_k16", 256, 128, 4096, 30, 16, "f32"),
+    ("wide_d30_k74", 256, 128, 4096, 30, 74, "f32"),
+    ("wide_d300_k300", 16, 128, 600, 300, 300, "f32"),
+    ("wide_d520_k16", 16, 128, 600, 520, 16, "f32"),
+    ("wide_u8_d30_k18", 256, 128, 4096, 30, 18, "u8"),
+    ("wide_f16_d30_k74", 64, 128, 600, 30, 74, "f16"),
     ("u8_k10", 4096, 128, 4096, 10, 10, "u8"),
     ("u8_k18", 4096, 128, 4096, 10, 18, "u8"),
     ("u8_k74", 4096, 128, 4096, 10, 74, "u8"),

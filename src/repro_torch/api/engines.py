@@ -99,7 +99,7 @@ class BruteEngine(EngineBase):
     )
 
     def build(self, points, spec, plan):
-        return torch.as_tensor(np.asarray(points, np.float32), device=_device(spec))
+        return kops.owned_tensor(points, _device(spec))
 
     def _stats(self, state, m: int) -> SearchStats:
         return SearchStats(iterations=1, points_scanned=m * state.shape[0],
@@ -355,7 +355,7 @@ class JitEngine(EngineBase):
         top, n = state.top, state.top.n
         m = queries.shape[0]
         k_eff = min(k + FP32_OVERFETCH, n)
-        q = torch.from_numpy(np.ascontiguousarray(queries)).to(state.tree.slabs.device)
+        q = kops.owned_tensor(queries, state.tree.slabs.device)
         d2, oi, rounds = lazy_knn_jit(
             q, state.tree, k=k_eff, tq=state.tq, first_leaf_heap=top.first_leaf_heap,
             backend=state.backend, cache=state.rounds,

@@ -55,16 +55,19 @@ def knn_brute(
     ``queries``/``points`` are numpy arrays or tensors; ``device`` defaults
     to the device of ``points`` when it is a tensor, else to ``cuda:0``.
     """
-    from repro_torch.kernels.ops import resolve_device
+    from repro_torch.kernels.ops import owned_tensor, resolve_device
 
     if device is None and isinstance(points, torch.Tensor):
         device = points.device
     dev = resolve_device(device)
-    qs = torch.as_tensor(queries, dtype=torch.float32, device=dev)
+    qs = owned_tensor(queries, dev)
     if isinstance(points, torch.Tensor):
-        pts = points.to(device=dev, dtype=torch.float32)
+        pts = owned_tensor(points, dev)
+    elif dev.type == "cpu":
+        pts = np.array(points, np.float32, copy=True)
     else:
-        # host points go to the device one reference tile at a time
+        # host points go to the device one reference tile at a time (each
+        # tile a copy on the device)
         pts = np.asarray(points, dtype=np.float32)
     m, d = qs.shape
     n, d2 = pts.shape

@@ -64,7 +64,7 @@ import torch
 from repro_torch.core.chunked import ChunkedLeafStore
 from repro_torch.core.lazysearch import SearchStats
 from repro_torch.core.toptree import PAD_COORD, TopTree, build_top_tree
-from repro_torch.kernels.ops import resolve_device
+from repro_torch.kernels.ops import owned_tensor, resolve_device
 
 __all__ = [
     "DualTree",
@@ -908,15 +908,13 @@ class DualTree:
 def _oracle_inputs(queries, points, device, dtype=torch.float32):
     """``queries`` and ``points`` (numpy or tensors, fp32 values) as
     ``dtype`` tensors on ``device`` (default: the points tensor's, else
-    cuda:0)."""
+    cuda:0), copies the oracle owns (``owned_tensor``)."""
     if device is None and isinstance(points, torch.Tensor):
         device = points.device
     dev = resolve_device(device)
 
     def put(a) -> torch.Tensor:
-        if not isinstance(a, torch.Tensor):
-            a = torch.from_numpy(np.ascontiguousarray(a, np.float32))
-        return a.to(device=dev, dtype=torch.float32).to(dtype)
+        return owned_tensor(a, dev).to(dtype)
 
     return put(queries), put(points)
 

@@ -90,6 +90,50 @@
 // each sift level is a dependent shared-memory load, and the final
 // heapsort costs about kl more sifts per query.
 //
+// Wide kernel (d > 16: the paper's d up to 30, and any wider row).  Bound
+// by fp32 issue like the narrow kernel: 2d+3 operations per pair, at
+// W=4096, TQ=128, L_pad=4096 8.43 ms for d = 130 and 2.02 ms for d = 30 at
+// 67 TFLOP/s, against 2.2 and 0.5 ms of bytes.  The design before this one
+// ran 57.5 ms at d = 130, k = 10 and 211 ms at k = 74 on an H100 at 700 W
+// (the library's baddbmm + topk: 57.2 and 60.4 ms): a sorted list in
+// shared memory taking each row by insertion, sub-tiles of 32 rows staged
+// 16 features at a time with no pipeline (two barriers per chunk, a branch
+// and a dead-row test per element), row norms walked from device memory by
+// one warp while three waited, -2q reloaded from device memory per
+// sub-tile, one FMA per shared-memory load, inserts inline in the row loop.
+// This design (the kernel's own comment has the details):
+//  * the narrow kernel's lists (a register list for k <= 16, the heap of
+//    64-bit keys beyond, in shared memory while it fits), one slot per
+//    thread, 128 threads;
+//  * pieces of 32 whole rows double-buffered through shared memory, fp32
+//    copied coalesced with 16/8/4-byte cp.async straight into the staged
+//    layout, codes as raw bytes (copy_raw_tile, shared with the narrow
+//    kernel) decoded once, four threads to a row; rows padded to an odd
+//    number of 16-byte words;
+//  * -2q of every slot staged once per unit; a register-tiled product in
+//    each warp (4 slots x 8 rows per lane, 4 features a step: 128 FMAs per
+//    12 shared-memory loads);
+//  * the filter, the masks and the inserts in the warp, by shuffles, each
+//    insert taking the accumulator its row group's lane formed: one block
+//    barrier per piece, no second chain;
+//  * rows too wide for -2q and two pieces in shared memory (fp32 past
+//    d = 300) go in chunks of 128 features, -2q and the norms read from
+//    device memory (correct, not tuned).
+// Earlier versions, timed by scripts/leaf_scan_wide.py (PERF.md), at
+// d = 130, k = 10: one slot per thread with 32 accumulators and a
+// broadcast LDS.128 per 4 FMAs (31.2 ms: the shared-memory pipe was the
+// limit); the same tile across the block's warps with masks in shared
+// memory and each insert re-forming its row's chain (29.0 ms); norms
+// walked in device memory inside the product (33.4 ms); the next step's
+// -2q and first row loaded ahead (23.3 ms, but 9.3 against 7.6 ms at
+// d = 30, k = 16: 199 registers, fewer blocks per SM).
+// What still holds it back: the product runs at about a third of the
+// fp32 rate at d = 130; -2q of 128 slots (67.6 KB at d = 130) and two
+// pieces leave room for 2 blocks (8 warps) per SM, 1 with a k = 74 heap,
+// too few to hide the shared-memory loads' latency.
+// The chain is the narrow kernel's (||x||^2, then -2q_j x_j in feature
+// order; zero pad features add exact zeros), so the two agree bit for bit.
+//
 // Tensor cores are not used.  TF32 alone keeps ~3 decimal digits and can
 // drop a true neighbour; a split (3xTF32) product keeps fp32 accuracy but
 // runs three MMA passes with K padded to 8/16: at d=10 that is 48 MMA
@@ -117,9 +161,9 @@
 // chunk: the scan reads 1 or 2 bytes per coordinate instead of 4.  The
 // fp32 path copies and stages exactly as before.
 //
-// Every instance forms the same floating-point values (the FMA chain in
-// feature order from ||x||^2, zero columns adding exact zeros), so they
-// agree bit for bit with each other.  The Python wrapper
+// Every instance, narrow or wide, forms the same floating-point values (the
+// FMA chain in feature order from ||x||^2, zero columns adding exact
+// zeros), so they agree bit for bit with each other.  The Python wrapper
 // (src/repro_torch/kernels/knn_scan.py::choose_variant) picks the instance,
 // block width, list placement and dynamic shared memory; this file checks
 // the choice and launches it.  Plain C interface, loaded with ctypes.
@@ -143,8 +187,11 @@ namespace {
 constexpr int MAX_TQ = 128;       // query rows per unit (one block)
 constexpr int TILE = 64;          // narrow: slab rows per pipeline stage
 constexpr int PASS = 32;          // narrow: rows per filter mask word
-constexpr int WIDE_ROWS = 32;     // wide: slab rows per sub-tile
-constexpr int WIDE_DC = 16;       // wide: features per chunk
+constexpr int WROWS = 32;         // wide: slab rows per piece (one filter pass)
+constexpr int WQT = 4;            // wide: queries per thread in the product tile
+constexpr int WRT = 8;            // wide: rows per thread in the product tile
+constexpr int WTHREADS = 128;     // wide: threads per block (32 query x 4 row groups)
+static_assert(WTHREADS == 4 * WROWS, "wide: four threads decode each row of a piece");
 constexpr int SMEM_LIMIT = 232448;
 constexpr float PAD_COORD = 1.0e18f;  // kernels/ref.py PAD_COORD
 
@@ -170,6 +217,15 @@ __host__ __device__ constexpr int meta_floats(int code, int d) {
 }
 __host__ __device__ constexpr int raw_region_bytes(int code, int d) {
   return 4 * meta_floats(code, d) + 2 * raw_tile_bytes(code, d);
+}
+// Staged row stride of the wide kernel (floats): fc, or fc + 4 where fc / 4
+// is even, so that the 16-byte pieces of 4 consecutive rows at one feature
+// lie in distinct banks (a warp's product loads 4 rows at a time).
+__host__ __device__ constexpr int wide_row_stride(int fc) { return (fc / 4) % 2 ? fc : fc + 4; }
+
+// Wide kernel: a raw code tile of WROWS rows, 4 bytes of slack, to 16 bytes.
+__host__ __device__ constexpr int wide_raw_tile_bytes(int code, int d) {
+  return (WROWS * d * code_bytes(code) + 4 + 15) / 16 * 16;
 }
 
 // The slab's code type and dequantize metadata, indexed by the slab's leaf.
@@ -199,12 +255,54 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A raw tile of codes starts `raw_lead` bytes past a 4-byte boundary; its
+// copy in shared memory keeps that offset, so whole words copy to whole
+// words.
+__device__ __forceinline__ int raw_lead(const unsigned char* p) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
+}
+// Thread t of nt copies its share of the n bytes at p into dst +
+// raw_lead(p): whole words by cp.async, the bytes before the first and
+// after the last whole word by plain loads (threads 0-2).  Both kernels
+// stage their code tiles through it; the caller commits the group.
+__device__ __forceinline__ void copy_raw_tile(unsigned char* dst, const unsigned char* p, int n,
+                                              int t, int nt) {
+  const int a = raw_lead(p), e = a + n;        // bytes [a, e) of the window
+  const unsigned char* g = p - a;              // 4-byte aligned
+  const int wb = (a + 3) >> 2, we = e >> 2;    // whole words [wb, we)
+  for (int k = wb + t; k < we; k += nt) cp_async4(dst + 4 * k, g + 4 * k);
+  if (t < 3) {
+    const int h = a + t, h_end = min(4 * wb, e);  // bytes before word wb
+    if (h < h_end) dst[h] = g[h];
+    const int b = max(4 * we, 4 * wb) + t;        // bytes after word we
+    if (b < e) dst[b] = g[b];
+  }
+}
+// Feature j of row r of a raw tile copied by copy_raw_tile (src: the
+// tile's first byte), as the scan sees it: PAD_COORD in a dead row, else
+// decoded (uint8 with the leaf's scale / offset, in shared memory).
+__device__ __forceinline__ float staged_code(int code, const unsigned char* src, int r, int j,
+                                             int d, bool dead, const float* sc,
+                                             const float* of) {
+  return dead ? PAD_COORD
+              : decode(code, src, (size_t)r * d + j, code == CODE_U8 ? sc[j] : 1.f,
+                       code == CODE_U8 ? of[j] : 0.f);
 }
 
 // The filter bound for a list whose kl-th distance is thr: fl(acc + qn) <
@@ -253,48 +351,6 @@ struct RegList {
         od[j - (KMAX - kl)] = d[j];
         oi[j - (KMAX - kl)] = i[j];
       }
-    }
-  }
-};
-
-// Sorted list of kl entries in shared memory (stride = slots of the block)
-// or in the thread's own output row (stride 1): the wide kernel's list.
-struct MemList {
-  float* d;
-  int* i;
-  int stride, kl;
-  float worst_;
-
-  __device__ __forceinline__ void init(float* d_, int* i_, int stride_, int kl_) {
-    d = d_;
-    i = i_;
-    stride = stride_;
-    kl = kl_;
-    for (int j = 0; j < kl; ++j) {
-      d[j * stride] = INFINITY;
-      i[j * stride] = INT_MAX;
-    }
-    worst_ = INFINITY;
-  }
-  __device__ __forceinline__ float worst() const { return worst_; }
-  __device__ __forceinline__ void insert(float dist, int idx) {
-    int j = kl - 1;
-    while (j > 0) {
-      const float prev = d[(j - 1) * stride];
-      if (!(dist < prev)) break;
-      d[j * stride] = prev;
-      i[j * stride] = i[(j - 1) * stride];
-      --j;
-    }
-    d[j * stride] = dist;
-    i[j * stride] = idx;
-    worst_ = d[(kl - 1) * stride];
-  }
-  __device__ __forceinline__ void store(float* od, int* oi, int) const {
-    if (d == od) return;  // the list is the output row
-    for (int j = 0; j < kl; ++j) {
-      od[j] = d[j * stride];
-      oi[j] = i[j * stride];
     }
   }
 };
@@ -394,16 +450,6 @@ struct HeapList {
   }
 };
 
-// Point a memory list of query slot `slot` at shared memory or its row.
-__device__ __forceinline__ void init_mem_list(MemList& l, int list_at, float* lsd,
-                                              int* lsi, int slots, float* out_d,
-                                              int* out_i, size_t o, int slot, int kl) {
-  if (list_at == LIST_SMEM)
-    l.init(lsd + slot, lsi + slot, slots, kl);
-  else
-    l.init(out_d + o, out_i + o, 1, kl);
-}
-
 // Narrow kernel, d <= DW <= 16: one block per plan row.  KMAX > 0: a
 // register list of KMAX entries and two query slots per thread (slots t and
 // t + blockDim.x); KMAX == 0: a heap in shared memory or in the output rows
@@ -468,15 +514,8 @@ leaf_scan_narrow_kernel(const float* __restrict__ qpad, const void* __restrict__
   const unsigned char* xl =
       static_cast<const unsigned char*>(slab) + (size_t)leaf * l_pad * d * es;
   const int ntiles = (l_pad + TILE - 1) / TILE;
-  // The tile's first byte sits `lead` bytes past a 4-byte boundary; the
-  // raw tile keeps that offset so whole words copy to whole words.
-  auto lead = [&](int it) {
-    return static_cast<int>(reinterpret_cast<uintptr_t>(xl + (size_t)it * TILE * d * es) & 3);
-  };
   // fp32: each thread copies (and later stages) rows t, t + nt, ... of a
-  // tile.  Codes: the block copies the tile's byte range, words by cp.async
-  // and the bytes before the first and after the last whole word by plain
-  // loads.
+  // tile.  Codes: the block copies the tile's byte range (copy_raw_tile).
   auto issue = [&](int it) {
     if (it < ntiles) {
       const int r0 = it * TILE, rows = min(TILE, l_pad - r0);
@@ -488,16 +527,7 @@ leaf_scan_narrow_kernel(const float* __restrict__ qpad, const void* __restrict__
           for (int j = 0; j < d; ++j)
             cp_async4(df + r * d + j, xf + (size_t)(r0 + r) * d + j);
       } else {
-        const int a = lead(it), e = a + rows * d * es;  // bytes [a, e) of the window
-        const unsigned char* g = xl + (size_t)r0 * d * es - a;  // 4-byte aligned
-        const int wb = (a + 3) >> 2, we = e >> 2;          // whole words [wb, we)
-        for (int k = wb + t; k < we; k += nt) cp_async4(dst + 4 * k, g + 4 * k);
-        if (t < 3) {
-          const int h = a + t, h_end = min(4 * wb, e);      // bytes before word wb
-          if (h < h_end) dst[h] = g[h];
-          const int b = max(4 * we, 4 * wb) + t;           // bytes after word we
-          if (b < e) dst[b] = g[b];
-        }
+        copy_raw_tile(dst, xl + (size_t)r0 * d * es, rows * d * es, t, nt);
       }
     }
     cp_async_commit();  // one group per tile, empty past the end
@@ -545,19 +575,14 @@ leaf_scan_narrow_kernel(const float* __restrict__ qpad, const void* __restrict__
       // tile `it` landed before the last barrier; wait for this thread's
       // copies of tile it+1, which the barrier below publishes
       cp_async_wait<0>();
-      const unsigned char* src = raw + (it & 1) * rtb + lead(it);
+      const unsigned char* src = raw + (it & 1) * rtb + raw_lead(xl + (size_t)r0 * d * es);
       for (int r = t; r < TILE; r += nt) {
         const bool dead = r < rows && row_dead(codes, leaf, r0 + r);
         float v[S];
         float n = 0.f;
 #pragma unroll
         for (int j = 0; j < DW; ++j) {
-          v[j] = (r < rows && j < d)
-                     ? (dead ? PAD_COORD
-                             : decode(code, src, (size_t)r * d + j,
-                                      code == CODE_U8 ? sc[j] : 1.f,
-                                      code == CODE_U8 ? of[j] : 0.f))
-                     : 0.f;
+          v[j] = (r < rows && j < d) ? staged_code(code, src, r, j, d, dead, sc, of) : 0.f;
           n = fmaf(v[j], v[j], n);
         }
         v[DW] = r < rows ? n : INFINITY;
@@ -649,96 +674,300 @@ leaf_scan_narrow_kernel(const float* __restrict__ qpad, const void* __restrict__
 }
 
 #if LEAF_SCAN_PART == 0
-// Wide kernel, any d: one query per thread, rows in sub-tiles of WIDE_ROWS
-// whose features pass through shared memory WIDE_DC at a time, the list in
-// memory.  Same arithmetic as the narrow kernel; codes are read and
-// dequantized where a row's features are loaded.
-__global__ void __launch_bounds__(MAX_TQ)
+// a[r] for a row r known only at run time, from registers
+template <int N>
+__device__ __forceinline__ float pick(const float (&a)[N], int r) {
+  float v = a[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) v = r == i ? a[i] : v;
+  return v;
+}
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// Wide kernel, d > 16: one block of WTHREADS threads per plan row; thread
+// t owns query slot t's list (the narrow kernel's: a register list for
+// KMAX > 0, else a heap in shared memory or in the output rows) and bound.
+// The slab goes through shared memory in pieces of WROWS rows: whole rows
+// (width == 0; -2q of every slot staged once, [dp][slots]) or, where those
+// do not fit, chunks of `width` features (-2q read from device memory).  A
+// pass over a piece's rows is a register-tiled product inside each warp:
+// warp w takes slots 32w..32w+31, lane (qg = lane / 4, rg = lane % 4) forms
+// the FMA chains of the 4 slots 32w + 4qg + u against the 8 rows rg + 4rr,
+// 4 features a step (per feature one LDS.128 of -2q for 4 slots, per row
+// one LDS.128 of 4 features: 128 FMAs per 12 loads).  After a row's last
+// feature the pass is filtered against the slots' bounds (shuffled from
+// their owners), the 4 lanes of a quad OR their masks, and each owner
+// inserts its passing rows in ascending order, each accumulator fetched
+// from the lane that formed it: no second chain and no block barrier.
+// Each warp forms the norms of a tile's rows itself (lane r: row r's
+// chain, from the staged row, or from memory at a chunked tile's first
+// chunk) and hands them round by shuffles.  One barrier per piece
+// publishes the copies (codes: two, with the decode between, four threads
+// to a row).  Double-buffered pieces: fp32 copied with cp.async straight
+// into the staged rows, codes as raw bytes.  The chain is the narrow kernel's (||x||^2, then -2q_j x_j in feature order,
+// zero pad features adding exact zeros).
+template <int KMAX, int LIST>
+__global__ void __launch_bounds__(WTHREADS)
 leaf_scan_wide_kernel(const float* __restrict__ qpad, const void* __restrict__ slab,
                       const Codes codes, const int* __restrict__ unit_leaf,
                       const int* __restrict__ unit_query,
                       const int* __restrict__ n_units, float* __restrict__ out_d,
-                      int* __restrict__ out_i, int tq, int l_pad, int d, int kl,
-                      int list_at) {
+                      int* __restrict__ out_i, int tq, int l_pad, int d, int kl, int width) {
+  using Keys = typename std::conditional<LIST == LIST_SMEM, SmemKeys, RowKeys>::type;
+  using List =
+      typename std::conditional<(KMAX > 0), RegList<KMAX>, HeapList<Keys>>::type;
   const int w = blockIdx.x;
-  if (w >= *n_units) return;
+  if (w >= *n_units) return;  // uniform per block: before any barrier
   extern __shared__ __align__(16) float smem[];
-  const int t = threadIdx.x, nt = blockDim.x;
-  float* xc = smem;                       // [WIDE_ROWS][WIDE_DC] feature chunk
-  float* xn = xc + WIDE_ROWS * WIDE_DC;   // [WIDE_ROWS] row norms
-  float* lsd = xn + WIDE_ROWS;            // [kl][nt] list in shared memory
-  int* lsi = reinterpret_cast<int*>(lsd + (size_t)kl * nt);
+  const int t = threadIdx.x, lane = t & 31, rg = lane & 3;
+  const int quad = t & ~3;                    // slots quad..quad+3: this lane's product
+  const int code = codes.code, es = code_bytes(code);
+  const bool coded = code != CODE_F32;
+  const int dp = (d + 3) & ~3;
+  const bool whole = width == 0;
+  const int fc = whole ? dp : width;          // features per piece
+  const int rs = wide_row_stride(fc);         // staged row stride
+  const int nch = (d + fc - 1) / fc;          // pieces per row tile
+  const bool raw_copy = coded && whole;       // codes copied as raw bytes
+  const int rtb = wide_raw_tile_bytes(code, d);
+  float* qs = smem;                                       // whole: [dp][WTHREADS] -2q
+  float* stg = smem + (whole ? WTHREADS * dp : 0);         // [2 or 1][WROWS][rs] staged
+  float* after = stg + (coded ? 1 : 2) * WROWS * rs;
+  float* sc = after;                                       // raw copy, u8: scale, offset
+  float* of = after + d;
+  unsigned char* raw = reinterpret_cast<unsigned char*>(after + meta_floats(code, d));
+  unsigned long long* lsk = reinterpret_cast<unsigned long long*>(
+      raw_copy ? reinterpret_cast<float*>(raw + 2 * rtb) : after);  // [kl][WTHREADS] keys
 
-  const bool active = t < tq;
-  const int qrow = active ? unit_query[(size_t)w * tq + t] : -1;
-  const float* qr = qpad + (size_t)(qrow < 0 ? 0 : qrow) * d;
-  float qn = 0.f;
-  if (qrow >= 0)
-    for (int j = 0; j < d; ++j) qn = fmaf(qr[j], qr[j], qn);
-  MemList list;
-  if (active)
-    init_mem_list(list, list_at, lsd, lsi, nt, out_d, out_i, ((size_t)w * tq + t) * kl,
-                  t, kl);
-  float bound = active ? INFINITY : -INFINITY;
-
-  const int code = codes.code, leaf = unit_leaf[w];
-  const void* xl =
-      static_cast<const unsigned char*>(slab) + (size_t)leaf * l_pad * d * code_bytes(code);
-  const bool affine = code == CODE_U8;
-  const float* sc = affine ? codes.scale + (size_t)leaf * d : nullptr;
-  const float* of = affine ? codes.offset + (size_t)leaf * d : nullptr;
-  // feature j of leaf row r, dequantized; a dead row is PAD_COORD
+  const int leaf = unit_leaf[w];
+  const unsigned char* xl =
+      static_cast<const unsigned char*>(slab) + (size_t)leaf * l_pad * d * es;
+  const float* xf = reinterpret_cast<const float*>(xl);
+  const float* gsc = code == CODE_U8 ? codes.scale + (size_t)leaf * d : nullptr;
+  const float* gof = code == CODE_U8 ? codes.offset + (size_t)leaf * d : nullptr;
+  // the value of feature j of leaf row r as the scan sees it (device memory)
   auto x_at = [&](int r, int j) {
+    const size_t e = (size_t)r * d + j;
+    if (!coded) return xf[e];
     if (row_dead(codes, leaf, r)) return PAD_COORD;
-    return decode(code, xl, (size_t)r * d + j, affine ? sc[j] : 1.f, affine ? of[j] : 0.f);
+    return decode(code, xl, e, code == CODE_U8 ? gsc[j] : 1.f, code == CODE_U8 ? gof[j] : 0.f);
   };
-  for (int r0 = 0; r0 < l_pad; r0 += WIDE_ROWS) {
-    const int rows = min(WIDE_ROWS, l_pad - r0);
-    __syncthreads();  // every thread is done with the previous sub-tile
-    if (t < WIDE_ROWS) {
-      float n = INFINITY;  // a row past the leaf never passes
-      if (t < rows) {
-        n = 0.f;
-        for (int j = 0; j < d; ++j) {
-          const float v = x_at(r0 + t, j);
-          n = fmaf(v, v, n);
+
+  // the slot this thread owns: its query, norm, list and bound
+  const bool active = t < tq;
+  // an empty slot (-1) scans a zero query, as the plain version's masked gather
+  const int qrow = active ? unit_query[(size_t)w * tq + t] : -1;
+  const float* qr = qrow >= 0 ? qpad + (size_t)qrow * d : nullptr;
+  float qn = 0.f;
+  for (int j = 0; j < dp; ++j) {
+    const float v = (qr != nullptr && j < d) ? qr[j] : 0.f;
+    qn = fmaf(v, v, qn);
+    if (whole) qs[j * WTHREADS + t] = -2.f * v;
+  }
+  List list;
+  if constexpr (KMAX > 0) {
+    list.init(kl);
+  } else if (active) {
+    const size_t o = ((size_t)w * tq + t) * kl;
+    if constexpr (LIST == LIST_SMEM)
+      list.init(SmemKeys{lsk + t, WTHREADS}, kl);
+    else
+      list.init(RowKeys{out_d + o, out_i + o}, kl);
+  }
+  float bound = active ? INFINITY : -INFINITY;  // an unused slot takes no row
+  // chunks: the query rows of this lane's 4 product slots, in memory
+  const float* qq[WQT];
+  const unsigned long long qbits = reinterpret_cast<unsigned long long>(qr);
+#pragma unroll
+  for (int u = 0; u < WQT; ++u)
+    qq[u] = reinterpret_cast<const float*>(__shfl_sync(FULL, qbits, quad % 32 + u));
+  if (raw_copy && code == CODE_U8)
+    for (int j = t; j < d; j += WTHREADS) {
+      sc[j] = gsc[j];
+      of[j] = gof[j];
+    }
+  if (!coded && whole)  // the pad features of both buffers' rows stay zero
+    for (int i = t; i < 2 * WROWS; i += WTHREADS)
+      for (int j = d; j < dp; ++j) stg[i * rs + j] = 0.f;
+
+  const int ntiles = (l_pad + WROWS - 1) / WROWS;
+  const int npieces = ntiles * nch;
+  // fp32 copies move `vec` floats each (16, 8 or 4 bytes) where d and the
+  // slab's base allow
+  const uintptr_t base = reinterpret_cast<uintptr_t>(slab);
+  const int vec = (d % 4 == 0 && (base & 15) == 0) ? 4 : (d % 2 == 0 && (base & 7) == 0) ? 2 : 1;
+  auto issue = [&](int p) {
+    if (p < npieces) {
+      const int tile = p / nch, c = p - tile * nch;
+      const int r0 = tile * WROWS, rows = min(WROWS, l_pad - r0);
+      if (!coded) {
+        // the block copies the piece's rows [r0, r0 + rows) x features
+        // [c0, c0 + fcw) coalesced, element i = (row i / nv, vector i % nv);
+        // rows past the leaf and a last chunk's pad features are zeroed
+        const int c0 = c * fc, fcw = min(fc, d - c0), nv = fcw / vec, total = rows * nv;
+        float* dst = stg + (p & 1) * WROWS * rs;
+        int r = t / nv, v = t - r * nv;
+        const int dr = WTHREADS / nv, dv = WTHREADS - dr * nv;
+        for (int i = t; i < total; i += WTHREADS) {
+          const float* src = xf + (size_t)(r0 + r) * d + c0 + v * vec;
+          float* to = dst + r * rs + v * vec;
+          if (vec == 4)
+            cp_async16(to, src);
+          else if (vec == 2)
+            cp_async8(to, src);
+          else
+            cp_async4(to, src);
+          r += dr;
+          v += dv;
+          if (v >= nv) {
+            v -= nv;
+            ++r;
+          }
+        }
+        for (int i = rows * rs + t; i < WROWS * rs; i += WTHREADS) dst[i] = 0.f;
+        if (!whole && fcw < fc)
+          for (int i = t; i < rows * (fc - fcw); i += WTHREADS)
+            dst[(i / (fc - fcw)) * rs + fcw + i % (fc - fcw)] = 0.f;
+      } else if (raw_copy) {
+        copy_raw_tile(raw + (p & 1) * rtb, xl + (size_t)r0 * d * es, rows * d * es, t,
+                      WTHREADS);
+      }
+    }
+    cp_async_commit();  // one group per piece, empty past the end
+  };
+
+  float acc[WQT][WRT];
+  issue(0);
+  for (int p = 0; p < npieces; ++p) {
+    const int tile = p / nch, c = p - tile * nch;
+    const int r0 = tile * WROWS, rows = min(WROWS, l_pad - r0);
+    const int c0 = c * fc, fcw = min(fc, d - c0);
+    float* xt = stg + (coded ? 0 : (p & 1) * WROWS * rs);
+    cp_async_wait<0>();  // this thread's copies of piece p have landed
+    // piece p is in place; every thread is done with piece p-1
+    __syncthreads();
+    if (coded) {
+      // four threads decode each row into the staged buffer, features
+      // sub, sub + 4, ... (dead rows PAD_COORD in every feature, pad
+      // features and rows past the leaf zero)
+      const int r = t >> 2, sub = t & 3;
+      float* xr = xt + r * rs;
+      const bool live = r < rows;
+      const bool dead = live && row_dead(codes, leaf, r0 + r);
+      const unsigned char* src = raw + (p & 1) * rtb + raw_lead(xl + (size_t)r0 * d * es);
+      for (int j = sub; j < fc; j += 4)
+        xr[j] = (!live || j >= fcw) ? 0.f
+                : raw_copy          ? staged_code(code, src, r, j, d, dead, sc, of)
+                                    : x_at(r0 + r, c0 + j);
+      __syncthreads();  // the piece's rows are staged
+    }
+    issue(p + 1);  // into the buffers piece p-1 used
+
+    if (c == 0) {
+      // each warp forms the tile's row norms itself: lane r the chain of
+      // row r (whole rows: from the staged row, its loads a step ahead;
+      // chunks: from memory)
+      float nr = INFINITY;  // a row past the leaf never passes
+      if (lane < rows) {
+        nr = 0.f;
+        if (whole) {
+          const float4* v = reinterpret_cast<const float4*>(xt + lane * rs);
+          float4 a = v[0];
+          for (int i = 0; i < dp / 4; ++i) {
+            const float4 b = i + 1 < dp / 4 ? v[i + 1] : make_float4(0.f, 0.f, 0.f, 0.f);
+            nr = fmaf(a.x, a.x, nr);
+            nr = fmaf(a.y, a.y, nr);
+            nr = fmaf(a.z, a.z, nr);
+            nr = fmaf(a.w, a.w, nr);
+            a = b;
+          }
+        } else {
+          for (int j = 0; j < d; ++j) {
+            const float v = x_at(r0 + lane, j);
+            nr = fmaf(v, v, nr);
+          }
         }
       }
-      xn[t] = n;
-    }
-    float acc[WIDE_ROWS];
-    for (int c0 = 0; c0 < d; c0 += WIDE_DC) {
-      if (c0 > 0) __syncthreads();  // every thread is done with the last chunk
-      for (int e = t; e < WIDE_ROWS * WIDE_DC; e += nt) {
-        const int r = e / WIDE_DC, j = c0 + e % WIDE_DC;
-        xc[e] = (r < rows && j < d) ? x_at(r0 + r, j) : 0.f;
-      }
-      __syncthreads();
-      if (c0 == 0) {
 #pragma unroll
-        for (int r = 0; r < WIDE_ROWS; ++r) acc[r] = xn[r];
-      }
-      float qc[WIDE_DC];
+      for (int rr = 0; rr < WRT; ++rr) {
+        const float n = __shfl_sync(FULL, nr, rg + 4 * rr);
 #pragma unroll
-      for (int j = 0; j < WIDE_DC; ++j)
-        qc[j] = (qrow >= 0 && c0 + j < d) ? -2.f * qr[c0 + j] : 0.f;
-#pragma unroll
-      for (int r = 0; r < WIDE_ROWS; ++r) {
-#pragma unroll
-        for (int j = 0; j < WIDE_DC; ++j) acc[r] = fmaf(qc[j], xc[r * WIDE_DC + j], acc[r]);
+        for (int u = 0; u < WQT; ++u) acc[u][rr] = n;
       }
     }
+    for (int j = 0; j < fcw; j += 4) {
+      float qv[4][WQT];  // [feature j + f][slot quad + u]
 #pragma unroll
-    for (int r = 0; r < WIDE_ROWS; ++r) {
-      if (acc[r] < bound) {
-        const float dist = fmaxf(acc[r] + qn, 0.f);
-        if (dist < list.worst()) {
-          list.insert(dist, r0 + r);
-          bound = filter_bound(list.worst(), qn);
+      for (int f = 0; f < 4; ++f) {
+        if (whole) {
+          const float4 v = *reinterpret_cast<const float4*>(qs + (j + f) * WTHREADS + quad);
+          qv[f][0] = v.x;
+          qv[f][1] = v.y;
+          qv[f][2] = v.z;
+          qv[f][3] = v.w;
+        } else {
+#pragma unroll
+          for (int u = 0; u < WQT; ++u)
+            qv[f][u] = (qq[u] != nullptr && c0 + j + f < d) ? -2.f * qq[u][c0 + j + f] : 0.f;
         }
       }
+#pragma unroll
+      for (int rr = 0; rr < WRT; ++rr) {
+        const float4 x = *reinterpret_cast<const float4*>(xt + (rg + 4 * rr) * rs + j);
+#pragma unroll
+        for (int u = 0; u < WQT; ++u) {
+          float a = acc[u][rr];
+          a = fmaf(qv[0][u], x.x, a);
+          a = fmaf(qv[1][u], x.y, a);
+          a = fmaf(qv[2][u], x.z, a);
+          a = fmaf(qv[3][u], x.w, a);
+          acc[u][rr] = a;
+        }
+      }
+    }
+    if (c == nch - 1) {
+      // filter: bit r (row r = rg + 4 rr) of a slot's mask is the sign of
+      // acc - bound (set iff acc < bound); the quad ORs its lanes' rows
+      unsigned part[WQT];
+#pragma unroll
+      for (int u = 0; u < WQT; ++u) {
+        const float b = __shfl_sync(FULL, bound, (quad % 32) + u);
+        unsigned m = 0u;
+#pragma unroll
+        for (int rr = 0; rr < WRT; ++rr)
+          m |= (__float_as_uint(acc[u][rr] - b) >> 31) << (rg + 4 * rr);
+        m |= __shfl_xor_sync(FULL, m, 1);
+        m |= __shfl_xor_sync(FULL, m, 2);
+        part[u] = m;
+      }
+      unsigned m = part[0];
+#pragma unroll
+      for (int u = 1; u < WQT; ++u) m = rg == u ? part[u] : m;
+      // the owner inserts its passing rows in ascending order; each
+      // accumulator comes from the lane of its row group (a round per
+      // slot of the quad: that slot's owner asks, every lane answers)
+      while (__any_sync(FULL, m != 0u)) {
+        const bool have = m != 0u;
+        const int r = have ? __ffs(m) - 1 : 0;
+        m &= m - 1u;
+        float a = 0.f;
+#pragma unroll
+        for (int u = 0; u < WQT; ++u) {
+          const int rq = __shfl_sync(FULL, r, (quad % 32) + u);
+          const float got = __shfl_sync(FULL, pick(acc[u], rq >> 2), (quad % 32) + (r & 3));
+          if (rg == u) a = got;
+        }
+        if (have) {
+          const float dist = fmaxf(a + qn, 0.f);
+          if (dist < list.worst()) list.insert(dist, r0 + r);
+        }
+      }
+      if (active) bound = filter_bound(list.worst(), qn);
     }
   }
+  cp_async_wait<0>();  // nothing left in flight (the last group is empty)
+
   if (active) {
     const size_t o = ((size_t)w * tq + t) * kl;
     list.store(out_d + o, out_i + o, kl);
@@ -755,19 +984,20 @@ struct Launch {
   const int* n_units;
   float* out_d;
   int* out_i;
-  int w_rows, tq, l_pad, d, kl, list_at, threads, smem;
+  int w_rows, tq, l_pad, d, kl, list_at, width, threads, smem;
   cudaStream_t stream;
 };
 
+// The last kernel argument: the narrow kernel's list placement, the wide
+// kernel's features per piece.
 template <typename Kernel>
-int launch(Kernel kernel, const Launch& a) {
+int launch(Kernel kernel, const Launch& a, int last) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<a.w_rows, a.threads, a.smem, a.stream>>>(a.qpad, a.slab, a.codes, a.unit_leaf,
                                                      a.unit_query, a.n_units, a.out_d,
-                                                     a.out_i, a.tq, a.l_pad, a.d, a.kl,
-                                                     a.list_at);
+                                                     a.out_i, a.tq, a.l_pad, a.d, a.kl, last);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -778,14 +1008,31 @@ int narrow(int dw, int kmax, int list_at, const Launch& a) {
 #if LEAF_SCAN_PART > 0
   constexpr int DW = LEAF_SCAN_PART;
   if (dw == DW) {
-    if (list_at == LIST_SMEM) return launch(leaf_scan_narrow_kernel<DW, 0, LIST_SMEM>, a);
-    if (list_at == LIST_OUT) return launch(leaf_scan_narrow_kernel<DW, 0, LIST_OUT>, a);
+    const int l = a.list_at;
+    if (list_at == LIST_SMEM) return launch(leaf_scan_narrow_kernel<DW, 0, LIST_SMEM>, a, l);
+    if (list_at == LIST_OUT) return launch(leaf_scan_narrow_kernel<DW, 0, LIST_OUT>, a, l);
     switch (kmax) {
-      case 4: return launch(leaf_scan_narrow_kernel<DW, 4, LIST_REG>, a);
-      case 8: return launch(leaf_scan_narrow_kernel<DW, 8, LIST_REG>, a);
-      case 10: return launch(leaf_scan_narrow_kernel<DW, 10, LIST_REG>, a);
-      case 16: return launch(leaf_scan_narrow_kernel<DW, 16, LIST_REG>, a);
+      case 4: return launch(leaf_scan_narrow_kernel<DW, 4, LIST_REG>, a, l);
+      case 8: return launch(leaf_scan_narrow_kernel<DW, 8, LIST_REG>, a, l);
+      case 10: return launch(leaf_scan_narrow_kernel<DW, 10, LIST_REG>, a, l);
+      case 16: return launch(leaf_scan_narrow_kernel<DW, 16, LIST_REG>, a, l);
     }
+  }
+#endif
+  return NO_INSTANCE;
+}
+
+// The wide instances: the narrow kernel's lists.
+int wide(int kmax, int list_at, const Launch& a) {
+#if LEAF_SCAN_PART == 0
+  const int fc = a.width;
+  if (list_at == LIST_SMEM) return launch(leaf_scan_wide_kernel<0, LIST_SMEM>, a, fc);
+  if (list_at == LIST_OUT) return launch(leaf_scan_wide_kernel<0, LIST_OUT>, a, fc);
+  switch (kmax) {
+    case 4: return launch(leaf_scan_wide_kernel<4, LIST_REG>, a, fc);
+    case 8: return launch(leaf_scan_wide_kernel<8, LIST_REG>, a, fc);
+    case 10: return launch(leaf_scan_wide_kernel<10, LIST_REG>, a, fc);
+    case 16: return launch(leaf_scan_wide_kernel<16, LIST_REG>, a, fc);
   }
 #endif
   return NO_INSTANCE;
@@ -794,8 +1041,19 @@ int narrow(int dw, int kmax, int list_at, const Launch& a) {
 // Dynamic shared memory an instance needs (bytes); mirrors the wrapper.
 long smem_needed(int kind, int width, int qpt, int list_at, int threads, int d, int kl,
                  int code) {
-  long b = kind == NARROW ? raw_region_bytes(code, d) + 4L * 2L * TILE * row_stride(width)
-                          : 4L * (WIDE_ROWS * WIDE_DC + WIDE_ROWS);
+  long b;
+  if (kind == NARROW) {
+    b = raw_region_bytes(code, d) + 4L * 2L * TILE * row_stride(width);
+  } else {
+    // -2q of every slot (whole rows), the staged pieces (fp32 two, codes
+    // one; rows padded to wide_row_stride), and with whole rows of codes
+    // the raw code tiles and u8 metadata
+    const long dp = (d + 3) / 4 * 4, fc = width == 0 ? dp : width;
+    b = (width == 0 ? 4L * threads * dp : 0L) +
+        4L * (code == CODE_F32 ? 2 : 1) * WROWS * wide_row_stride(fc);
+    if (code != CODE_F32 && width == 0)
+      b += 4L * meta_floats(code, d) + 2L * wide_raw_tile_bytes(code, d);
+  }
   if (list_at == LIST_SMEM) b += 8L * kl * qpt * threads;
   return b;
 }
@@ -832,21 +1090,21 @@ int leaf_scan_units(const float* qpad, const void* slab, const int* unit_leaf,
       smem_bytes < smem_needed(kind, width, qpt, list_at, threads, d, kl, code))
     return -1;
   const Codes codes{code, scale, offset, dead, (l_pad + 7) / 8};
-  const Launch a{qpad,   slab, codes, unit_leaf, unit_query, n_units, out_d,   out_i,
-                 w_rows, tq,   l_pad, d,         kl,         list_at, threads,
-                 smem_bytes, static_cast<cudaStream_t>(stream)};
+  const Launch a{qpad,   slab,    codes, unit_leaf, unit_query, n_units,
+                 out_d,  out_i,   w_rows, tq,       l_pad,      d,
+                 kl,     list_at, width, threads,  smem_bytes, static_cast<cudaStream_t>(stream)};
   if (kind == NARROW) {
     // a register list takes two query slots per thread, a heap one
     if (d > width || qpt != (reg ? 2 : 1) || threads > MAX_TQ / qpt) return -1;
     return narrow(width, kmax, list_at, a);
   }
   if (kind == WIDE) {
-    if (reg || qpt != 1 || width != WIDE_DC || threads > MAX_TQ) return -1;
-#if LEAF_SCAN_PART == 0
-    return launch(leaf_scan_wide_kernel, a);
-#else
-    return NO_INSTANCE;
-#endif
+    // width 0: whole rows; else chunks of `width` features (a multiple of
+    // 4, narrower than the row)
+    if (qpt != 1 || threads != WTHREADS ||
+        (width != 0 && (width < 4 || width % 4 != 0 || width >= (d + 3) / 4 * 4)))
+      return -1;
+    return wide(kmax, list_at, a);
   }
   return -1;
 }

@@ -66,7 +66,9 @@ SMEM_LIMIT = 232_448             # dynamic shared memory one block may use
 NARROW_WIDTHS = (2, 4, 6, 8, 10, 12, 14, 16)
 REG_KMAX = (4, 8, 10, 16)        # register-list lengths
 TILE = 64                        # narrow: slab rows per pipeline stage
-WIDE_ROWS, WIDE_DC = 32, 16      # wide: rows per sub-tile, features per chunk
+WIDE_ROWS = 32                   # wide: slab rows per piece (one filter pass)
+WIDE_FC = 128                    # wide: features per piece where whole rows do not fit
+WIDE_THREADS = 128               # wide: threads per block (one query slot each)
 _KINDS = {"narrow": 0, "wide": 1}
 _LIST_AT = {"reg": 0, "smem": 1, "out": 2}
 # slab code types: name -> (csrc Code, bytes per coordinate, torch dtype)
@@ -78,12 +80,13 @@ _CODE_OF_DTYPE = {dt: name for name, (_, _, dt) in CODES.items()}
 @dataclasses.dataclass(frozen=True)
 class Variant:
     """One launch of the leaf-scan library: ``kind`` "narrow" (rows of
-    d <= ``width`` staged whole) or "wide" (features in chunks of
-    ``width``); ``list_at`` "reg" (a sorted list of ``kmax`` entries in
-    registers, narrow only), "smem" or "out" (the list in shared memory or
-    in the output rows: the narrow kernel's heap, the wide kernel's sorted
-    list); ``qpt`` queries per thread (2 with a register list, else 1),
-    ``threads`` per block, ``smem_bytes`` of dynamic shared memory."""
+    d <= ``width`` staged whole) or "wide" (rows staged whole for
+    ``width`` 0, else in chunks of ``width`` features); ``list_at`` "reg"
+    (a sorted list of ``kmax`` entries in registers), "smem" or "out" (a
+    heap of 64-bit keys in shared memory or in the output rows); ``qpt``
+    query slots per thread (narrow: 2 with a register list, else 1; wide:
+    1, ``WIDE_THREADS`` threads), ``threads`` per block, ``smem_bytes`` of
+    dynamic shared memory."""
 
     kind: str
     width: int
@@ -98,7 +101,9 @@ class Variant:
     def name(self) -> str:
         suffix = "" if self.code == "f32" else f"/{self.code}"
         if self.kind == "wide":
-            return f"wide/{self.list_at}{suffix}"
+            lst = f"{self.kmax}>/reg" if self.list_at == "reg" else f"heap>/{self.list_at}"
+            rows = f"/chunk{self.width}" if self.width else ""
+            return f"wide<{lst}{rows}{suffix}"
         if self.list_at == "reg":
             return f"narrow<{self.width},{self.kmax}>/reg{suffix}"
         return f"narrow<{self.width},heap>/{self.list_at}{suffix}"
@@ -120,6 +125,23 @@ def _raw_region_bytes(code: str, d: int) -> int:
     return meta + 2 * _round_up(TILE * d * es + 4, 16)
 
 
+def _wide_base_bytes(code: str, d: int, width: int, slots: int) -> int:
+    """Wide kernel, shared memory besides a heap (csrc/leaf_scan.cu
+    ``smem_needed``): -2q of every slot when rows are staged whole (``width``
+    0), the staged pieces (fp32: two, codes: one; rows of ``fc`` features
+    padded by 4 where fc / 4 is even, so that 4 consecutive rows' loads
+    fall in distinct banks), and with whole rows of codes the raw byte
+    tiles and u8 metadata."""
+    dp = _round_up(d, 4)
+    fc = width or dp
+    rs = fc if (fc // 4) % 2 else fc + 4
+    b = (4 * slots * dp if width == 0 else 0) + 4 * (2 if code == "f32" else 1) * WIDE_ROWS * rs
+    if code != "f32" and width == 0:
+        meta = 4 * _round_up(2 * d, 4) if code == "u8" else 0
+        b += meta + 2 * _round_up(WIDE_ROWS * d * CODES[code][1] + 4, 16)
+    return b
+
+
 def choose_variant(d: int, k: int, tq: int, l_pad: int, code: str = "f32") -> Variant:
     """The kernel launch for rows of width ``d`` stored as ``code`` ("f32",
     "f16" or "u8"), lists of ``k``, ``tq`` query slots and ``l_pad`` slab
@@ -127,8 +149,10 @@ def choose_variant(d: int, k: int, tq: int, l_pad: int, code: str = "f32") -> Va
     k <= 16 a register list with two queries per thread; longer lists a
     heap of 64-bit keys with one query per thread, in shared memory while
     it fits (k up to 216 at TQ = 128), else in the output rows.  Wider rows
-    take the wide kernel, its sorted list in shared memory or the output
-    rows.  The code type changes only the narrow kernel's raw tile bytes."""
+    take the wide kernel with the same lists (``WIDE_THREADS`` threads, one
+    slot each): rows staged whole while that fits in shared memory, else in
+    chunks of ``WIDE_FC`` features.  The code type changes only the raw
+    tile bytes (and the wide kernel's staged buffers)."""
     if code not in CODES:
         raise ValueError(f"code={code!r}: the leaf scan reads {sorted(CODES)}")
     if not 1 <= k <= l_pad:
@@ -139,16 +163,16 @@ def choose_variant(d: int, k: int, tq: int, l_pad: int, code: str = "f32") -> Va
         raise ValueError(f"TQ={tq}: one launch of the CUDA leaf scan takes 1 <= TQ <= "
                          f"{MAX_TQ} (one block per query tile; leaf_scan_units scans a "
                          "wider tile in blocks)")
+    kmax = next((km for km in REG_KMAX if km >= k), 0)
     if d <= NARROW_WIDTHS[-1]:
         width = d + d % 2
-        kmax = next((km for km in REG_KMAX if km >= k), 0)
         kind, qpt = "narrow", 2 if kmax else 1
         threads = max(32, _round_up(-(-tq // qpt), 32))
         base = _raw_region_bytes(code, d) + 4 * 2 * TILE * _round_up(width + 1, 4)
     else:
-        kind, width, qpt, kmax = "wide", WIDE_DC, 1, 0
-        threads = _round_up(tq, 32)
-        base = 4 * (WIDE_ROWS * WIDE_DC + WIDE_ROWS)
+        kind, qpt, threads = "wide", 1, WIDE_THREADS
+        width = 0 if _wide_base_bytes(code, d, 0, qpt * threads) <= SMEM_LIMIT else WIDE_FC
+        base = _wide_base_bytes(code, d, width, qpt * threads)
     if kmax:
         return Variant(kind, width, kmax, qpt, "reg", threads, base, code)
     in_smem = base + 8 * k * qpt * threads
@@ -348,9 +372,11 @@ def leaf_scan_units(
     Returns (f32[W, TQ, k], i32[W, TQ, k]) for plan rows < n_units; rows
     beyond are left unwritten by the kernel.  ``choose_variant`` picks the
     launch; a tile wider than ``MAX_TQ`` query slots is scanned as blocks
-    of at most ``MAX_TQ`` slots, one launch each.  ``launches`` counts every launch, ``launches_by_code`` those
-    of each code type, ``launches_by_instance`` those of each (code type,
-    k), keyed ``"f32_k12"``.
+    of at most ``MAX_TQ`` slots, one launch each.  ``launches`` counts every
+    launch, ``launches_by_code`` those of each code type,
+    ``launches_by_instance`` those of each (code type, k), keyed
+    ``"f32_k12"`` (the wide kernel's ``"f32_d30_k16"``), and
+    ``launches_by_variant`` those of each ``Variant.name``.
     """
     if qpad.device.type != "cuda":
         raise ValueError(
@@ -401,8 +427,10 @@ def _launch(v: Variant, qpad, slab, unit_leaf, unit_query, n_units, k, scale, of
         )
     leaf_scan_units.launches += 1
     leaf_scan_units.launches_by_code[code] += 1
-    by_instance = leaf_scan_units.launches_by_instance
-    by_instance[f"{code}_k{k}"] = by_instance.get(f"{code}_k{k}", 0) + 1
+    key = f"{code}_k{k}" if v.kind == "narrow" else f"{code}_d{d}_k{k}"
+    for counts, at in ((leaf_scan_units.launches_by_instance, key),
+                       (leaf_scan_units.launches_by_variant, v.name)):
+        counts[at] = counts.get(at, 0) + 1
     return out_d, out_i
 
 
@@ -411,10 +439,11 @@ def reset_launches() -> None:
     leaf_scan_units.launches = 0
     leaf_scan_units.launches_by_code = dict.fromkeys(CODES, 0)
     leaf_scan_units.launches_by_instance = {}
+    leaf_scan_units.launches_by_variant = {}
 
 
-# kernel launches (not plain-version calls), in all, per code type and per
-# (code type, k)
+# kernel launches (not plain-version calls), in all, per code type, per
+# (code type, k) and per variant
 reset_launches()
 
 

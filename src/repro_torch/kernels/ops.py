@@ -6,13 +6,15 @@ for CUDA tensors and the plain ``leaf_scan_ref`` for CPU tensors
 (``resolve_backend``).  ``resolve_device`` is the one place a missing device
 choice becomes the card: entry points run on ``cuda:0`` unless the caller
 passes a CPU device, and without a card they raise instead of carrying on
-quietly on the CPU.
+quietly on the CPU.  ``owned_tensor`` is how entry points take the
+caller's arrays: as a copy the port owns, on every device.
 """
 
 from __future__ import annotations
 
 from typing import Literal, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import knn_scan as _knn_scan
@@ -25,6 +27,7 @@ __all__ = [
     "engine_tile_q",
     "resolve_backend",
     "resolve_device",
+    "owned_tensor",
     "PAD_COORD",
     "INVALID_DIST",
 ]
@@ -46,6 +49,18 @@ def resolve_device(device=None) -> torch.device:
             "devices=(torch.device('cpu'),) (or device=torch.device('cpu'))"
         )
     return torch.device("cuda", 0)
+
+
+def owned_tensor(a, device, dtype=torch.float32) -> torch.Tensor:
+    """``a`` (a numpy array or a tensor) as a ``dtype`` tensor on ``device``
+    that shares no memory with ``a``.  On the CPU ``torch.from_numpy`` and
+    ``.to`` return views of the caller's buffer, which other code in the
+    process (the caller, or another framework holding the same array) may
+    write while the port reads it; a copy taken here cannot change under
+    the port."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype, copy=True)
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
 def resolve_backend(backend: str, device) -> str:

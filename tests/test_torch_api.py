@@ -117,6 +117,33 @@ def test_knn_index_long_lists_and_wide_rows(n, m, d, k, height):
     _assert_same_answers(res, ref_d, ref_i, pts, q)
 
 
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+def test_knn_index_d30_matches_reference(precision):
+    """The wide cell's configuration at a small size: d = 30 (the top of
+    the paper's range, rows past the narrow kernel's 16 features), no
+    engine pinned, k = 10.  fp32 with no budget and int8 under a third of
+    the fp32 slab bytes (planner rule 4, as ``chip_smoke.py``'s quant cell)
+    both plan ``chunked`` with N = 1, as ``repro``'s planner does, and
+    answer what ``repro``'s fp32 ``chunked`` engine answers: distances
+    within rtol 1e-5 (atol 1e-6), ids equal up to ties (the port's int8
+    store proves each row and refines the unproven ones, so it is exact
+    too)."""
+    n, m, d, k, height = 4000, 200, 30, 10, 4
+    pts, q = _data(n, m, d, seed=n + m)
+    ref_d, ref_i = _reference(n, m, d, k, height, "chunked", 1)
+    budget = estimate_slab_bytes(n, d, height) // 3 if precision == "int8" else None
+    index = KNNIndex.build(pts, spec=IndexSpec(height=height, memory_budget=budget,
+                                               devices=CPU))
+    ref_plan = jax_api.KNNIndex.build(pts, spec=jax_api.IndexSpec(
+        height=height, memory_budget=budget)).plan
+    assert (index.plan.engine, index.plan.precision, index.plan.n_chunks) == (
+        "chunked", precision, 1)
+    assert (ref_plan.engine, ref_plan.precision, ref_plan.n_chunks) == (
+        "chunked", precision, 1)
+    res = index.query(q, k=k)
+    _assert_same_answers(res, ref_d, ref_i, pts, q)
+
+
 def test_carried_tree_from_reference():
     """The index's weights are its tree: a tree built by ``repro`` and
     carried over as arrays gives the reference's answers."""
@@ -419,6 +446,31 @@ def test_port_imports_neither_jax_nor_repro():
                 node.module or ""]
             for name in names:
                 assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), name
+
+
+def _load_script(path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(os.path.basename(path)[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("d", [10, 30])
+def test_main_cell_time_data_is_chip_smokes(d):
+    """``scripts/main_cell_time.py`` makes its own copy of ``chip_smoke.py``'s
+    main / wide cell data (so that it runs from an older tree's root): the
+    two give the same arrays at a seed, a shift and d."""
+    root = os.path.join(SRC, "..")
+    smoke = _load_script(os.path.join(root, "chip_smoke.py"))
+    timer = _load_script(os.path.join(root, "scripts", "main_cell_time.py"))
+    for seed in (0, 3):
+        want = smoke.main_data(seed, 14, d=d)
+        got = timer.mixture_data(seed, 14, d)
+        assert want[0].shape == (1024, d) and want[1].shape == (64, d)
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_build_without_card_and_without_cpu_device_raises():

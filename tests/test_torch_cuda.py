@@ -131,14 +131,32 @@ def test_kernel_indexed_form_skips_rows_past_n_units():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lp,d,k,pad_rows", [
-    (600, 10, 129, 0),     # list in shared memory
-    (600, 10, 300, 0),     # list in the output rows
-    (300, 136, 10, 0),     # wide kernel
-    (320, 300, 300, 37),   # wide kernel, output-row list, pad rows in the tail
+@pytest.mark.parametrize("lp,d,k,pad_rows,code", [
+    pytest.param(600, 10, 129, 0, "f32", id="600-10-129-0"),     # list in shared memory
+    pytest.param(600, 10, 300, 0, "f32", id="600-10-300-0"),     # list in the output rows
+    pytest.param(300, 136, 10, 0, "f32", id="300-136-10-0"),     # wide kernel
+    # wide kernel, output-row list, pad rows in the tail
+    pytest.param(320, 300, 300, 37, "f32", id="320-300-300-37"),
+    # the wide cell's rows (d = 30): its register list and the refining
+    # pass's heap, fp32 and uint8 codes with dead rows
+    pytest.param(1000, 30, 16, 0, "f32", id="1000-30-16-0"),
+    pytest.param(1000, 30, 74, 11, "f32", id="1000-30-74-11"),
+    pytest.param(1000, 30, 16, 0, "u8", id="1000-30-16-0-u8"),
+    pytest.param(1000, 30, 74, 0, "u8", id="1000-30-74-0-u8"),
+    # rows too wide to stage whole: chunks of features
+    pytest.param(300, 520, 16, 5, "f32", id="300-520-16-5"),
+    pytest.param(300, 520, 40, 0, "u8", id="300-520-40-0-u8"),
 ])
-def test_kernel_takes_long_lists_and_wide_rows(lp, d, k, pad_rows):
+def test_kernel_takes_long_lists_and_wide_rows(lp, d, k, pad_rows, code):
     dev = _device()
+    if code != "f32":
+        q, codes, meta = _code_inputs(2, 128, lp, d, code, seed=lp + d + k, dead_frac=0.2)
+        kd, ki, rd, _, x = _scan_codes(dev, q, codes, meta, k)
+        _assert_scan_matches(q, x, kd, ki, rd)
+        dead = np.unpackbits(meta["dead"], axis=1)[:, :lp].astype(bool)
+        sel_dead = dead[np.arange(2)[:, None, None], ki.cpu().numpy()]
+        assert (np.diff(sel_dead.astype(int), axis=-1) >= 0).all()
+        return
     q, x = _inputs(2, 128, lp, d, d, seed=lp + k, pad_rows=pad_rows)
     qt, xt = torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
     kd, ki = knn_scan.leaf_scan_cuda(qt, xt, k=k)
@@ -151,14 +169,19 @@ def test_kernel_takes_long_lists_and_wide_rows(lp, d, k, pad_rows):
 def test_kernel_instances_agree_bit_for_bit():
     """Every instance forms the same values: a register list (k=16), the
     first 16 entries of a shared-memory list (k=17) and of an output-row
-    list (k=300), and the wide kernel on the rows with a zero 17th column
-    are identical."""
+    list (k=300), and the wide kernel's register list (k=16) and heaps in
+    shared memory (k=17) and in the output rows (k=300) on the rows with
+    zero columns past 16 (d = 17, and d = 30 at k = 16) are identical."""
     dev = _device()
-    q, x = _inputs(3, 128, 1000, 16, 17, seed=11)
+    q, x = _inputs(3, 128, 1000, 16, 30, seed=11)
     qt, xt = torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
     base = knn_scan.leaf_scan_cuda(qt[..., :16].contiguous(), xt[..., :16].contiguous(), k=16)
     others = [knn_scan.leaf_scan_cuda(qt[..., :16].contiguous(), xt[..., :16].contiguous(), k=k)
               for k in (17, 300)]
+    q17, x17 = qt[..., :17].contiguous(), xt[..., :17].contiguous()
+    lists = [knn_scan.choose_variant(17, k, 128, 1000).list_at for k in (16, 17, 300)]
+    assert lists == ["reg", "smem", "out"]
+    others += [knn_scan.leaf_scan_cuda(q17, x17, k=k) for k in (16, 17, 300)]
     others.append(knn_scan.leaf_scan_cuda(qt, xt, k=16))
     torch.cuda.synchronize()
     for od, oi in others:

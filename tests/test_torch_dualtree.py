@@ -433,3 +433,62 @@ def test_edge_bounds_decide_the_direct_bin():
             xs = np.maximum(xs, 0)
             got = _bins(torch.sqrt(torch.from_numpy(xs)), e_t).numpy()
             np.testing.assert_array_equal((j // 2)[even], got[even])
+
+
+# -- the oracles own their inputs (ROADMAP Queue 3, item 5) ----------------
+def _written_during(module, fn_name, target, monkeypatch):
+    """Make ``module.fn_name`` add 0.25 to the first half of the rows of
+    ``target`` (the caller's array) on its first call, before it computes:
+    another writer of the caller's memory while the port reads it."""
+    real = getattr(module, fn_name)
+    state = {"done": False}
+
+    def wrapped(*args, **kwargs):
+        if not state["done"]:
+            half = target[: len(target) // 2]
+            np.add(half, np.float32(0.25), out=half)
+            state["done"] = True
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(module, fn_name, wrapped)
+
+
+@pytest.mark.parametrize("oracle", ["radius_brute", "kde_tophat", "kde_gaussian",
+                                    "pair_count_brute", "knn_brute_queries",
+                                    "knn_brute_points"])
+def test_oracles_own_their_inputs(oracle, monkeypatch):
+    """The port's oracles compute on copies they own: a write to the
+    caller's arrays while an oracle runs (as by another thread, or by
+    another framework holding the same buffer) leaves its answer as it was
+    for the arrays at the call.  On the CPU ``torch.from_numpy`` aliased
+    the caller's buffer, so such a write reached the distances."""
+    from repro_torch.core import brute as port_brute
+    from repro_torch.core import dualtree as port_dualtree
+    from repro_torch.core.brute import knn_brute
+
+    pts = lattice(400, 3, seed=21)
+    q = lattice(60, 3, seed=22)
+    calls = {
+        "radius_brute": (lambda a, b: radius_brute(a, b, RADIUS, device=CPU),
+                         port_dualtree, "_pairwise_direct_d2", "points"),
+        "kde_tophat": (lambda a, b: kde_brute(a, b, 2.5, kernel="tophat", device=CPU),
+                       port_dualtree, "_pairwise_direct_d2", "points"),
+        "kde_gaussian": (lambda a, b: kde_brute(a, b, 2.5, device=CPU),
+                         port_dualtree, "_pairwise_d2", "points"),
+        "pair_count_brute": (lambda a, b: pair_count_brute(b, EDGES, device=CPU),
+                             port_dualtree, "_pairwise_direct_d2", "points"),
+        "knn_brute_queries": (lambda a, b: knn_brute(a, b, 5, device=CPU),
+                              port_brute, "_tile_step", "queries"),
+        "knn_brute_points": (lambda a, b: knn_brute(a, b, 5, device=CPU),
+                             port_brute, "_tile_step", "points"),
+    }
+    call, module, fn_name, which = calls[oracle]
+    want = call(q.copy(), pts.copy())
+    qa, pa = q.copy(), pts.copy()
+    _written_during(module, fn_name, pa if which == "points" else qa, monkeypatch)
+    got = call(qa, pa)
+    assert not np.array_equal(pa if which == "points" else qa,
+                              pts if which == "points" else q)   # the write happened
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        np.testing.assert_array_equal(g, w)

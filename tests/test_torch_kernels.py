@@ -10,6 +10,8 @@ reference distance at every rank must be the distance of the port's index.
 The CUDA kernel itself runs only on the card: ``test_torch_cuda.py``.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -221,8 +223,9 @@ def test_choose_variant_takes_every_k_and_d(d):
             assert v.threads % 32 == 0 and v.threads * v.qpt >= tq
             if v.kind == "narrow":
                 assert d <= v.width <= d + 1 and v.width in knn_scan.NARROW_WIDTHS
-            else:
-                assert d > knn_scan.NARROW_WIDTHS[-1] and v.list_at != "reg"
+            else:   # rows staged whole (width 0) or in chunks of WIDE_FC features
+                assert d > knn_scan.NARROW_WIDTHS[-1] and v.width in (0, knn_scan.WIDE_FC)
+                assert (v.qpt, v.threads) == (1, knn_scan.WIDE_THREADS)
             if v.list_at == "reg":
                 assert k <= v.kmax in knn_scan.REG_KMAX
             else:
@@ -486,7 +489,7 @@ def test_heap_keys_order_as_distance_index_pairs():
 def test_choose_variant_long_lists_take_the_heap():
     """Past the longest register list the narrow kernel takes the heap with
     one query per thread: in shared memory while 8 bytes x k per slot fit,
-    then in the output rows; the wide kernel keeps its sorted list."""
+    then in the output rows; so does the wide kernel."""
     for tq in (8, 128):
         for k in (17, 18, 74, 216, 217, 300):
             v = knn_scan.choose_variant(10, k, tq, 4096)
@@ -500,7 +503,70 @@ def test_choose_variant_long_lists_take_the_heap():
     assert knn_scan.choose_variant(10, 217, 128, 4096).list_at == "out"
     assert knn_scan.choose_variant(10, 16, 128, 4096).name == "narrow<10,16>/reg"
     wide = knn_scan.choose_variant(130, 74, 128, 4096)
-    assert (wide.kind, wide.qpt, wide.list_at, wide.name) == ("wide", 1, "smem", "wide/smem")
+    assert (wide.kind, wide.qpt, wide.list_at, wide.name) == (
+        "wide", 1, "smem", "wide<heap>/smem")
+
+
+WIDE_DS = [17, 30, 72, 130, 300, 1024]
+WIDE_KS = [1, 16, 17, 74, 216, 300]
+
+
+@pytest.mark.parametrize("k", WIDE_KS)
+@pytest.mark.parametrize("d", WIDE_DS)
+def test_choose_variant_wide_placements(d, k):
+    """Rows of d > 16 take the wide kernel with the narrow kernel's lists:
+    a register list for k <= 16, a heap in shared memory while it fits,
+    else in the output rows; rows staged whole while -2q of every slot and
+    two pieces of whole rows fit, else in chunks of WIDE_FC features.  The
+    shared memory is the C library's formula and stays within one block's
+    limit, for every code type."""
+    for code in ("f32", "u8", "f16"):
+        v = knn_scan.choose_variant(d, k, 128, 4096, code)
+        slots = v.qpt * v.threads
+        assert (v.kind, v.qpt, v.threads, v.code) == ("wide", 1, knn_scan.WIDE_THREADS,
+                                                      code)
+        whole = knn_scan._wide_base_bytes(code, d, 0, slots)
+        assert v.width == (0 if whole <= knn_scan.SMEM_LIMIT else knn_scan.WIDE_FC)
+        base = knn_scan._wide_base_bytes(code, d, v.width, slots)
+        heap = 8 * k * slots
+        if k <= 16:
+            assert v.list_at == "reg" and v.kmax == min(km for km in knn_scan.REG_KMAX
+                                                        if km >= k)
+            assert v.smem_bytes == base
+        elif base + heap <= knn_scan.SMEM_LIMIT:
+            assert (v.list_at, v.kmax, v.smem_bytes) == ("smem", 0, base + heap)
+        else:
+            assert (v.list_at, v.kmax, v.smem_bytes) == ("out", 0, base)
+        assert v.smem_bytes <= knn_scan.SMEM_LIMIT
+        # fp32: -2q of every slot (whole rows) and two staged pieces, rows
+        # padded where dp / 4 is even
+        dp = -(-d // 4) * 4
+        rs = dp if (dp // 4) % 2 else dp + 4
+        if code == "f32" and v.width == 0:
+            assert base == 4 * slots * dp + 2 * 4 * 32 * rs
+    # the instances the wide cell and phase 3 launch
+    assert knn_scan.choose_variant(30, 16, 128, 4096).name == "wide<16>/reg"
+    assert knn_scan.choose_variant(30, 18, 128, 4096, "u8").name == "wide<heap>/smem/u8"
+    assert knn_scan.choose_variant(130, 10, 128, 4096).name == "wide<10>/reg"
+
+
+def test_wide_variant_names_are_distinct():
+    """Every wide launch the library can take has a name of its own (list,
+    rows whole or in chunks, code type), and none is a narrow name: the
+    launch counts by variant tell them apart."""
+    seen = {}
+    for d in WIDE_DS + [16]:
+        for k in WIDE_KS + [4, 8, 10]:
+            for code in ("f32", "u8", "f16"):
+                v = knn_scan.choose_variant(d, k, 128, 4096, code)
+                out = dataclasses.replace(v, list_at="out", kmax=0)
+                for u in (v, out) if v.kind == "wide" else (v,):
+                    key = (u.kind, u.width, u.kmax, u.qpt, u.list_at, u.code)
+                    assert seen.setdefault(u.name, key) == key, u.name
+    wide = [n for n in seen if n.startswith("wide<")]
+    assert {"wide<16>/reg", "wide<heap>/smem", "wide<heap>/out", "wide<16>/reg/chunk128",
+            "wide<heap>/out/chunk128", "wide<heap>/smem/u8"} <= set(wide)
+    assert all(not n.startswith("wide") for n in set(seen) - set(wide))
 
 
 # --- code slabs (fp16 / uint8): the launch choice and the tile copy ---
@@ -516,11 +582,18 @@ def test_choose_variant_for_codes(code, d):
         f32 = knn_scan.choose_variant(d, k, 128, l_pad=4096)
         v = knn_scan.choose_variant(d, k, 128, l_pad=4096, code=code)
         assert v.smem_bytes <= knn_scan.SMEM_LIMIT and v.code == code
-        assert (v.kind, v.width, v.kmax, v.threads) == (f32.kind, f32.width, f32.kmax,
-                                                        f32.threads)
+        assert (v.kind, v.kmax, v.threads) == (f32.kind, f32.kmax, f32.threads)
         if v.kind == "wide":
-            assert (v.list_at, v.smem_bytes) == (f32.list_at, f32.smem_bytes)
+            # codes add the raw tiles (and u8 metadata) to whole rows, so rows
+            # go in chunks a little earlier than fp32's
+            whole = knn_scan._wide_base_bytes(code, d, 0, v.threads)
+            assert v.width == (0 if whole <= knn_scan.SMEM_LIMIT else knn_scan.WIDE_FC)
+            heap = 8 * k * v.threads if v.list_at == "smem" else 0
+            assert v.smem_bytes == knn_scan._wide_base_bytes(code, d, v.width,
+                                                             v.threads) + heap
+            assert v.name.endswith("/" + code)
             continue
+        assert v.width == f32.width
         raw = -(-(knn_scan.TILE * d * es + 4) // 16) * 16
         meta = 4 * -(-2 * d // 4) * 4 if code == "u8" else 0
         delta = meta + 2 * raw - 2 * knn_scan.TILE * d * 4
