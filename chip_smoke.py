@@ -7,6 +7,8 @@
     python3 chip_smoke.py --shift 4    # phase 3 at full size, cells in little time
     python3 chip_smoke.py --host-shift 0  # the host cells at full size too
     python3 chip_smoke.py --wide-shift 0  # the wide cell at n = 2**24, m = 2**20
+    python3 chip_smoke.py --mutable-shift 0  # the mutable cell at n = 2**24, m = 2**20
+    python3 chip_smoke.py --serve-shift 0    # the serve cell's 8192 / 2048 / 1024 requests
 
 Phases, each printing its own lines:
 
@@ -97,7 +99,29 @@ Phases, each printing its own lines:
               points and m / 2**wide_shift queries (--wide-shift, default 2:
               n = 2**22, m = 2**18): the plan must be chunked, fp32, N = 1,
               every launch the wide kernel's (by variant name), 1024 queries
-              against knn_brute with fp32_rows_missed = 0.
+              against knn_brute with fp32_rows_missed = 0;
+ 17. mutable  (after stream) KNNIndex.build(3n/4 points, IndexSpec(mutable=True,
+              merge_async=True, persist_dir=...)) on main's mixture at
+              n / 2**mutable_shift (--mutable-shift, default 2: n = 2**22),
+              the rest inserted in 16 batches, n / 128 ids deleted in 4
+              batches, a query while merges are pending, drain(), m /
+              2**mutable_shift queries (1024 against knn_brute over the live
+              points, fp32_rows_missed = 0, the tree shards launching the
+              kernel, refined and brute rows printed), then save(), one more
+              batch, load replaying its WAL record, answers bit for bit;
+ 18. serve    KNNServer (max_batch 1024) over the stream cell's index, the
+              estimate seeded from the stream cell's seconds per round:
+              a burst of 8192 >> serve_shift requests (--serve-shift,
+              default 2), every answer main's row; 2048 >> serve_shift
+              paced requests with 50 ms deadlines (completed, purged, shed);
+              1024 >> serve_shift at the same rate with a deadline of twice
+              the burst's seconds per batch (sla: the requests complete);
+              1024 requests through a server fronting the mutable index,
+              answers equal to its query;
+ 19. drills   the reference's degraded-serving drill on the card (12288
+              points, d = 5, devices=(cuda:0,) * 4): a shard-bearing slot
+              lost under a KNNServer, then one serve.launch and one
+              serve.stream fault; every ticket exact against knn_brute.
 
 Phase 3 times the main path's fp32 instance at k = 10 + FP32_OVERFETCH
 (the k the fp32 main path runs) beside k = 10, k = 18 and k = 10 +
@@ -120,6 +144,7 @@ here imports jax or the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -662,20 +687,26 @@ def main_data(seed: int, shift: int = 0, d: int = 10):
     return points, queries
 
 
-def check_exact(torch, index_res, points, queries, dev, n_check: int):
+def check_exact(torch, index_res, points, queries, dev, n_check: int, live=None):
     """Answers vs the port's knn_brute on the card for ``n_check`` queries:
-    distances within rtol 1e-5, ids equal up to ties.  Returns the number of
-    id positions that differ (each one a tie) and the number of rows whose
-    distances are not all within that tolerance (0, or it raises)."""
+    distances within rtol 1e-5, ids equal up to ties.  ``live`` (a mask
+    over the rows of ``points``, which are the ids) restricts the brute
+    force to a mutable index's live points, and every id returned must be
+    live.  Returns the number of id positions that differ (each one a tie)
+    and the number of rows whose distances are not all within that
+    tolerance (0, or it raises)."""
     from repro_torch.core.brute import knn_brute
 
-    bd, bi = knn_brute(queries[:n_check], points, 10, device=dev)
+    ids = np.arange(points.shape[0]) if live is None else np.nonzero(live)[0]
+    bd, bi = knn_brute(queries[:n_check], points[ids], 10, device=dev)
     dists, idx = index_res.dists[:n_check], index_res.idx[:n_check]
     missed = int((~np.isclose(dists, bd, rtol=1e-5, atol=1e-6).all(1)).sum())
     np.testing.assert_allclose(dists, bd, rtol=1e-5, atol=1e-6)
+    if live is not None:
+        assert live[idx].all(), "a deleted or unknown id was returned"
     d_of_idx = np.sqrt(np.sum((queries[:n_check, None, :] - points[idx]) ** 2, -1))
     np.testing.assert_allclose(d_of_idx, bd, rtol=1e-5, atol=1e-6)
-    return int((idx != bi).sum()), missed
+    return int((idx != ids[bi]).sum()), missed
 
 
 def profile_query(torch, phase, index, queries) -> None:
@@ -774,6 +805,14 @@ def main(argv=None) -> int:
                     help="run the wide cell (d = 30) on n / 2**wide_shift points and "
                          "m / 2**wide_shift queries (default 2: n = 2**22, m = 2**18; "
                          "0: n = 2**24, m = 2**20)")
+    ap.add_argument("--mutable-shift", type=int, default=2,
+                    help="run the mutable cell on n / 2**mutable_shift points of main's "
+                         "mixture (default 2: n = 2**22, built on 3n/4, the rest "
+                         "inserted) and m / 2**mutable_shift queries")
+    ap.add_argument("--serve-shift", type=int, default=2,
+                    help="divide the serve cell's burst (8192), paced (2048) and sla "
+                         "(1024) request counts by 2**serve_shift (default 2: 2048, "
+                         "512 and 256, which keeps the script within its time limit)")
     ap.add_argument("--profile", nargs="?", const="main,ooc", default="",
                     help="also run these cells' query once under torch.profiler "
                          "(comma-separated, of main, ooc, quant, quant_ooc, jit, "
@@ -883,7 +922,16 @@ def main(argv=None) -> int:
     del quant_ooc, res4
     torch.cuda.empty_cache()
 
-    cells["stream"] = run_stream(torch, points, queries[: min(m, STREAM_M)], res, dev)
+    cells["stream"], stream_index, round_s = run_stream(
+        torch, points, queries[: min(m, STREAM_M)], res, dev)
+    cells["mutable"], mutable_index, mut_points, mut_live = run_mutable(
+        torch, dev, args.seed, args.shift + args.mutable_shift)
+    cells.update(run_serve(torch, stream_index, round_s, queries, res.dists, res.idx,
+                           mutable_index, mut_points, mut_live, dev, args.serve_shift))
+    del stream_index, mutable_index, mut_points, mut_live
+    gc.collect()   # servers and tickets refer to each other: free the indexes now
+    torch.cuda.empty_cache()
+    cells["drills"] = run_drills(torch, dev)
     cells["fp16"] = run_fp16(torch, points[: n // 4], queries[: m // 4], dev)
     run_jit(torch, points, queries, res, dev, same_answers, "jit" in profiled)
 
@@ -944,10 +992,12 @@ def main(argv=None) -> int:
     return 0
 
 
-def run_stream(torch, points, queries, main_res, dev) -> None:
+def run_stream(torch, points, queries, main_res, dev):
     """query_stream on the streaming engine: every row delivered exactly
     once, equal to main's query() rows up to ties, and the times to the
-    first and the last delivery."""
+    first and the last delivery.  Returns the launch counts, the index (the
+    serve cell fronts it) and its seconds per round (the serve cell's
+    estimate seed)."""
     from repro_torch.api import IndexSpec, KNNIndex
     from repro_torch.kernels import knn_scan
 
@@ -978,14 +1028,14 @@ def run_stream(torch, points, queries, main_res, dev) -> None:
     if not same.all():
         np.testing.assert_allclose(r.dists, ref_d, rtol=1e-5, atol=1e-6)
     cell = launch_counts(knn_scan)
+    round_s = total_s / max(1, r.stats.iterations)
     log("stream", m=ms, emissions=len(at), early_retired=r.stats.early_retired,
         first_s=f"{at[0] - t0:.3f}", last_s=f"{at[-1] - t0:.3f}",
         query_stream_s=f"{total_s:.3f}", rounds=r.stats.iterations,
+        round_s=f"{round_s:.6f}",
         kernel_launches=launches, rows_identical=f"{same.all(axis=1).mean():.6f}",
         ok=True)
-    del index
-    torch.cuda.empty_cache()
-    return cell
+    return cell, index, round_s
 
 
 def run_fp16(torch, points, queries, dev) -> None:
@@ -1195,6 +1245,370 @@ def run_wide(torch, dev, seed: int, shift: int) -> dict:
     log("wide", variants=",".join(f"{v}:{n}" for v, n in by_variant.items()), ok=True)
     del index
     torch.cuda.empty_cache()
+    return launches
+
+
+def run_mutable(torch, dev, seed: int, shift: int):
+    """The mutable cell on main's mixture at d = 10, n = 2**(24 - shift)
+    points (ids = rows): ``KNNIndex.build(first 3n/4, IndexSpec(mutable=True,
+    merge_async=True, k_hint=10, persist_dir=...))``, the rest inserted in 16
+    batches, n / 128 seeded ids deleted in 4 batches after every 4th insert
+    (half of each from the 4 newest batches, whose merges are pending),
+    n / 256 queries while a merge is pending, ``drain()``, then m = 2**(20 -
+    shift) queries at k = 10 with 1024 rows checked against knn_brute over
+    the live points (fp32_rows_missed = 0) and the tree shards' launches;
+    then ``save()``, one more batch, ``load`` replaying its WAL record, and
+    n / 256 queries answered bit for bit by the live and the loaded index.
+    Returns the query's launch counts, the live index, its points and
+    live mask."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import IndexSpec, KNNIndex
+    from repro_torch.kernels import knn_scan
+
+    t0 = time.perf_counter()
+    points, queries = main_data(seed, shift)
+    n, m = points.shape[0], queries.shape[0]
+    n0, nb = 3 * n // 4, (n // 4) // 16
+    n_del = n // 128
+    extra = main_data(seed + 1, shift + 4)[0][: nb]   # the batch after the save
+    log("mutable", n=n, m=m, d=points.shape[1], k=10, build_points=n0, insert_batches=16,
+        batch=nb, deletes=n_del, data_s=f"{time.perf_counter() - t0:.3f}")
+    rng = np.random.default_rng(seed + 7)
+    live = np.zeros(n + nb, bool)
+    root = tempfile.mkdtemp(prefix="chip_smoke_mutable_")
+    try:
+        on_card = dev.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        index = KNNIndex.build(points[:n0], IndexSpec(mutable=True, merge_async=True,
+                                                      k_hint=10, persist_dir=root,
+                                                      devices=(dev,)))
+        if on_card:
+            torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        assert index.plan.engine == "dynamic" and index.plan.merge_async, index.describe()
+        live[:n0] = True
+        st = index._state
+        insert_s, delete_s, pending_at_delete = [], [], []
+        inflight = None
+        q_small = queries[: n // 256]
+        for b in range(16):
+            lo = n0 + b * nb
+            t0 = time.perf_counter()
+            ids = index.insert(points[lo:lo + nb])
+            insert_s.append(time.perf_counter() - t0)
+            assert ids[0] == lo and ids[-1] == lo + nb - 1
+            live[lo:lo + nb] = True
+            if b % 4 == 3:
+                recent = np.nonzero(live[max(0, lo - 3 * nb):lo + nb])[0] + max(0, lo - 3 * nb)
+                older = np.nonzero(live[: max(0, lo - 3 * nb)])[0]
+                per = n_del // 4
+                dels = np.concatenate([rng.choice(recent, per // 2, replace=False),
+                                       rng.choice(older, per - per // 2, replace=False)])
+                pending_at_delete.append(st.pending_merges)
+                t0 = time.perf_counter()
+                assert index.delete(dels) == dels.size
+                delete_s.append(time.perf_counter() - t0)
+                live[dels] = False
+            if b == 14 and inflight is None:
+                # a query while the carry merges of the last inserts run
+                pending = st.pending_merges
+                t0 = time.perf_counter()
+                r = index.query(q_small, 10)
+                _, missed = check_exact(torch, r, points, q_small, dev, 256, live)
+                inflight = dict(pending_merges=pending, seconds=time.perf_counter() - t0,
+                                missed=missed)
+        t0 = time.perf_counter()
+        index.drain(timeout=600)
+        drain_s = time.perf_counter() - t0
+        assert index.n == int(live.sum())
+        knn_scan.reset_launches()
+        t0 = time.perf_counter()
+        res = index.query(queries, 10)
+        query_s = time.perf_counter() - t0
+        launches = launch_counts(knn_scan)
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9 if on_card else 0.0
+        assert np.isfinite(res.dists).all() and res.dists.shape == (m, 10)
+        tie_swaps, missed = check_exact(torch, res, points, queries, dev, 1024, live)
+        layout = st.shard_layout()
+        assert any(kind == "tree" for *_, kind in layout), layout
+        assert launches["f32"] > 0 or not on_card, (
+            "the tree shards did not launch the leaf-scan kernel")
+        ms = st.merge_stats()
+        log("mutable", engine=index.plan.engine, build_s=f"{build_s:.3f}",
+            insert_median_s=f"{float(np.median(insert_s)):.3f}",
+            insert_max_s=f"{max(insert_s):.3f}",
+            delete_s=",".join(f"{t:.3f}" for t in delete_s),
+            pending_at_delete=",".join(map(str, pending_at_delete)),
+            merges_completed=ms["completed"], merges_scheduled=ms["scheduled"],
+            merges_aborted=ms["aborted"], merges_failed=ms["failed"],
+            retries=ms["retried"], drain_s=f"{drain_s:.3f}")
+        log("mutable", inflight_pending_merges=inflight["pending_merges"],
+            inflight_query_s=f"{inflight['seconds']:.3f}",
+            inflight_checked=256, inflight_missed=inflight["missed"])
+        log("mutable", layout=";".join(f"{c}:{lv}/{tb}:{k}" for c, lv, tb, k in layout),
+            placement=";".join(f"{c}:{k}:slot{sl}" for c, k, sl in st.placement()),
+            n_live=index.n, query_s=f"{query_s:.3f}", qps=f"{m / query_s:.1f}",
+            refined_rows=res.stats.refined_rows, brute_rows=res.stats.exact_rows,
+            units=res.stats.units_scanned, checked=1024, tie_swaps=tie_swaps,
+            fp32_rows_missed=missed, peak_mem_gb=f"{peak_gb:.3f}",
+            kernel_launches=",".join(f"{c}:{v}" for c, v in launches.items()
+                                     if c in ("f32", "f16", "u8")),
+            variants=",".join(f"{v}:{c}" for v, c in launches["by_variant"].items()))
+        for r in index.plan.reasons:
+            print(f"[mutable]   plan: {r}", flush=True)
+
+        # snapshot round trip: save, one more batch (a WAL record), load
+        t0 = time.perf_counter()
+        index.save()
+        save_s = time.perf_counter() - t0
+        index.insert(extra)
+        live[n:] = True
+        index.drain(timeout=600)
+        t0 = time.perf_counter()
+        loaded = KNNIndex.load(root, devices=(dev,))
+        loaded.drain(timeout=600)
+        load_s = time.perf_counter() - t0
+        assert any("replayed 1 WAL record(s)" in r for r in loaded.plan.reasons), (
+            loaded.plan.reasons)
+        a = index.query(q_small, 10)
+        b2 = loaded.query(q_small, 10)
+        assert np.array_equal(a.idx, b2.idx) and np.array_equal(a.dists, b2.dists)
+        log("mutable", save_s=f"{save_s:.3f}", load_s=f"{load_s:.3f}",
+            replayed_records=1, loaded_n=loaded.n, queries=q_small.shape[0],
+            answers_bit_for_bit=True)
+        del loaded
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    all_points = np.concatenate([points, extra])
+    return launches, index, all_points, live
+
+
+def run_serve(torch, stream_index, round_s, queries, ref_d, ref_i, mutable_index,
+              mutable_points, mutable_live, dev, serve_shift: int = 0) -> dict:
+    """The serve cell: ``KNNServer`` (max_batch 1024) over the stream cell's
+    index, its estimate seeded from the stream cell's seconds per round on
+    this card.  Burst: 8192 >> serve_shift single-row requests of main's
+    queries at once, 60 s deadline (late completions served, not purged:
+    every answer must equal main's row); paced: 2048 >> serve_shift
+    requests from one thread at half the burst's rate, the default 50 ms
+    deadline, purging on; sla: 1024 >> serve_shift requests at that rate,
+    the estimate seeded with the burst's seconds per batch and a deadline
+    of twice that; mutable: 1024 requests through a server fronting the
+    mutable cell's index, answers equal to its ``query``.  Returns each
+    part's launch counts."""
+    import types
+
+    from repro_torch.kernels import knn_scan
+    from repro_torch.serving import DEFAULT_DEADLINE_MS, KNNServer, Overloaded
+    from repro_torch.serving.knn_server import _EST_ROUNDS_GUESS
+
+    cal = types.SimpleNamespace(round_s=round_s,
+                                source="the stream cell's seconds per round on this card")
+    cells = {}
+
+    def lat(tickets):
+        ls = np.array([t.info["latency_s"] for t in tickets if "latency_s" in t.info])
+        if ls.size == 0:
+            return "-", "-"
+        return f"{np.percentile(ls, 50):.4f}", f"{np.percentile(ls, 99):.4f}"
+
+    nb = min(8192 >> serve_shift, queries.shape[0])
+    srv = KNNServer(stream_index, k=10, max_batch=1024, calibration=cal, purge_expired=False)
+    log("serve", seed_round_s=f"{round_s:.6f}", seed_source=cal.source,
+        seed_ms=srv.stats()["est_service_ms"][1024], buckets=list(srv.buckets))
+    knn_scan.reset_launches()
+    t0 = time.perf_counter()
+    tickets = srv.submit_many(queries[:nb], deadline_ms=60_000.0)
+    got = [t.result(timeout=900) for t in tickets]
+    burst_s = time.perf_counter() - t0
+    cells["serve_burst"] = launch_counts(knn_scan)
+    stats = srv.stats()
+    srv.close()
+    burst_batches = stats["batches"]
+    gd = np.stack([g[0] for g in got])
+    gi = np.stack([g[1] for g in got])
+    same = gi == ref_i[:nb]
+    if not same.all():
+        np.testing.assert_allclose(gd, ref_d[:nb], rtol=1e-5, atol=1e-6)
+    late = sum(t.info["latency_s"] > 60.0 for t in tickets)
+    rate = nb / burst_s
+    p50, p99 = lat(tickets)
+    log("serve", part="burst", requests=nb, seconds=f"{burst_s:.3f}", requests_per_s=f"{rate:.1f}",
+        latency_p50_s=p50, latency_p99_s=p99, batches=stats["batches"],
+        by_close=stats["batches_by_close"], completed=stats["completed"], late=late,
+        est_after_ms=stats["est_service_ms"], rows_identical=f"{same.all(1).mean():.6f}",
+        kernel_launches=cells["serve_burst"]["f32"])
+
+    def paced(srv, n, deadline_ms):
+        """n requests of main's queries from this thread at half the burst's
+        rate, each ticket left to the server's own closes and purges;
+        checks every completed answer against main's row and returns the
+        part's fields."""
+        gap = 2.0 / rate
+        tickets, rows, shed = [], [], 0
+        t0 = time.perf_counter()
+        for i in range(n):
+            wait = t0 + i * gap - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            try:
+                tickets.append(srv.submit(queries[i], deadline_ms=deadline_ms))
+                rows.append(i)
+            except Overloaded:
+                shed += 1
+        for t in tickets:
+            t.exception(timeout=900)   # resolved by the server's own closes
+        srv.drain(timeout=900)
+        seconds = time.perf_counter() - t0
+        stats = srv.stats()
+        srv.close()
+        done = [t for t in tickets if t.exception(timeout=0) is None]
+        for i, t in zip(rows, tickets):
+            if t.exception(timeout=0) is not None:
+                continue
+            d, ix = t.result(timeout=0)
+            if not np.array_equal(ix, ref_i[i]):
+                np.testing.assert_allclose(d, ref_d[i], rtol=1e-5, atol=1e-6)
+        assert stats["outstanding"] == 0 and stats["failed"] == 0, stats
+        p50, p99 = lat(done)
+        return dict(requests=n, rate_per_s=f"{rate / 2:.1f}", seconds=f"{seconds:.3f}",
+                    completed=stats["completed"], purged=stats["purged"],
+                    shed=shed + stats["shed"], failed=stats["failed"],
+                    batches=stats["batches"], by_close=stats["batches_by_close"],
+                    latency_p50_s=p50, latency_p99_s=p99, deadline_ms=deadline_ms,
+                    est_after_ms=stats["est_service_ms"])
+
+    # paced: the reference's 50 ms deadline, purging on (an admission and
+    # purge check: a batch of this index takes far longer than 50 ms)
+    srv = KNNServer(stream_index, k=10, max_batch=1024, calibration=cal)
+    knn_scan.reset_launches()
+    out = paced(srv, min(2048 >> serve_shift, queries.shape[0]), DEFAULT_DEADLINE_MS)
+    cells["serve_paced"] = launch_counts(knn_scan)
+    log("serve", part="paced", **out)
+
+    # paced within reach: the same rate, the estimate seeded with the
+    # burst's seconds per full batch and a deadline of twice that, so the
+    # SLA close and the latency tail are read on requests that complete
+    batch_s = burst_s / max(1, burst_batches)
+    sla_cal = types.SimpleNamespace(
+        round_s=batch_s / _EST_ROUNDS_GUESS,
+        source="the burst's seconds per 1024-row batch on this card")
+    srv = KNNServer(stream_index, k=10, max_batch=1024, calibration=sla_cal)
+    knn_scan.reset_launches()
+    out = paced(srv, min(1024 >> serve_shift, queries.shape[0]), 2000.0 * batch_s)
+    cells["serve_sla"] = launch_counts(knn_scan)
+    log("serve", part="sla", batch_s=f"{batch_s:.3f}", **out)
+    assert out["completed"] > 0, "no request of the sla part completed"
+
+    # the server fronting the mutable index (whole-batch delivery)
+    nm = 1024
+    qm = queries[:nm]
+    t0 = time.perf_counter()
+    srv = KNNServer(mutable_index, k=10, max_batch=1024, calibration=cal, purge_expired=False)
+    warm_s = time.perf_counter() - t0
+    knn_scan.reset_launches()
+    t0 = time.perf_counter()
+    tickets = srv.submit_many(qm, deadline_ms=60_000.0)
+    got = [t.result(timeout=900) for t in tickets]
+    serve_s = time.perf_counter() - t0
+    cells["serve_mutable"] = launch_counts(knn_scan)
+    stats = srv.stats()
+    srv.close()
+    direct = mutable_index.query(qm, 10)
+    gd = np.stack([g[0] for g in got])
+    gi = np.stack([g[1] for g in got])
+    same = gi == direct.idx
+    if not same.all():
+        np.testing.assert_allclose(gd, direct.dists, rtol=1e-5, atol=1e-6)
+    _, missed = check_exact(torch, types.SimpleNamespace(dists=gd, idx=gi), mutable_points,
+                            qm, dev, 256, mutable_live)
+    p50, p99 = lat(tickets)
+    log("serve", part="mutable", engine=mutable_index.engine_name, requests=nm,
+        warm_s=f"{warm_s:.3f}", seconds=f"{serve_s:.3f}", batches=stats["batches"],
+        by_close=stats["batches_by_close"], latency_p50_s=p50, latency_p99_s=p99,
+        rows_identical=f"{same.all(1).mean():.6f}", checked=256, missed=missed,
+        kernel_launches=cells["serve_mutable"]["f32"])
+    assert cells["serve_mutable"]["f32"] > 0 or dev.type != "cuda"
+    return cells
+
+
+def run_drills(torch, dev) -> dict:
+    """The degraded-serving drill of the reference's serving-fault tests on
+    the card at their sizes (12288 points, d = 5, buffer_size = 1024) over
+    four slots of cuda:0: ``device.scan`` armed sticky on a shard-bearing
+    slot under a KNNServer fronting the mutable index, then one
+    ``serve.launch`` and one ``serve.stream`` fault.  Every ticket
+    resolves, answers exact against knn_brute, the degraded event in
+    ``Ticket.info`` and ``server.reasons``.  Returns the launch counts."""
+    from repro_torch import faults
+    from repro_torch.api import IndexSpec, KNNIndex
+    from repro_torch.core.brute import knn_brute
+    from repro_torch.kernels import knn_scan
+    from repro_torch.serving import KNNServer
+
+    rng = np.random.default_rng(0)
+    d, k = 5, 5
+    pts = rng.normal(size=(12288, d)).astype(np.float32)
+    t_start = time.perf_counter()
+    knn_scan.reset_launches()
+    idx = KNNIndex.build(pts[:8192], IndexSpec(mutable=True, buffer_size=1024, k_hint=k,
+                                               devices=(dev,) * 4))
+    for lo in range(8192, 12288, 1024):
+        idx.insert(pts[lo:lo + 1024])
+    idx.drain(timeout=300)
+    st = idx._state
+    slots = sorted({s.slot for s in st._shards})
+    assert len(slots) >= 2, st.placement()
+    victim = slots[-1]
+    srv = KNNServer(idx, k=k, max_batch=32, default_deadline_ms=10_000.0, start=False,
+                    retry_backoff_s=0.0)
+    q = rng.normal(size=(16, d)).astype(np.float32)
+    bd, _ = knn_brute(q, pts, k, device=dev)
+    t0 = srv.submit(q[0])
+    srv.pump_once(force=True)
+    np.testing.assert_allclose(t0.result(timeout=300)[0], bd[0], rtol=1e-5, atol=1e-6)
+    faults.arm("device.scan", device_index=victim, sticky=True)
+    try:
+        tickets = [srv.submit(row) for row in q]
+        srv.pump_once(force=True)
+        srv.drain(timeout=300)
+    finally:
+        faults.reset()
+    for r, t in enumerate(tickets):
+        dd, _ = t.result(timeout=1)
+        np.testing.assert_allclose(dd, bd[r], rtol=1e-5, atol=1e-6)
+        ev = t.info.get("degraded")
+        assert ev and any("device loss" in e for e in ev), t.info
+    assert any("degraded" in r and "device loss" in r for r in srv.reasons)
+    assert not any(s.slot == victim for s in st._shards)
+    for point in ("serve.launch", "serve.stream"):
+        faults.arm(point)
+        try:
+            ts = [srv.submit(row) for row in q]
+            srv.pump_once(force=True)
+            srv.drain(timeout=300)
+        finally:
+            faults.reset()
+        for r, t in enumerate(ts):
+            np.testing.assert_allclose(t.result(timeout=1)[0], bd[r], rtol=1e-5, atol=1e-6)
+    stats = srv.stats()
+    srv.close()
+    assert stats["outstanding"] == 0 and stats["failed"] == 0 and stats["retries"] == 2
+    launches = launch_counts(knn_scan)
+    assert launches["f32"] > 0 or dev.type != "cuda"
+    log("drills", devices=f"{dev}x4", victim_slot=victim,
+        slots_after=",".join(map(str, st._placer.slots)),
+        degraded_batches=stats["degraded_batches"], retries=stats["retries"],
+        completed=stats["completed"], failed=stats["failed"],
+        device_loss=st.merge_stats()["device_loss"], kernel_launches=launches["f32"],
+        seconds=f"{time.perf_counter() - t_start:.3f}", ok=True)
+    del idx
     return launches
 
 

@@ -6,9 +6,10 @@ implements ``build(points, spec, plan)``, ``query(state, queries, k)`` and
 ``resident_bytes(plan, state)``; engines declaring the dual-tree ops in
 ``caps.ops`` implement ``radius`` / ``kde`` / ``pair_count`` and
 ``warm_ops``; engines with a host-side snapshot implement
-``snapshot_state`` / ``restore_state`` (``KNNIndex.save`` / ``load``).
-Engines of the reference that are not ported yet raise a ``KeyError``
-saying so from ``get_engine``.
+``snapshot_state`` / ``restore_state`` (``KNNIndex.save`` / ``load``);
+engines declaring ``caps.mutable`` implement ``insert`` / ``delete`` (on
+the others ``KNNIndex`` raises ``MutabilityError``).  Engines of the reference that are not
+ported yet raise a ``KeyError`` saying so from ``get_engine``.
 """
 
 from __future__ import annotations
@@ -40,7 +41,6 @@ KNOWN_OPS = frozenset({"knn", "radius", "kde", "pair_count"})
 
 # engines of the reference not ported yet -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "dynamic": "Queue 1 item 14",
     "sharded": "Queue 1 item 18",
     "forest": "Queue 1 item 18",
     "ring": "Queue 1 item 18",
@@ -69,8 +69,13 @@ class EngineCaps:
     multi_device: bool = False
     needs_build: bool = True
     stateful_query: bool = False  # query mutates state: one batch at a time
-    mutable: bool = False
+    mutable: bool = False       # incremental insert/delete
+    device_parallel_mutable: bool = False  # insert/delete compose with
+                                # placement over several devices
     streaming: bool = False
+    batch_stream: bool = False  # query_stream delivers each batch whole
+                                # (the mutable forest has no per-row
+                                # retirement); KNNServer fronts it too
     ops: frozenset = frozenset({"knn"})
     description: str = ""
 

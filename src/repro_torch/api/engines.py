@@ -10,6 +10,9 @@
              each query's result is emitted the round it retires
   jit        the device-resident fixed point (``core/jitsearch.py``): one
              round captured as a CUDA graph and replayed; knn only
+  dynamic    the mutable logarithmic-method forest (``core/dynamic.py``):
+             insert / delete, shards placed over device slots, background
+             carry merges; knn only, whole-batch ``query_stream``
 
 All translate their native conventions into the one ``QueryResult``
 contract: ascending Euclidean f32[m, k] distances and i64[m, k] ids in the
@@ -200,13 +203,7 @@ class ChunkedEngine(EngineBase):
         arrays, meta = _tree_snapshot(state.tree)
         meta["precision"] = state.precision
         if state.store.quantized:
-            qs = state.store.quantized_state()
-            # the reference's layout: pad columns of code 0, scale 0 (int8)
-            # or 1 (fp16) and offset 0 dequantize to the zeros it stores
-            arrays.update(dataclasses.replace(
-                qs, codes=_pad_cols(qs.codes),
-                scale=_pad_cols(qs.scale, 1.0 if qs.precision == "fp16" else 0.0),
-                offset=_pad_cols(qs.offset)).to_arrays())
+            arrays.update(state.store.quantized_state().reference_layout().to_arrays())
         return arrays, meta
 
     def restore_state(self, arrays, meta, spec, plan):
@@ -382,3 +379,78 @@ class JitEngine(EngineBase):
         lazy_knn_jit(q, state.tree, k=k_eff, tq=state.tq,
                      first_leaf_heap=state.top.first_leaf_heap,
                      backend=state.backend, cache=state.rounds, max_rounds=1)
+
+
+@register_engine
+class DynamicEngine(EngineBase):
+    """The mutable forest.  ``stateful_query``: its tree shards are
+    ``BufferKDTree``s whose queries use chunk slots, and insert / delete
+    rebuild shards, so the facade's lock serializes all three.
+    ``batch_stream``: ``query_stream`` delivers the whole batch in one call
+    once the fan-out returns, which lets ``KNNServer`` front it."""
+
+    name = "dynamic"
+    caps = EngineCaps(
+        exact=True, out_of_core=True, multi_device=True, stateful_query=True,
+        mutable=True, device_parallel_mutable=True, batch_stream=True,
+        description="batch-dynamic logarithmic-method forest (incremental "
+                    "insert/delete, device-placed shards)",
+    )
+
+    def build(self, points, spec, plan):
+        from repro_torch.api.planner import BRUTE_N_MAX
+        from repro_torch.core.dynamic import DEFAULT_BASE_CAPACITY, DynamicIndex
+
+        idx = DynamicIndex(
+            points.shape[1] if points.ndim == 2 else 0,
+            # rungs are B * 2**i with B the plan's buffer size, capped at the
+            # default so a shallow tree's big buffer does not inflate rung 0
+            base_capacity=min(plan.buffer_size, DEFAULT_BASE_CAPACITY),
+            brute_cutoff=BRUTE_N_MAX,
+            rebuild_crossover=plan.crossover_batch,
+            tile_q=plan.tile_q,
+            backend=plan.backend,
+            devices=list(spec.devices) if spec.devices else None,
+            merge_async=plan.merge_async,
+            precision=plan.precision,
+            memory_budget=spec.memory_budget,
+        )
+        # register the expected batch shape before the first insert, so
+        # every shard (staging shards too) runs it when it is built
+        if spec.m_hint:
+            idx.warm(spec.m_hint, spec.k_hint)
+        idx.insert(np.asarray(points, np.float32))
+        return idx
+
+    def query(self, state, queries, k):
+        return state.query(queries, k)
+
+    def query_stream(self, state, queries, k, emit):
+        d, i, stats = state.query(queries, k)
+        emit(np.arange(queries.shape[0], dtype=np.int64), d, i)
+        return d, i, stats
+
+    def insert(self, state, points):
+        return state.insert(points)
+
+    def delete(self, state, ids):
+        return state.delete(ids)
+
+    def snapshot_state(self, state):
+        return state.snapshot()
+
+    def restore_state(self, arrays, meta, spec, plan):
+        from repro_torch.core.dynamic import DynamicIndex
+
+        idx = DynamicIndex.restore(arrays, meta,
+                                   devices=list(spec.devices) if spec.devices else None)
+        if spec.m_hint:
+            idx.warm(spec.m_hint, spec.k_hint)
+        return idx
+
+    def resident_bytes(self, plan, state=None) -> int:
+        if state is not None:
+            return state.resident_bytes()   # measured, not estimated
+        # worst case per device: the largest rung holds ~all n points in one
+        # power-of-two padded slab (~2x the flat slab), never split
+        return 2 * plan.slab_bytes

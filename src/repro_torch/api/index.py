@@ -8,12 +8,16 @@
 With ``IndexSpec.devices`` unset the index runs on ``cuda:0`` and raises
 without a card; pass ``devices=(torch.device("cpu"),)`` for the CPU.
 ``query_stream`` delivers per-row results on an index built with
-``IndexSpec(engine="streaming")``; ``radius``, ``kde`` and ``pair_count``
-run the dual-tree ops on the engines that declare them (``caps.ops``), and
-raise the typed ``OpUnsupported`` elsewhere.  ``save`` / ``load`` write and
-read snapshots in the reference's format (``repro_torch.persist``), so
-either package loads the other's.  Mutation waits for its ROADMAP item
-(Queue 1 item 14); its entry points raise the reference's typed error.
+``IndexSpec(engine="streaming")`` (whole batches on the ``dynamic``
+engine); ``radius``, ``kde`` and ``pair_count`` run the dual-tree ops on
+the engines that declare them (``caps.ops``), and raise the typed
+``OpUnsupported`` elsewhere.  ``IndexSpec(mutable=True)`` plans the
+``dynamic`` engine: ``insert`` / ``delete`` (each appended to the WAL once
+the engine has applied it, before it returns) and ``drain`` for its
+background merges; other engines raise ``MutabilityError``.  ``save`` /
+``load`` write and read snapshots in the reference's format
+(``repro_torch.persist``), so either package loads the other's, and
+``load`` replays the WAL records acknowledged after the snapshot.
 """
 
 from __future__ import annotations
@@ -48,16 +52,12 @@ from repro_torch.persist import PersistError, VersionStore, WriteAheadLog
 __all__ = ["KNNIndex"]
 
 # IndexSpec fields a snapshot manifest records (the reference's list): the
-# host-bound ones (devices, persist_dir) are not in it.  ``mutable``,
-# ``merge_async`` and ``wal_fsync`` belong to the mutable engine (ROADMAP
-# Queue 1 item 14): the port writes the reference's defaults and fsyncs
-# every WAL record.
+# host-bound ones (devices, persist_dir) are not in it
 _SPEC_MANIFEST_FIELDS = (
     "engine", "op", "height", "n_chunks", "n_shards", "buffer_size",
     "tile_q", "backend", "k_hint", "m_hint", "memory_budget", "precision",
     "strict_budget", "mutable", "merge_async", "snapshot_keep", "wal_fsync",
 )
-_UNPORTED_DEFAULTS = {"mutable": None, "merge_async": None, "wal_fsync": True}
 _BACKENDS = ("auto", "cuda", "ref")
 
 
@@ -119,6 +119,8 @@ class KNNIndex:
             precision=spec.precision,
             strict_budget=spec.strict_budget,
             op=spec.op,
+            mutable=spec.mutable,
+            merge_async=spec.merge_async,
         )
         engine = get_engine(pl.engine)
         state = engine.build(points, spec, pl)
@@ -141,7 +143,7 @@ class KNNIndex:
                 "fresh directory"
             )
         self._store = store
-        self._wal = WriteAheadLog(os.path.join(root, "wal"), fsync=True)
+        self._wal = WriteAheadLog(os.path.join(root, "wal"), fsync=self.spec.wal_fsync)
         self.plan = self.plan.replace(reasons=self.plan.reasons + (
             f"persistence: versioned snapshots + mutation WAL at {root}",
         ))
@@ -176,8 +178,7 @@ class KNNIndex:
             "n": int(self.n),
             "d": int(self.d),
             "mutation_seq": int(self._mutation_seq),
-            "spec": {f: getattr(self.spec, f, _UNPORTED_DEFAULTS.get(f))
-                     for f in _SPEC_MANIFEST_FIELDS},
+            "spec": {f: getattr(self.spec, f) for f in _SPEC_MANIFEST_FIELDS},
             # the built geometry, so load plans the layout the state has
             "plan": {"height": pl.height, "n_chunks": pl.n_chunks,
                      "n_shards": pl.n_shards, "buffer_size": pl.buffer_size},
@@ -194,18 +195,17 @@ class KNNIndex:
     @classmethod
     def load(cls, path: str, *, devices=None) -> "KNNIndex":
         """Restore an index from a persist dir (the port's or the
-        reference's): the latest complete snapshot, then the WAL records
-        acknowledged after it (none until a mutable engine is ported).
-        The state is restored onto ``devices`` (default ``(cuda:0,)``);
-        the snapshot itself is host-side and holds no device.  The loaded
-        index continues the same lifecycle: a later ``save()`` adds a
+        reference's): the latest complete snapshot, then a replay of the
+        WAL records acknowledged after it (inserts and deletes of a mutable
+        index).  The state is restored onto ``devices`` (default
+        ``(cuda:0,)``); the snapshot itself is host-side and holds no
+        device.  The loaded index continues the same lifecycle: later
+        mutations append to the same WAL, a later ``save()`` adds a
         version."""
         store = VersionStore(os.path.join(path, "versions"))
         # copy-on-write mmap: the bulk arrays page in as they are read
         arrays, manifest, version = store.read(mmap=True)
         devs = tuple(devices) if devices else default_devices()
-        # the spec fields of parts not ported (a mutable index's engine,
-        # "dynamic", raises with its ROADMAP item when it is planned)
         fields = {f.name for f in dataclasses.fields(IndexSpec)}
         pins = manifest["plan"]
         spec = IndexSpec(**{k: v for k, v in manifest["spec"].items() if k in fields}).replace(
@@ -238,6 +238,8 @@ class KNNIndex:
             precision=spec.precision,
             strict_budget=spec.strict_budget,
             op=spec.op,
+            mutable=spec.mutable,
+            merge_async=spec.merge_async,
         )
         engine = get_engine(pl.engine)
         state = engine.restore_state(
@@ -249,18 +251,20 @@ class KNNIndex:
             k[len("extra/"):]: v for k, v in arrays.items() if k.startswith("extra/")
         }
         seq = int(manifest["mutation_seq"])
-        wal = WriteAheadLog(os.path.join(path, "wal"), fsync=True)
-        records = wal.replay(min_seq=seq)
-        if records:
-            raise PersistError(
-                f"{path}: {len(records)} WAL record(s) after the snapshot; "
-                "replaying mutations needs the mutable engine (ROADMAP Queue "
-                "1 item 14)"
-            )
+        wal = WriteAheadLog(os.path.join(path, "wal"), fsync=spec.wal_fsync)
+        replayed = 0
+        for rseq, op, arr in wal.replay(min_seq=seq):
+            if op == "insert":
+                idx._serialized(engine.insert, state, np.ascontiguousarray(arr, np.float32))
+            else:
+                idx._serialized(engine.delete, state, np.asarray(arr, np.int64))
+            seq = rseq + 1
+            replayed += 1
+        idx.n = int(getattr(state, "n_live", idx.n))
         idx._store, idx._wal, idx._mutation_seq = store, wal, seq
         idx.plan = pl.replace(reasons=pl.reasons + (
             f"restored from {path} v{version} (format {manifest['format']}, "
-            f"snapshot seq {manifest['mutation_seq']}, replayed 0 WAL record(s))",
+            f"snapshot seq {manifest['mutation_seq']}, replayed {replayed} WAL record(s))",
         ))
         return idx
 
@@ -280,9 +284,16 @@ class KNNIndex:
         dists, idx, stats = self._serialized(
             self._engine.query, self._state, queries, k
         )
-        self._last_stats = stats
+        self._record_stats(stats)
         return QueryResult(dists=dists, idx=idx, stats=stats,
                            engine=self.plan.engine, k=k)
+
+    def _record_stats(self, stats: SearchStats) -> None:
+        """Keep the call's stats; its operational events (a device loss and
+        the re-placement) go into ``plan.reasons`` too."""
+        self._last_stats = stats
+        if stats.events:
+            self.plan = self.plan.replace(reasons=self.plan.reasons + tuple(stats.events))
 
     def _require_op(self, op: str) -> None:
         if op not in self._engine.caps.ops:
@@ -308,7 +319,7 @@ class KNNIndex:
         indptr, indices, dists, stats = self._serialized(
             self._engine.radius, self._state, queries, r
         )
-        self._last_stats = stats
+        self._record_stats(stats)
         return RadiusResult(indptr=indptr, indices=indices, dists=dists, stats=stats,
                             engine=self.plan.engine, r=r)
 
@@ -327,7 +338,7 @@ class KNNIndex:
             lambda: self._engine.kde(self._state, queries, bandwidth, rtol=rtol,
                                      atol=atol, kernel=kernel)
         )
-        self._last_stats = stats
+        self._record_stats(stats)
         return StatResult(values=dens, error_bound=float(err), stats=stats,
                           engine=self.plan.engine, op="kde")
 
@@ -343,21 +354,56 @@ class KNNIndex:
         if edges[0] < 0:
             raise ValueError("distance edges must be >= 0")
         hist, stats = self._serialized(self._engine.pair_count, self._state, edges)
-        self._last_stats = stats
+        self._record_stats(stats)
         return StatResult(values=hist, error_bound=0.0, stats=stats,
                           engine=self.plan.engine, op="pair_count")
 
-    def insert(self, points: np.ndarray):
-        raise MutabilityError(
-            f"engine {self.engine_name!r} is immutable; the mutable engine "
-            "is ROADMAP Queue 1 item 14"
-        )
+    def _require_mutable(self) -> None:
+        if not self._engine.caps.mutable:
+            raise MutabilityError(
+                f"engine {self.engine_name!r} is immutable (caps.mutable=False); "
+                "build with IndexSpec(mutable=True)"
+            )
 
-    def delete(self, ids):
-        raise MutabilityError(
-            f"engine {self.engine_name!r} is immutable; the mutable engine "
-            "is ROADMAP Queue 1 item 14"
-        )
+    def insert(self, points: np.ndarray) -> np.ndarray:
+        """Add ``points``; returns their i64 ids, allocated in insertion
+        order (``build``'s points hold ``0..n-1``), which ``query``
+        returns.  The WAL record is appended after the engine applied the
+        batch (a rejected batch never reaches the log) and before this
+        returns (an acknowledged mutation is always replayable)."""
+        self._require_mutable()
+        points = np.asarray(points, dtype=np.float32)
+        if points.ndim != 2 or points.shape[1] != self.d:
+            raise ValueError(f"points must be [b, {self.d}], got {points.shape}")
+        ids = self._serialized(self._engine.insert, self._state, points)
+        self.n = getattr(self._state, "n_live", self.n + points.shape[0])
+        if self._wal is not None:
+            self._wal.append("insert", points, self._mutation_seq)
+            self._mutation_seq += 1
+        return ids
+
+    def delete(self, ids) -> int:
+        """Remove the given ids; returns the count removed.  Exact: an
+        unknown, already deleted or repeated id raises ``KeyError`` and
+        nothing is removed.  WAL as ``insert``."""
+        self._require_mutable()
+        removed = self._serialized(self._engine.delete, self._state, ids)
+        self.n = getattr(self._state, "n_live", self.n - removed)
+        if self._wal is not None:
+            self._wal.append("delete", np.ascontiguousarray(np.asarray(ids, np.int64).ravel()),
+                             self._mutation_seq)
+            self._mutation_seq += 1
+        return removed
+
+    def drain(self, timeout: Optional[float] = None) -> None:
+        """Wait for background index maintenance (the dynamic engine's carry
+        merges) to settle; queries are exact regardless.  Re-raises a
+        background failure (``MergeRetryExhausted``) and ``DrainTimeout``
+        when ``timeout`` expires; engines without background work return at
+        once."""
+        fn = getattr(self._state, "drain_merges", None)
+        if fn is not None:
+            fn(timeout)
 
     def query_stream(self, queries, k=None, *, on_complete) -> QueryResult:
         """k nearest neighbors with per-row streaming delivery.
@@ -366,10 +412,13 @@ class KNNIndex:
         loop as query rows retire, each row exactly once, with the values
         ``query`` returns; the assembled ``QueryResult`` is returned after
         the last delivery.  The callback runs on the calling thread.
-        Engines that do not declare ``caps.streaming`` raise the typed
-        ``StreamingUnsupported``: build with ``IndexSpec(engine="streaming")``.
+        Engines declaring ``caps.batch_stream`` (the dynamic forest)
+        deliver the whole batch in one call.  Engines declaring neither
+        raise the typed ``StreamingUnsupported``: build with
+        ``IndexSpec(engine="streaming")``.
         """
-        if not self._engine.caps.streaming:
+        caps = self._engine.caps
+        if not (caps.streaming or caps.batch_stream):
             raise StreamingUnsupported(
                 f"engine {self.engine_name!r} cannot stream per-row "
                 "completions (caps.streaming=False); build with "
@@ -382,7 +431,7 @@ class KNNIndex:
         dists, idx, stats = self._serialized(
             self._engine.query_stream, self._state, queries, k, on_complete
         )
-        self._last_stats = stats
+        self._record_stats(stats)
         return QueryResult(dists=dists, idx=idx, stats=stats,
                            engine=self.plan.engine, k=k)
 

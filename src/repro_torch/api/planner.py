@@ -15,12 +15,21 @@ Planning rules ported so far (numbering of ``docs/API.md``):
      a pinned ``host`` or ``streaming`` engine streams by the same rule;
   6. otherwise ``chunked`` with N=1, the device-resident workflow.
 
+``mutable=True`` plans the ``dynamic`` engine (the logarithmic-method
+forest of ``core/dynamic.py``) on one device or several: its
+rebuild-vs-merge crossover (``Plan.crossover_batch``), background carry
+merges (``Plan.merge_async``, on unless pinned off) and, on more than one
+device, the rung placement preview go into ``Plan.reasons``.  The
+crossover is the reference's model, ``n / levels``: the reference's
+measured crossover (its ``BENCH_dynamic.json``) was not taken on this
+hardware and is not read.
+
 ``op`` (the primary operation, ``IndexSpec.op``) restricts the choice to
 engines declaring it in ``EngineCaps.ops``: a pinned engine that lacks it
 raises, an automatic choice that lacks it is rerouted to ``chunked``, and
 ``mutable=True`` with a dual-tree op is a contradiction (the mutable
-engine, ROADMAP Queue 1 item 14, is knn-only).  ``jit``, ``host`` and
-``kdtree`` are taken only when pinned, as in the reference.
+engine is knn-only).  ``jit``, ``host`` and ``kdtree`` are taken only when
+pinned, as in the reference.
 
 Without a ``memory_budget`` the reference plans N=1 whatever the device
 holds.  On a CUDA device the port reads the free device memory
@@ -34,6 +43,7 @@ ported: those numbers were not measured on this hardware.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
@@ -53,6 +63,7 @@ __all__ = [
     "BRUTE_N_MAX",
     "BRUTE_WORK_MAX",
     "PRECISION_ENGINES",
+    "CHUNK_ENGINES",
 ]
 
 
@@ -63,9 +74,11 @@ class BudgetError(ValueError):
 
 BRUTE_N_MAX = 2048
 BRUTE_WORK_MAX = 1 << 21
-# engines whose leaf slabs live in a ChunkedLeafStore: they honor a
-# precision choice and stream chunks under a budget (rules 4 and 5)
-PRECISION_ENGINES = ("chunked", "host", "streaming")
+# engines whose leaf slabs live in a ChunkedLeafStore honor a precision
+# choice (rule 4; the dynamic forest's tree shards); those with one store
+# stream its chunks under a budget (rule 5; the forest sizes each shard's)
+PRECISION_ENGINES = ("chunked", "host", "streaming", "dynamic")
+CHUNK_ENGINES = ("chunked", "host", "streaming")
 _F32 = 4
 # share of the free device memory the leaf structure may take when the
 # caller gives no budget: the round state, work plan and merge buffers of a
@@ -163,6 +176,9 @@ class Plan:
     precision: str = "fp32"
     over_budget: bool = False
     starvation_deadline: int = DEFAULT_STARVATION_DEADLINE
+    crossover_batch: Optional[int] = None  # dynamic: insert batches at or
+                                 # above this flatten the forest
+    merge_async: bool = False    # dynamic: carry merges on a background worker
     reasons: Tuple[str, ...] = ()
 
     def replace(self, **kw) -> "Plan":
@@ -201,6 +217,7 @@ def plan(
     strict_budget: bool = False,
     op: str = "knn",
     mutable: Optional[bool] = None,
+    merge_async: Optional[bool] = None,
 ) -> Plan:
     """Pick an engine + parameters for (n, d) references and (m, k) queries.
 
@@ -232,8 +249,14 @@ def plan(
             f"declare it (caps.ops); declaring engines: "
             f"{sorted(available_engines(op=op))}"
         )
+    if mutable and engine is not None and not get_engine(engine).caps.mutable:
+        raise ValueError(
+            f"mutable=True but pinned engine {engine!r} declares "
+            "caps.mutable=False; unpin the engine or pick a mutable one "
+            "(e.g. 'dynamic')"
+        )
     if mutable and engine is None:
-        engine = "dynamic"   # get_engine below names its ROADMAP item
+        engine = "dynamic"
     if devices is None:
         devices = default_devices()
     p = max(1, len(devices))
@@ -373,7 +396,7 @@ def plan(
 
     over_budget = False
     over_detail = ""
-    if engine in PRECISION_ENGINES:
+    if engine in CHUNK_ENGINES:
         if n_chunks is None:
             budget = memory_budget
             if budget is None:
@@ -387,15 +410,88 @@ def plan(
         else:
             reasons.append(f"N={n_chunks} chunks pinned by caller")
 
+    crossover = None
+    do_merge_async = False
+    if engine == "dynamic":
+        crossover, note = _mutable_costing(n)
+        reasons.append(note)
+        # background staging unless pinned off: queries keep answering from
+        # the pre-merge shards, only insert/query tail latency changes
+        do_merge_async = True if merge_async is None else bool(merge_async)
+        reasons.append(
+            "carry merges offloaded to a background staging worker; queries "
+            "answer from the pre-merge shards until the atomic swap "
+            "(merge_async=True)" if do_merge_async else
+            "carry merges run inline on the insert path (merge_async=False "
+            "pinned by caller)"
+        )
+        if p > 1:
+            from repro_torch.core.dynamic import DEFAULT_BASE_CAPACITY
+            from repro_torch.distributed.dynamic_shards import preview_rung_placement
+
+            preview = preview_rung_placement(
+                n, base_capacity=min(b, DEFAULT_BASE_CAPACITY),
+                brute_cutoff=BRUTE_N_MAX, n_devices=p)
+            pv = ", ".join(f"rung {cap}->dev{slot}" for cap, slot in preview[:6])
+            reasons.append(
+                f"mutable multi-device: {p} devices; tree rungs placed "
+                f"least-loaded (steady-state preview: {pv}), brute rungs pinned "
+                "to dev0; per-device fan-out folds with the two-phase rank merge"
+            )
+        else:
+            reasons.append(
+                "1 device: dynamic forest runs single-device (placement and "
+                "fan-out degenerate to the lead device)"
+            )
+        if memory_budget is not None and resident_for("dynamic", ns=p) > memory_budget:
+            # each tree shard streams its leaf slabs within the budget; only a
+            # budget below two leaf slabs of the largest shard cannot be met
+            floor = 2 * max(1, slab // (1 << h)) + meta
+            if floor > memory_budget:
+                over_budget = True
+                over_detail = (
+                    f"memory_budget {memory_budget}B is below the dynamic "
+                    f"forest's 2-leaf streaming floor {floor}B at precision {prec}"
+                )
+                reasons.append(over_detail + " [over budget]")
+            else:
+                reasons.append(
+                    f"memory_budget {memory_budget}B below the dynamic forest's "
+                    f"resident estimate {resident_for('dynamic', ns=p)}B: tree "
+                    "shards chunk-stream their leaf slabs to stay inside the "
+                    f"envelope (precision {prec})"
+                )
+
     if over_budget and strict_budget:
         raise BudgetError(
             f"strict_budget: no {engine} plan fits memory_budget="
             f"{memory_budget}B — {over_detail}"
         )
     nc = int(n_chunks) if n_chunks is not None else 1
-    ns = int(n_shards) if n_shards is not None else 1
+    ns = int(n_shards) if n_shards is not None else (p if engine == "dynamic" else 1)
     return Plan(
         engine=engine, n_chunks=nc, n_shards=ns,
         resident_bytes=resident_for(engine, nc, ns),
-        precision=prec, over_budget=over_budget, reasons=tuple(reasons), **base
+        precision=prec, over_budget=over_budget, crossover_batch=crossover,
+        merge_async=do_merge_async, reasons=tuple(reasons), **base
+    )
+
+
+def _mutable_costing(n: int) -> Tuple[int, str]:
+    """Rebuild-vs-merge crossover of the dynamic engine, the reference's
+    model: a batch of b points absorbed by the carry chain costs ~b * levels
+    point rebuilds, a flattening rebuild ~n + b; they cross at ~n / levels.
+    The reference overrides the model with its measured crossover
+    (``BENCH_dynamic.json``); that file was measured on other hardware with
+    the other package, so the port keeps the model until a measurement on
+    its own hardware exists."""
+    from repro_torch.core.dynamic import DEFAULT_BASE_CAPACITY
+
+    levels = max(1, math.ceil(math.log2(max(2.0, n / DEFAULT_BASE_CAPACITY))))
+    cx = max(DEFAULT_BASE_CAPACITY, n // levels)
+    return cx, (
+        f"mutable: dynamic engine; carry-chain merge touches a point <= "
+        f"{levels}x vs full rebuild of {n}, modeled crossover at batches >= "
+        f"{cx} (the model's: no crossover measured on this hardware; the "
+        "reference's BENCH_dynamic.json is not read)"
     )

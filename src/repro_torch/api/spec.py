@@ -3,8 +3,9 @@
 Counterpart of ``repro.api.spec``: ``IndexSpec`` is what a caller asks for
 (``None`` = let the planner decide), ``QueryResult`` what a query returns,
 ``RadiusResult`` and ``StatResult`` what the dual-tree ops return.  The
-fields of the reference's spec that belong to parts not ported yet
-(calibration, compile cache, mutation and its WAL's fsync) are not here.
+reference's ``calibration`` (ROADMAP Queue 1 item 19) and
+``compile_cache_dir`` (XLA's compile cache; nothing is compiled here) are
+not here.
 """
 
 from __future__ import annotations
@@ -38,12 +39,19 @@ class IndexSpec:
     memory_budget: Optional[int] = None   # device bytes for the leaf structure
     precision: Optional[str] = None       # "fp32" | "fp16" | "int8"
     strict_budget: bool = False           # over-budget plan raises BudgetError
+    # -- mutation (the dynamic engine) ---------------------------------
+    mutable: Optional[bool] = None        # True: the index takes insert /
+                                          # delete (plans 'dynamic')
+    merge_async: Optional[bool] = None    # dynamic engine: None => planner
+                                          # decides (background carry merges)
     # -- crash-safe lifecycle (docs/OPERATIONS.md) ---------------------
     persist_dir: Optional[str] = None     # versioned snapshots + a mutation
                                           # WAL rooted here: build writes a
                                           # baseline snapshot, KNNIndex.load
                                           # resumes it
     snapshot_keep: int = 2                # complete versions save() keeps
+    wal_fsync: bool = True                # fsync each WAL record before the
+                                          # mutation is acknowledged
 
     def replace(self, **kw) -> "IndexSpec":
         return dataclasses.replace(self, **kw)

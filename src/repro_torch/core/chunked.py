@@ -202,10 +202,34 @@ class ChunkedLeafStore:
         return int(self.q_scale.nbytes + self.q_offset.nbytes) + packed
 
     def kill_rows(self, leaf_ids, rows) -> None:
-        raise NotImplementedError(
-            "ChunkedLeafStore.kill_rows (tombstone reclaim of the mutable "
-            "index) is not ported yet: ROADMAP Queue 1 item 14"
-        )
+        """Disable slab rows ``(leaf_ids[i], rows[i])`` for good, so they
+        never again win a distance contest (the tombstone reclaim of the
+        mutable index's tree shards, ``core/dynamic.py``).  fp32 stores
+        write PAD_COORD into the rows of the host slab and, in place, of
+        the resident device slab (no upload of the slab); a chunk slot
+        holding one of the rows' chunks is invalidated, so the next visit
+        copies it again.  Code stores flip the dead mask and rewrite only
+        the affected leaves' rows of the resident packed mask, in place:
+        the engines hold that tensor (``device_meta``)."""
+        leaf_ids = np.asarray(leaf_ids, np.int64).ravel()
+        rows = np.asarray(rows, np.int64).ravel()
+        if leaf_ids.size == 0:
+            return
+        if self.quantized:
+            self.dead[leaf_ids, rows] = True
+            touched = np.unique(leaf_ids)
+            packed = torch.from_numpy(pack_dead(self.dead[touched]))
+            self._meta[2][torch.from_numpy(touched).to(self.device)] = packed.to(self.device)
+            return
+        pad = float(PAD_COORD)
+        self.host[torch.from_numpy(leaf_ids), torch.from_numpy(rows)] = pad
+        if self._resident is not None:
+            self._resident[torch.from_numpy(leaf_ids).to(self.device),
+                           torch.from_numpy(rows).to(self.device)] = pad
+        chunks = set(self.chunk_of_leaf(leaf_ids).tolist())
+        for slot in self._slots:
+            if slot.chunk_id in chunks:
+                slot.chunk_id = -1
 
     def quantized_state(self) -> QuantizedSlabs:
         """Snapshot view of a quantized store: codes, scale, offset and dead

@@ -150,6 +150,9 @@ class SearchStats:
     plan_shapes: int = 0     # distinct batch shapes: dual-tree leaf-pair
                              # batches; host loop: padded plan widths
     retested_pairs: int = 0  # dual-tree ops: pairs tested again directly
+    # operational events of the call (the mutable index's device loss and
+    # re-placement; the facade adds them to ``Plan.reasons``)
+    events: Tuple[str, ...] = ()
 
     @classmethod
     def from_info(cls, info, leaf_pad: int) -> "SearchStats":
@@ -326,6 +329,11 @@ class BufferKDTree:
 
     ``store_state`` (a snapshot's ``QuantizedSlabs``) is adopted as the
     store's codes instead of quantizing the points again.
+    ``live`` (bool[n] over ``points``; default every row) marks the rows
+    that can be answers: the certificate bounds its rounding by their norms
+    only (the mutable index's padding and deleted rows are left out).  The
+    array is held, not copied: a caller that deletes rows clears their bits
+    and writes PAD_COORD into them.
     """
 
     def __init__(
@@ -344,6 +352,7 @@ class BufferKDTree:
         tree: Optional[TopTree] = None,
         precision: str = "fp32",
         store_state: Optional[QuantizedSlabs] = None,
+        live: Optional[np.ndarray] = None,
     ):
         if engine not in ("chunked", "host"):
             raise ValueError(f"engine={engine!r} not in ('chunked', 'host')")
@@ -363,6 +372,9 @@ class BufferKDTree:
             self.tree = build_top_tree(
                 points, height if height is not None else suggest_height(n)
             )
+        # the caller's mask of the rows that can be answers (None: every
+        # row); held, not copied, so the bound sees the bits deletes clear
+        self._live = live
         h = self.tree.height
         self.tile_q = int(tile_q)
         # slabs keep the points' own width d: the kernel pads each row with
@@ -468,8 +480,21 @@ class BufferKDTree:
 
     @functools.cached_property
     def _x_norm_max(self) -> float:
-        """Largest norm a dequantized point can have (bounds fp32 error)."""
-        norms = np.sqrt(np.sum(self.tree.points.astype(np.float64) ** 2, axis=1))
+        """Largest norm a dequantized live point can have (bounds fp32
+        error): over every row, or over the rows ``live`` marks when it is
+        first needed.  The mutable index pads its tree shards to their rung
+        with PAD_COORD rows and writes it into deleted rows
+        (``core/dynamic.py``); a 1e18 norm would make every row's slack
+        ~1e31, so no row would be proven.  Such rows cannot be an answer's
+        neighbour (they rank after every live row), so the bound over the
+        live rows is the one ``certify`` needs.  Kills only remove rows, so
+        a value cached before them still bounds."""
+        pts = self.tree.points
+        if self._live is not None:
+            pts = pts[np.asarray(self._live, bool)[self.tree.orig_idx]]
+        if pts.shape[0] == 0:
+            return self.store.quant_eps
+        norms = np.sqrt(np.sum(pts.astype(np.float64) ** 2, axis=1))
         return float(norms.max()) + self.store.quant_eps
 
     def _exact_rows(self, queries: np.ndarray, k: int):

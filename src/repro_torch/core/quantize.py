@@ -141,6 +141,25 @@ class QuantizedSlabs:
             f"{prefix}/eps": np.asarray([self.eps], np.float64),
         }
 
+    def reference_layout(self, multiple: int = 8) -> "QuantizedSlabs":
+        """The codes and their scale and offset with feature columns padded
+        to a ``multiple`` (at least one), as the reference lays them out in
+        a snapshot: pad columns of code 0, scale 0 (int8) or 1 (fp16) and
+        offset 0 dequantize to the zeros it stores."""
+
+        def pad(a: np.ndarray, fill: float = 0.0) -> np.ndarray:
+            d = a.shape[-1]
+            width = max(multiple, -(-d // multiple) * multiple)
+            if width == d:
+                return np.asarray(a)
+            cols = np.full(a.shape[:-1] + (width - d,), fill, a.dtype)
+            return np.concatenate([a, cols], axis=-1)
+
+        return dataclasses.replace(
+            self, codes=pad(self.codes),
+            scale=pad(self.scale, 1.0 if self.precision == "fp16" else 0.0),
+            offset=pad(self.offset))
+
     @classmethod
     def from_arrays(
         cls, arrays, precision: str, prefix: str = "quant"

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
@@ -50,6 +51,7 @@ class KernelLibrary:
 
 _LOADED: Dict[Spec, KernelLibrary] = {}
 _BUILD_S: Dict[Spec, float] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -121,15 +123,24 @@ def load(name: str, defines: Tuple[str, ...] = ()) -> KernelLibrary:
     spec = (name, tuple(defines))
     if spec in _LOADED:
         return _LOADED[spec]
+    # threads that launch at once (the mutable index's fan-out) would start
+    # two nvcc runs writing the same temporary file: one builds, the others
+    # wait and load its result
+    with _LOAD_LOCK:
+        if spec not in _LOADED:
+            _LOADED[spec] = _load(spec)
+    return _LOADED[spec]
+
+
+def _load(spec: Spec) -> KernelLibrary:
+    name = spec[0]
     st = _start(spec)
     if st is not None:
         _finish(spec, st)
     out = _output(spec)
     log_path = out.with_suffix(".ptxas.txt")
-    loaded = KernelLibrary(
+    return KernelLibrary(
         name=name, defines=spec[1], path=out, lib=ctypes.CDLL(str(out)),
         build_s=_BUILD_S.get(spec, 0.0),
         ptxas_log=log_path.read_text() if log_path.exists() else "",
     )
-    _LOADED[spec] = loaded
-    return loaded

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from typing import Tuple
 
 import torch
@@ -425,21 +426,35 @@ def _launch(v: Variant, qpad, slab, unit_leaf, unit_query, n_units, k, scale, of
             f"leaf_scan kernel launch failed ({err}, {v.name}): "
             f"{lib.leaf_scan_error_string(err).decode()}"
         )
-    leaf_scan_units.launches += 1
-    leaf_scan_units.launches_by_code[code] += 1
-    key = f"{code}_k{k}" if v.kind == "narrow" else f"{code}_d{d}_k{k}"
-    for counts, at in ((leaf_scan_units.launches_by_instance, key),
-                       (leaf_scan_units.launches_by_variant, v.name)):
-        counts[at] = counts.get(at, 0) + 1
+    count_launch(code, f"{code}_k{k}" if v.kind == "narrow" else f"{code}_d{d}_k{k}",
+                 v.name)
     return out_d, out_i
+
+
+# the counts are read-modify-writes of shared dicts, and the mutable index
+# launches from several threads (one per device slot of its fan-out, and its
+# merge worker): one lock keeps each launch counted once
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(code: str, instance: str, variant: str) -> None:
+    """Add one launch to the counts of ``leaf_scan_units``: in all, for the
+    code type, the (code type, k) instance and the variant name."""
+    w = leaf_scan_units
+    with _COUNT_LOCK:
+        w.launches += 1
+        w.launches_by_code[code] += 1
+        w.launches_by_instance[instance] = w.launches_by_instance.get(instance, 0) + 1
+        w.launches_by_variant[variant] = w.launches_by_variant.get(variant, 0) + 1
 
 
 def reset_launches() -> None:
     """Set the launch counts of ``leaf_scan_units`` to 0."""
-    leaf_scan_units.launches = 0
-    leaf_scan_units.launches_by_code = dict.fromkeys(CODES, 0)
-    leaf_scan_units.launches_by_instance = {}
-    leaf_scan_units.launches_by_variant = {}
+    with _COUNT_LOCK:
+        leaf_scan_units.launches = 0
+        leaf_scan_units.launches_by_code = dict.fromkeys(CODES, 0)
+        leaf_scan_units.launches_by_instance = {}
+        leaf_scan_units.launches_by_variant = {}
 
 
 # kernel launches (not plain-version calls), in all, per code type, per

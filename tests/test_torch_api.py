@@ -212,10 +212,13 @@ def test_planner_errors_and_limits():
     assert p.engine == "chunked" and any("op='radius'" in r for r in p.reasons)
     with pytest.raises(KeyError, match="not yet ported"):
         plan(50_000, 8, devices=CPU, engine="forest")
-    with pytest.raises(KeyError, match="item 14"):
-        plan(50_000, 8, devices=CPU, mutable=True)
-    assert sorted(available_engines()) == ["brute", "chunked", "host", "jit", "kdtree",
-                                           "streaming"]
+    mut = plan(50_000, 8, devices=CPU, mutable=True)
+    assert (mut.engine, mut.merge_async) == ("dynamic", True)
+    assert any("modeled crossover" in r for r in mut.reasons)
+    with pytest.raises(ValueError, match="caps.mutable=False"):
+        plan(50_000, 8, devices=CPU, mutable=True, engine="chunked")
+    assert sorted(available_engines()) == ["brute", "chunked", "dynamic", "host", "jit",
+                                           "kdtree", "streaming"]
     assert sorted(available_engines(op="kde")) == ["brute", "chunked", "host", "streaming"]
     assert get_engine("chunked").caps.ops == frozenset(DUAL_OPS + ("knn",))
     assert get_engine("jit").caps.ops == frozenset({"knn"})
@@ -354,7 +357,7 @@ def test_op_caps_contract():
     assert set(available_engines(op="knn")) == set(available_engines())
     with pytest.raises(ValueError, match="unknown op"):
         available_engines(op="warp")
-    assert NON_DECLARING == ["jit", "kdtree"]
+    assert NON_DECLARING == ["dynamic", "jit", "kdtree"]
     pts, q = _lattice_data(700, 16, 4, seed=22)
     idx = KNNIndex.build(pts, IndexSpec(engine="jit", height=2, devices=CPU))
     with pytest.raises(OpUnsupported, match="radius"):

@@ -611,3 +611,122 @@ def test_save_and_load_on_card_answer_bit_for_bit(engine, precision, tmp_path):
     d1, i1 = loaded.query(q, 10)
     np.testing.assert_array_equal(d1, d0)
     np.testing.assert_array_equal(i1, i0)
+
+
+# ---------------------------------------------------------------------------
+# the mutable index (core/dynamic.py) on the card
+# ---------------------------------------------------------------------------
+def _mutable_script(dev_list, precision, seed):
+    """Build, insert, delete and query a mutable index on ``dev_list``
+    (one or four slots of the card); every answer exact against knn_brute
+    over the live points, the tree shards through the CUDA leaf scan."""
+    from repro_torch.api import IndexSpec, KNNIndex
+
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(60000, 10)).astype(np.float32)
+    q = rng.normal(size=(2000, 10)).astype(np.float32)
+    live = np.zeros(len(pts), bool)
+    index = KNNIndex.build(pts[:40000], IndexSpec(mutable=True, precision=precision,
+                                                  k_hint=10, devices=tuple(dev_list)))
+    live[:40000] = True
+    for lo in range(40000, 60000, 4000):
+        index.insert(pts[lo:lo + 4000])
+        live[lo:lo + 4000] = True
+        dels = rng.choice(np.nonzero(live)[0], 500, replace=False)
+        index.delete(dels)
+        live[dels] = False
+    index.drain(timeout=300)
+    knn_scan.reset_launches()
+    res = index.query(q, 10)
+    assert knn_scan.leaf_scan_units.launches > 0
+    ids = np.nonzero(live)[0]
+    bd, bi = knn_brute(q, pts[ids], 10, device=dev_list[0])
+    np.testing.assert_allclose(res.dists, bd, rtol=1e-5, atol=1e-6)
+    assert live[res.idx].all()
+    assert (res.idx == ids[bi]).mean() > 0.999
+    if precision in (None, "fp32"):
+        assert res.stats.exact_rows == 0
+    return index
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", [None, "int8"])
+def test_mutable_index_on_card_is_exact(precision):
+    dev = _device()
+    index = _mutable_script([dev], precision, seed=21)
+    assert index.engine_name == "dynamic"
+    assert {s.device.type for s in index._state._shards} == {"cuda"}
+
+
+@pytest.mark.cuda
+def test_mutable_index_on_four_slots_of_the_card_is_exact():
+    dev = _device()
+    index = _mutable_script([dev] * 4, None, seed=22)
+    assert index.plan.n_devices == 4
+    assert len({slot for _, kind, slot in index._state.placement() if kind == "tree"}) >= 2
+
+
+@pytest.mark.cuda
+def test_merge_swapped_in_while_a_query_runs():
+    """A background merge builds its staging shard on the card and swaps it
+    in while another thread queries the forest: every answer exact, and
+    the swapped shard answers from its first query on."""
+    import threading
+
+    from repro_torch.core.dynamic import DynamicIndex
+
+    dev = _device()
+    rng = np.random.default_rng(23)
+    pts = rng.normal(size=(40000, 8)).astype(np.float32)
+    idx = DynamicIndex(8, base_capacity=1024, brute_cutoff=2048, devices=[dev],
+                       merge_async=True)
+    idx.insert(pts[:20000])
+    q = rng.normal(size=(512, 8)).astype(np.float32)
+    errors, answers = [], []
+    stop = threading.Event()
+
+    def reader():
+        while not stop.is_set():
+            try:
+                answers.append(idx.query(q, 10)[:2])
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
+                return
+
+    t = threading.Thread(target=reader)
+    t.start()
+    for lo in range(20000, 40000, 2500):
+        idx.insert(pts[lo:lo + 2500])
+    idx.drain_merges(timeout=300)
+    stop.set()
+    t.join(300)
+    assert not errors, errors
+    assert idx.merge_stats()["completed"] >= 2 and answers
+    # answers taken while merges ran are exact for the points live then
+    # (a prefix of pts); the one after the drain is exact for all
+    bd, _ = knn_brute(q, pts, 10, device=dev)
+    dd, _, _ = idx.query(q, 10)
+    np.testing.assert_allclose(dd, bd, rtol=1e-5, atol=1e-6)
+    for dd, _ in answers:
+        assert np.all(dd >= bd - 1e-5)
+
+
+@pytest.mark.cuda
+def test_launch_counts_summed_across_fanout_threads():
+    """Four slots of the card queried by the fan-out's four threads: the
+    launch counts equal the sum of each shard's own rounds."""
+    from repro_torch.core.dynamic import DynamicIndex
+
+    dev = _device()
+    rng = np.random.default_rng(24)
+    idx = DynamicIndex(10, base_capacity=1024, brute_cutoff=2048, devices=[dev] * 4)
+    for n in (32768, 16384, 8192, 4096):
+        idx.insert(rng.normal(size=(n, 10)).astype(np.float32))
+    trees = [s for s in idx._shards if s.kind == "tree"]
+    assert len({s.slot for s in trees}) == 4
+    q = rng.normal(size=(4096, 10)).astype(np.float32)
+    knn_scan.reset_launches()
+    idx.query(q, 10)
+    torch.cuda.synchronize()
+    per_shard = sum(s.engine.stats.chunk_rounds for s in trees)
+    assert knn_scan.leaf_scan_units.launches == per_shard > 0

@@ -297,8 +297,7 @@ def test_rows_without_a_finite_neighbour_get_minus_one(engine):
 # what is still to port raises with its ROADMAP item
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("engine,item", [
-    ("dynamic", "item 14"), ("sharded", "item 18"), ("forest", "item 18"),
-    ("ring", "item 18"),
+    ("sharded", "item 18"), ("forest", "item 18"), ("ring", "item 18"),
 ])
 def test_unported_engines_name_their_item(engine, item):
     assert engine not in available_engines()
@@ -306,6 +305,21 @@ def test_unported_engines_name_their_item(engine, item):
         get_engine(engine)
     with pytest.raises(KeyError, match=item):
         plan(50_000, 8, devices=CPUS, engine=engine)
-    index = KNNIndex.build(np.zeros((64, 3), np.float32), IndexSpec(devices=CPUS))
-    with pytest.raises(TypeError, match="item 14"):
-        index.insert(np.zeros((2, 3), np.float32))
+
+
+@pytest.mark.parametrize("engine", ["brute", "kdtree", "host", "chunked", "streaming", "jit"])
+def test_immutable_engines_refuse_mutation(engine):
+    """``insert`` / ``delete`` on an engine without ``caps.mutable`` raise
+    the reference's ``MutabilityError`` (a ``TypeError``), as
+    ``repro.api.KNNIndex`` does, and change nothing."""
+    from repro_torch.api import MutabilityError
+
+    pts = np.random.default_rng(3).normal(size=(300, 3)).astype(np.float32)
+    index = KNNIndex.build(pts, IndexSpec(engine=engine, height=2, devices=CPUS))
+    ref = jax_api.KNNIndex.build(pts, jax_api.IndexSpec(engine=engine, height=2))
+    for idx, err in ((index, MutabilityError), (ref, jax_api.MutabilityError)):
+        with pytest.raises(err, match="immutable"):
+            idx.insert(np.zeros((2, 3), np.float32))
+        with pytest.raises(err, match="immutable"):
+            idx.delete([0])
+    assert index.n == 300 and issubclass(MutabilityError, TypeError)

@@ -2,13 +2,16 @@
 the CPU.
 
 Mirrors ``tests/test_faults.py``'s registry units and
-``tests/test_persist.py`` up to its WAL rotation test on the port
-(``repro_torch.faults``, ``repro_torch.persist``, ``KNNIndex.save`` /
-``load``); the merge, device-loss and crash-and-replay drills need the
-mutable engine (ROADMAP Queue 1 item 14) and wait for it.  Then the
+``tests/test_persist.py`` on the port (``repro_torch.faults``,
+``repro_torch.persist``, ``KNNIndex.save`` / ``load``), its
+crash-and-replay harness over a mutable (``dynamic``) index included: a
+kill at every op boundary and fault point, then ``load`` (snapshot + WAL
+replay) answers exactly as the acknowledged mutations say.  The merge and
+device-loss drills are in ``tests/test_torch_dynamic.py``.  Then the
 cross-load tests: the port loads snapshots that ``repro`` wrote in the
-test and answers as ``repro``'s index does, and ``repro`` loads the
-port's; a save and load within the port answers bit for bit the same.
+test (a mutable index's with its WAL tail too) and answers as ``repro``'s
+index does, and ``repro`` loads the port's; a save and load within the
+port answers bit for bit the same.
 """
 
 import json
@@ -378,8 +381,8 @@ class TestFacadeRoundtrip:
 
     def test_save_rotates_and_gcs_wal(self, tmp_path):
         """``save()`` into the live persist dir: versions are kept to
-        ``snapshot_keep`` and the WAL keeps one segment (no mutation is
-        logged until the mutable engine is ported, so it rotates at 0)."""
+        ``snapshot_keep`` and the WAL keeps one segment (an immutable
+        engine logs no mutation, so it rotates at 0)."""
         spec = IndexSpec(engine="chunked", persist_dir=str(tmp_path), snapshot_keep=1,
                          devices=CPUS)
         idx = KNNIndex.build(_rand(18, 50), spec=spec)
@@ -466,11 +469,190 @@ def test_reference_loads_a_port_snapshot(engine, precision, tmp_path):
     assert (ri == pi).mean() > 0.999
 
 
-def test_mutable_snapshot_names_its_item(tmp_path):
-    """A snapshot of ``repro``'s mutable index (the ``dynamic`` engine)
-    raises the typed error that names the ROADMAP item porting it."""
-    ref = jax_api.KNNIndex.build(_rand(30, 64), jax_api.IndexSpec(mutable=True,
-                                                                  buffer_size=16))
-    ref.save(str(tmp_path))
-    with pytest.raises(KeyError, match="item 14"):
-        KNNIndex.load(str(tmp_path), devices=CPUS)
+# ---------------------------------------------------------------------------
+# the mutable index: snapshot + WAL, crash and replay
+# (tests/test_persist.py::TestCrashRestoreHarness)
+# ---------------------------------------------------------------------------
+N_CRASH_SCRIPTS = 40
+_CRASH_MODES = (
+    ("none", ("insert", "delete", "save")),
+    ("wal.append", ("insert", "delete")),
+    ("wal.torn", ("insert", "delete")),
+    ("persist.slab_write", ("save",)),
+    ("persist.commit", ("save",)),
+)
+
+
+def _gen_ops(rng, n_ops):
+    """A mutation script: save every 3rd op, insert / delete otherwise."""
+    ops = []
+    for i in range(n_ops):
+        if i % 3 == 2:
+            ops.append(("save", None))
+        elif rng.random() < 0.7 or i < 2:
+            ops.append(("insert", int(rng.integers(4, 17))))
+        else:
+            ops.append(("delete", int(rng.integers(1, 5))))
+    return ops
+
+
+def _apply_op(idx, shadow, rng, op, arg):
+    """One op; the shadow is updated only after the call returns (an
+    unacknowledged mutation may be lost)."""
+    if op == "insert":
+        pts = rng.normal(size=(arg, D)).astype(np.float32)
+        for j, g in enumerate(idx.insert(pts)):
+            shadow[int(g)] = pts[j]
+    elif op == "delete":
+        live = np.fromiter(sorted(shadow), np.int64, len(shadow))
+        take = min(arg, len(live) - 8)
+        if take < 1:
+            return
+        dels = rng.choice(live, size=take, replace=False)
+        idx.delete(dels)
+        for g in dels:
+            del shadow[int(g)]
+    else:
+        idx.save()
+
+
+def _assert_parity(idx, shadow, rng, *, k=3):
+    ids = np.fromiter(sorted(shadow), np.int64, len(shadow))
+    live = np.stack([shadow[int(g)] for g in ids])
+    q = rng.normal(size=(4, D)).astype(np.float32)
+    dd, di = idx.query(q, k=k)
+    bd, bi = knn_brute(q, live, k, device="cpu")
+    np.testing.assert_array_equal(di, ids[bi])
+    np.testing.assert_allclose(dd, bd, rtol=1e-5, atol=1e-5)
+    assert idx.n == len(shadow)
+
+
+def _run_crash_script(seed, root, *, crash_at=None, mode=None):
+    """build -> ops[:c] -> a kill at ops[c] -> load -> parity -> one more
+    acknowledged mutation -> parity."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(40, D)).astype(np.float32)
+    idx = KNNIndex.build(base, IndexSpec(mutable=True, buffer_size=16, k_hint=3,
+                                         persist_dir=root, merge_async=False,
+                                         devices=CPUS))
+    shadow = {i: base[i] for i in range(40)}
+    ops = _gen_ops(rng, n_ops=8)
+    if crash_at is None:
+        crash_at = int(rng.integers(0, len(ops) + 1))
+    for i, (op, arg) in enumerate(ops):
+        if i == crash_at:
+            if mode is None:
+                candidates = [m for m, kinds in _CRASH_MODES if op in kinds]
+                mode = candidates[int(rng.integers(0, len(candidates)))]
+            if mode != "none":
+                faults.arm(mode)
+                with pytest.raises(faults.SimulatedCrash):
+                    _apply_op(idx, shadow, rng, op, arg)
+                faults.reset()
+            break   # the process "dies" here: the object is abandoned
+        _apply_op(idx, shadow, rng, op, arg)
+    idx2 = KNNIndex.load(root, devices=CPUS)
+    _assert_parity(idx2, shadow, rng)
+    _apply_op(idx2, shadow, rng, "insert", 6)
+    _assert_parity(idx2, shadow, rng)
+    return idx2
+
+
+class TestCrashRestoreHarness:
+    def test_every_boundary_of_a_fixed_script(self, tmp_path):
+        """The same seeded script killed at every op boundary x every fault
+        point that applies to the op."""
+        ops = _gen_ops(np.random.default_rng(0), n_ops=8)
+        runs = 0
+        for c, (op, _) in enumerate(ops):
+            for mode, kinds in _CRASH_MODES:
+                if op in kinds:
+                    _run_crash_script(777, str(tmp_path / f"c{c}_{mode.replace('.', '_')}"),
+                                      crash_at=c, mode=mode)
+                    runs += 1
+        assert runs >= len(ops)
+
+    @pytest.mark.parametrize("seed", range(N_CRASH_SCRIPTS))
+    def test_seeded_interleavings(self, seed, tmp_path):
+        _run_crash_script(seed, str(tmp_path / "s"))
+
+    def test_replayed_records_are_reported(self, tmp_path):
+        """``load`` replays exactly the records after the snapshot and says
+        how many; the WAL keeps appending from there."""
+        rng = np.random.default_rng(5)
+        idx = KNNIndex.build(_rand(5, 50), IndexSpec(mutable=True, buffer_size=16,
+                                                     persist_dir=str(tmp_path),
+                                                     devices=CPUS))
+        idx.insert(_rand(6, 10))
+        idx.delete([0, 1])
+        idx.save()
+        idx.insert(_rand(7, 5))
+        idx.delete([2])
+        loaded = KNNIndex.load(str(tmp_path), devices=CPUS)
+        assert any("replayed 2 WAL record(s)" in r for r in loaded.plan.reasons)
+        assert loaded.n == 50 + 10 - 2 + 5 - 1 == idx.n
+        q = rng.normal(size=(8, D)).astype(np.float32)
+        d0, i0 = idx.query(q, 4)
+        d1, i1 = loaded.query(q, 4)
+        np.testing.assert_array_equal(i0, i1)
+        np.testing.assert_array_equal(d0, d1)
+        assert loaded._mutation_seq == 4
+
+
+def _mutate_both(idx, seed):
+    """The same acknowledged mutations on an index of either package."""
+    rng = np.random.default_rng(seed)
+    idx.insert(rng.normal(size=(300, 5)).astype(np.float32))
+    idx.delete(np.arange(0, 600, 9))
+    idx.insert(rng.normal(size=(40, 5)).astype(np.float32))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+def test_port_loads_a_reference_mutable_index(precision, tmp_path):
+    """``repro``'s mutable index with a persist dir: a snapshot, then more
+    mutations in its WAL tail.  The port's ``load`` restores the forest and
+    replays the tail: the same live ids, shard layout and answers (ids
+    equal up to ties), and it goes on mutating."""
+    pts, q = _cross_data()
+    spec = dict(mutable=True, buffer_size=256, k_hint=7, merge_async=False,
+                precision=precision)
+    ref = jax_api.KNNIndex.build(pts[:2000], jax_api.IndexSpec(
+        persist_dir=str(tmp_path), **spec))
+    _mutate_both(ref, 1)
+    ref.save()
+    ref.insert(pts[2000:2100])
+    ref.delete(np.arange(2, 600, 9))
+    rd, ri = ref.query(q, 7)
+    idx = KNNIndex.load(str(tmp_path), devices=CPUS)
+    assert idx.engine_name == "dynamic" and idx.plan.precision == ref.plan.precision
+    assert any("replayed 2 WAL record(s)" in r for r in idx.plan.reasons)
+    np.testing.assert_array_equal(idx._state.live_ids(), ref._state.live_ids())
+    assert idx._state.shard_layout() == ref._state.shard_layout()
+    res = idx.query(q, 7)
+    np.testing.assert_allclose(res.dists, rd, **TOL)
+    assert (res.idx == ri).mean() > 0.999
+    new = idx.insert(pts[2100:2110])
+    assert new[0] == ref.insert(pts[2100:2110])[0]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+def test_reference_loads_a_port_mutable_index(precision, tmp_path):
+    """The port's mutable index with a persist dir and a WAL tail; the
+    reference's ``load`` restores and replays it and answers as the port
+    does."""
+    pts, q = _cross_data()
+    idx = KNNIndex.build(pts[:2000], IndexSpec(
+        mutable=True, buffer_size=256, k_hint=7, merge_async=False, precision=precision,
+        persist_dir=str(tmp_path), devices=CPUS))
+    _mutate_both(idx, 2)
+    idx.save()
+    idx.insert(pts[2000:2100])
+    idx.delete(np.arange(2, 600, 9))
+    pd, pi = idx.query(q, 7)
+    ref = jax_api.KNNIndex.load(str(tmp_path))
+    assert ref.engine_name == "dynamic"
+    np.testing.assert_array_equal(ref._state.live_ids(), idx._state.live_ids())
+    assert ref._state.shard_layout() == idx._state.shard_layout()
+    rd, ri = ref.query(q, 7)
+    np.testing.assert_allclose(rd, pd, **TOL)
+    assert (ri == pi).mean() > 0.999

@@ -125,7 +125,9 @@ def test_store_fp32_has_no_meta_and_later_items_raise():
     """An fp32 store matches ``repro.core.chunked.ChunkedLeafStore``'s byte
     counts with no metadata and has no codes to snapshot; an int8 store's
     ``quantized_state`` is the reference's, and a store adopting it holds
-    the same codes; ``kill_rows`` names the ROADMAP item that ports it."""
+    the same codes; ``kill_rows`` marks the rows dead in the mask and in
+    its resident packed copy (``tests/test_torch_dynamic.py`` holds it
+    against the reference's)."""
     slabs, sizes = _slabs(6, 16, 8, seed=5)
     port = ChunkedLeafStore(slabs, 2, device=CPU, uniform=True, leaf_sizes=sizes)
     ref = JaxStore(slabs, 2, uniform=True, leaf_sizes=sizes)
@@ -138,8 +140,6 @@ def test_store_fp32_has_no_meta_and_later_items_raise():
         port.quantized_state()
     q8 = ChunkedLeafStore(slabs, 2, device=CPU, uniform=True, precision="int8",
                           leaf_sizes=sizes)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        q8.kill_rows(np.array([0]), np.array([0]))
     qs = q8.quantized_state()
     ref_qs = JaxStore(slabs, 2, uniform=True, precision="int8",
                       leaf_sizes=sizes).quantized_state()
@@ -150,6 +150,9 @@ def test_store_fp32_has_no_meta_and_later_items_raise():
     assert again.precision == "int8" and torch.equal(again.host, q8.host)
     with pytest.raises(ValueError, match="precision"):
         ChunkedLeafStore(slabs, 1, device=CPU, precision="bf16")
+    assert not q8.dead[0, 0]
+    q8.kill_rows(np.array([0]), np.array([0]))
+    assert q8.dead[0, 0] and (q8.device_meta()[2][0, 0] & 0x80)
 
 
 @pytest.mark.parametrize("d", [3, 6, 13])
