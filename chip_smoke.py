@@ -9,6 +9,8 @@
     python3 chip_smoke.py --wide-shift 0  # the wide cell at n = 2**24, m = 2**20
     python3 chip_smoke.py --mutable-shift 0  # the mutable cell at n = 2**24, m = 2**20
     python3 chip_smoke.py --serve-shift 0    # the serve cell's 8192 / 2048 / 1024 requests
+    python3 chip_smoke.py --multi-shift 0    # the multi cell at n = 2**24, m = 2**20
+    python3 chip_smoke.py --shift 4 --multi-shift 0 --profile multi   # its engines profiled
 
 Phases, each printing its own lines:
 
@@ -46,7 +48,7 @@ Phases, each printing its own lines:
               m queries, d=10, from a seeded clustered Gaussian mixture;
               the plan must be the chunked engine with N=1, the kernel must
               have launched, and 1024 queries must match knn_brute;
-  5. ooc      the first n / 2**ooc_shift points (--ooc-shift, default 2:
+  5. ooc      the first n / 2**ooc_shift points (--ooc-shift, default 3:
               a smaller depth of the same mixture) under memory_budget =
               slab_bytes // 3 with precision pinned to fp32 (planner rule
               5): N >= 2 chunks streamed, exact against knn_brute (and the
@@ -82,7 +84,7 @@ Phases, each printing its own lines:
  12. host     IndexSpec(engine="host") (the paper's Algorithm 1: host
               queues, leaf buffers, work plans) on the first n / 2**host_shift
               points and m / 2**host_shift queries of main's data
-              (--host-shift, default 2; 0: main's data whole): every scan the
+              (--host-shift, default 3; 0: main's data whole): every scan the
               CUDA kernel (launches = chunk rounds), answers equal to main's
               (or ooc's, on the same points) with fp32_rows_missed = 0;
  13. host_ooc the same under memory_budget = slab_bytes // 3, fp32 (N = 7,
@@ -122,6 +124,19 @@ Phases, each printing its own lines:
               points, d = 5, devices=(cuda:0,) * 4): a shard-bearing slot
               lost under a KNNServer, then one serve.launch and one
               serve.stream fault; every ticket exact against knn_brute.
+ 20. multi    (after wide) the paper's multi-device querying on
+              devices=(cuda:0,) * 4 (and on every card where there are more):
+              main's mixture at n / 2**multi_shift points and m / 2**multi_shift
+              queries (--multi-shift, default 2: n = 2**22, m = 2**18); no
+              spec (the plan must be forest: a tree per slot over n / 4
+              points, each slot's round one CUDA graph), then sharded (the
+              paper's query chunks, one chunked tree per slot) and ring
+              (resident shards, query blocks rotated, every scan the
+              leaf-scan kernel) pinned, then chunked on one slot: build,
+              warm, query, each slot's seconds, the query's launches by
+              variant (counts set to 0 after the warm; the forest's are its
+              graph replays, none eager), 1024 rows against knn_brute
+              (fp32_rows_missed = 0), answers equal to chunked's up to ties.
 
 Phase 3 times the main path's fp32 instance at k = 10 + FP32_OVERFETCH
 (the k the fp32 main path runs) beside k = 10, k = 18 and k = 10 +
@@ -687,18 +702,20 @@ def main_data(seed: int, shift: int = 0, d: int = 10):
     return points, queries
 
 
-def check_exact(torch, index_res, points, queries, dev, n_check: int, live=None):
+def check_exact(torch, index_res, points, queries, dev, n_check: int, live=None,
+                brute=None):
     """Answers vs the port's knn_brute on the card for ``n_check`` queries:
     distances within rtol 1e-5, ids equal up to ties.  ``live`` (a mask
     over the rows of ``points``, which are the ids) restricts the brute
     force to a mutable index's live points, and every id returned must be
-    live.  Returns the number of id positions that differ (each one a tie)
-    and the number of rows whose distances are not all within that
-    tolerance (0, or it raises)."""
+    live; ``brute`` is knn_brute's answer when the caller has it already.
+    Returns the number of id positions that differ (each one a tie) and the
+    number of rows whose distances are not all within that tolerance (0,
+    or it raises)."""
     from repro_torch.core.brute import knn_brute
 
     ids = np.arange(points.shape[0]) if live is None else np.nonzero(live)[0]
-    bd, bi = knn_brute(queries[:n_check], points[ids], 10, device=dev)
+    bd, bi = brute or knn_brute(queries[:n_check], points[ids], 10, device=dev)
     dists, idx = index_res.dists[:n_check], index_res.idx[:n_check]
     missed = int((~np.isclose(dists, bd, rtol=1e-5, atol=1e-6).all(1)).sum())
     np.testing.assert_allclose(dists, bd, rtol=1e-5, atol=1e-6)
@@ -709,9 +726,11 @@ def check_exact(torch, index_res, points, queries, dev, n_check: int, live=None)
     return int((idx != ids[bi]).sum()), missed
 
 
-def profile_query(torch, phase, index, queries) -> None:
+def profile_query(torch, phase, index, queries, host_top: int = 0) -> None:
     """Query once more under torch.profiler: device time by kernel name and
-    the device's idle share of the query's wall time."""
+    the device's idle share of the query's wall time; with ``host_top``,
+    also the host's self time in all and its ``host_top`` largest ops
+    (torch ops and CUDA runtime calls, every thread's)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -730,6 +749,12 @@ def profile_query(torch, phase, index, queries) -> None:
     for e in events[:15]:
         print(f"[{phase}]   device {e.self_device_time_total / 1e3:10.1f} ms "
               f"{e.count:8d}x {e.key[:90]}", flush=True)
+    if host_top:
+        host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+        log(phase, host_self_s=f"{sum(e.self_cpu_time_total for e in host) / 1e6:.3f}")
+        for e in host[:host_top]:
+            print(f"[{phase}]   host {e.self_cpu_time_total / 1e3:10.1f} ms {e.count:8d}x "
+                  f"{e.key[:90]}", flush=True)
 
 
 def launch_counts(knn_scan) -> dict:
@@ -740,12 +765,21 @@ def launch_counts(knn_scan) -> dict:
                 by_variant=dict(w.launches_by_variant))
 
 
+def one_card(torch):
+    """The devices of a cell that runs on one card: None (the default: every
+    visible card, here the one) on a one-card machine, ``(cuda:0,)`` where
+    more are visible, over which planner rule 3 would spread the index."""
+    return (torch.device("cuda", 0),) if torch.cuda.device_count() > 1 else None
+
+
 def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
-    from repro_torch.api import KNNIndex
+    from repro_torch.api import IndexSpec, KNNIndex
     from repro_torch.kernels import knn_scan
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if one_card(torch):
+        spec = (spec or IndexSpec()).replace(devices=one_card(torch))
     t0 = time.perf_counter()
     index = KNNIndex.build(points, spec)
     torch.cuda.synchronize()
@@ -793,14 +827,14 @@ def main(argv=None) -> int:
     ap.add_argument("--shift", type=int, default=0,
                     help="divide n and m by 2**shift (default: full size)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ooc-shift", type=int, default=2,
+    ap.add_argument("--ooc-shift", type=int, default=3,
                     help="run the streamed cells (ooc, quant_ooc) on n / 2**ooc_shift "
-                         "points (default 2, which keeps the whole script within "
-                         "half of its time limit; 0 runs them at full depth)")
-    ap.add_argument("--host-shift", type=int, default=2,
+                         "points (default 3, which keeps the whole script within "
+                         "its time limit; 0 runs them at full depth)")
+    ap.add_argument("--host-shift", type=int, default=3,
                     help="run the host cells (host, host_ooc, kdtree) on n / "
                          "2**host_shift points and m / 2**host_shift queries (default "
-                         "2, the ooc cells' depth; 0: main's data whole)")
+                         "3, the ooc cells' depth; 0: main's data whole)")
     ap.add_argument("--wide-shift", type=int, default=2,
                     help="run the wide cell (d = 30) on n / 2**wide_shift points and "
                          "m / 2**wide_shift queries (default 2: n = 2**22, m = 2**18; "
@@ -813,10 +847,15 @@ def main(argv=None) -> int:
                     help="divide the serve cell's burst (8192), paced (2048) and sla "
                          "(1024) request counts by 2**serve_shift (default 2: 2048, "
                          "512 and 256, which keeps the script within its time limit)")
+    ap.add_argument("--multi-shift", type=int, default=2,
+                    help="run the multi cell (forest, sharded and ring on four slots "
+                         "of the card, chunked on one) on n / 2**multi_shift points and "
+                         "m / 2**multi_shift queries (default 2: n = 2**22, m = 2**18; "
+                         "0: n = 2**24, m = 2**20)")
     ap.add_argument("--profile", nargs="?", const="main,ooc", default="",
                     help="also run these cells' query once under torch.profiler "
                          "(comma-separated, of main, ooc, quant, quant_ooc, jit, "
-                         "host; no value: main,ooc)")
+                         "host, multi; no value: main,ooc)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -947,6 +986,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     run_dual(torch, dev, args.seed, args.shift)
     cells["wide"] = run_wide(torch, dev, args.seed, args.shift + args.wide_shift)
+    cells.update(run_multi(torch, dev, args.seed, args.shift + args.multi_shift,
+                           "multi" in profiled))
 
     def entry(name, kind, code, head_key, cell, timed):
         """The JSON line's entry for the ``kind`` kernel ("narrow" or
@@ -1002,7 +1043,7 @@ def run_stream(torch, points, queries, main_res, dev):
     from repro_torch.kernels import knn_scan
 
     ms = queries.shape[0]
-    index = KNNIndex.build(points, IndexSpec(engine="streaming"))
+    index = KNNIndex.build(points, IndexSpec(engine="streaming", devices=one_card(torch)))
     seen = np.zeros(ms, np.int64)
     got_d = np.zeros((ms, 10), np.float32)
     got_i = np.zeros((ms, 10), np.int64)
@@ -1067,7 +1108,7 @@ def run_jit(torch, points, queries, main_res, dev, same_answers, profile=False) 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    index = KNNIndex.build(points, IndexSpec(engine="jit"))
+    index = KNNIndex.build(points, IndexSpec(engine="jit", devices=one_card(torch)))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1164,7 +1205,7 @@ def run_host(torch, points, queries, ref, dev, same_answers, profile=False) -> d
     host_s = time.perf_counter() - t0
     del host
     torch.cuda.empty_cache()
-    chunked = KNNIndex.build(points, IndexSpec(engine="chunked"))
+    chunked = KNNIndex.build(points, IndexSpec(engine="chunked", devices=one_card(torch)))
     chunked.query(q[:1024], 10)       # first call on this index, untimed
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1206,7 +1247,7 @@ def run_persist(torch, phase, index, build_s, queries) -> dict:
                       for d, _, files in os.walk(root) for f in files)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loaded = KNNIndex.load(root)
+        loaded = KNNIndex.load(root, devices=one_card(torch))
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         knn_scan.reset_launches()
@@ -1246,6 +1287,140 @@ def run_wide(torch, dev, seed: int, shift: int) -> dict:
     del index
     torch.cuda.empty_cache()
     return launches
+
+
+def run_multi(torch, dev, seed: int, shift: int, profile: bool = False) -> dict:
+    """The multi cell: the paper's multi-device querying on device slots,
+    main's mixture at d = 10, n = 2**(24 - shift) points, m = 2**(20 -
+    shift) queries, k = 10.  On ``devices=(dev,) * 4`` (and, where the
+    machine has more than one card, on every visible card): no spec (the
+    plan must be ``forest``), then ``sharded`` and ``ring`` pinned; then
+    ``chunked`` on one slot on the same data.  Each engine is built,
+    warmed for the batch (the forest captures each slot's round) and
+    queried, with the launch counts set to 0 after the warm (the forest's
+    query launches are its graph replays, each the kernel its warm
+    captured); it prints
+    build_s, warm_s, query_s, each slot's seconds, launches by variant, peak
+    device memory and 1024 rows against knn_brute (fp32_rows_missed = 0),
+    and whether the answers equal each other, bit for bit if they do.
+    With ``profile``, each engine's query once more under torch.profiler
+    (host ops too), and the sharded query once more with the chunk rounds'
+    issue lock (``chunked_jit._ISSUE_LOCK``) taken away, timed beside it.
+    Returns each engine's launch counts."""
+    import contextlib
+
+    from repro_torch.api import IndexSpec, KNNIndex
+    from repro_torch.core import chunked_jit
+    from repro_torch.core.brute import knn_brute
+    from repro_torch.kernels import knn_scan
+
+    t0 = time.perf_counter()
+    points, queries = main_data(seed, shift)
+    m = queries.shape[0]
+    log("multi", n=points.shape[0], m=m, d=points.shape[1], k=10,
+        data_s=f"{time.perf_counter() - t0:.3f}")
+    groups = [("slots4", (dev,) * 4)]
+    if torch.cuda.device_count() > 1:
+        groups.append((f"cards{torch.cuda.device_count()}",
+                       tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))))
+    runs = [(f"{g}_{e or 'auto'}", devs, e) for g, devs in groups
+            for e in (None, "sharded", "ring")] + [("slot1_chunked", (dev,), "chunked")]
+    cells, answers = {}, {}
+    brute = knn_brute(queries[:1024], points, 10, device=dev)
+    for name, devs, engine in runs:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        index = KNNIndex.build(points, IndexSpec(engine=engine, devices=devs))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        plan = index.plan
+        if engine is None:
+            assert plan.engine == "forest" and plan.n_shards == len(devs), index.describe()
+            for r in plan.reasons:
+                print(f"[multi]   {name} plan: {r}", flush=True)
+        state = index._state
+
+        def graph_rounds():
+            if plan.engine != "forest":
+                return 0, 0
+            rs = [r for sh in state.shards for r in sh.rounds.values()]
+            return sum(r.eager_rounds for r in rs), sum(r.replays for r in rs)
+
+        knn_scan.reset_launches()
+        t0 = time.perf_counter()
+        index.warm(m, 10)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm_launches = launch_counts(knn_scan)
+        eager0, replays0 = graph_rounds()
+        knn_scan.reset_launches()   # the query's own launches from here
+        t0 = time.perf_counter()
+        res = index.query(queries, 10)
+        query_s = time.perf_counter() - t0
+        launches = launch_counts(knn_scan)
+        eager1, replays1 = graph_rounds()
+        replays, eager = replays1 - replays0, eager1 - eager0
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        assert np.isfinite(res.dists).all() and (res.idx >= 0).all()
+        if plan.engine == "forest":
+            # every round of the query is a replay of a slot's graph, which
+            # launches the kernel the warm captured (the wrapper counts it
+            # at the eager round and at capture only): launches = replays
+            assert replays > 0 and eager == 0, (name, replays, eager)
+            assert launches["f32"] == 0, (name, launches)
+            (variant,) = warm_launches["by_variant"]
+            (instance,) = warm_launches["by_instance"]
+            launches = dict(launches, f32=replays, by_variant={variant: replays},
+                            by_instance={instance: replays})
+        assert launches["f32"] > 0, f"{name}: the leaf-scan kernel did not run"
+        ties, missed = check_exact(torch, res, points, queries, dev, 1024, brute=brute)
+        slot_s = getattr(state, "slot_seconds", {})
+        log("multi", run=name, engine=plan.engine, slots=len(devs), n_shards=plan.n_shards,
+            height=plan.height, n_chunks=plan.n_chunks, resident_bytes=index.resident_bytes(),
+            build_s=f"{build_s:.3f}", warm_s=f"{warm_s:.3f}", query_s=f"{query_s:.3f}",
+            qps=f"{m / query_s:.1f}",
+            slot_s=",".join(f"{s}:{t:.3f}" for s, t in sorted(slot_s.items())) or "-",
+            rounds=res.stats.iterations, exact_rows=res.stats.exact_rows,
+            refined_rows=res.stats.refined_rows,
+            variants=",".join(f"{v}:{c}" for v, c in launches["by_variant"].items()),
+            graph_replays=replays, query_eager_rounds=eager,
+            checked=1024, tie_swaps=ties, fp32_rows_missed=missed,
+            peak_mem_gb=f"{peak_gb:.3f}")
+        assert missed == 0
+        if profile:
+            profile_query(torch, f"multi_{name}", index, queries, host_top=12)
+        if profile and plan.engine == "sharded":
+            lock, chunked_jit._ISSUE_LOCK = chunked_jit._ISSUE_LOCK, contextlib.nullcontext()
+            try:
+                t0 = time.perf_counter()
+                index.query(queries, 10)
+                log("multi", run=name, issue_lock=False,
+                    query_s=f"{time.perf_counter() - t0:.3f}",
+                    slot_s=",".join(f"{s}:{t:.3f}"
+                                    for s, t in sorted(state.slot_seconds.items())))
+            finally:
+                chunked_jit._ISSUE_LOCK = lock
+        cells[f"multi_{name}"] = launches
+        answers[name] = res
+        del index, state, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    names = list(answers)
+    for i, name in enumerate(names):
+        for ref_name in names[i + 1:]:
+            res, ref = answers[name], answers[ref_name]
+            off = np.nonzero(res.idx != ref.idx)
+            # a differing id must be a tie: the same distance at that rank
+            np.testing.assert_allclose(res.dists, ref.dists, rtol=1e-5, atol=1e-6)
+            d_of = np.sqrt(np.sum((queries[off[0]] - points[res.idx[off]]) ** 2, -1))
+            np.testing.assert_allclose(d_of, ref.dists[off], rtol=1e-5, atol=1e-6)
+            log("multi", compare=f"{name}~{ref_name}",
+                dists_bit_for_bit=bool(np.array_equal(res.dists, ref.dists)),
+                ids_identical=bool(np.array_equal(res.idx, ref.idx)),
+                id_positions_differing=len(off[0]), answers_equal_up_to_ties=True)
+    return cells
 
 
 def run_mutable(torch, dev, seed: int, shift: int):
@@ -1646,7 +1821,7 @@ def run_dual(torch, dev, seed: int, shift: int) -> None:
     def build(spec):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        index = KNNIndex.build(pts, spec)
+        index = KNNIndex.build(pts, spec.replace(devices=one_card(torch)))
         torch.cuda.synchronize()
         return index, time.perf_counter() - t0
 
@@ -1711,7 +1886,7 @@ def run_dual(torch, dev, seed: int, shift: int) -> None:
 
     # pair_count against the all-pairs oracle on the first n / 2**DUAL_CHECK_SHIFT
     sub = pts[: n >> DUAL_CHECK_SHIFT]
-    small = KNNIndex.build(sub, IndexSpec(op="pair_count"))
+    small = KNNIndex.build(sub, IndexSpec(op="pair_count", devices=one_card(torch)))
     (hist, _), small_s = timed(lambda: small.pair_count(edges))
     ref, brute_s = timed(lambda: pair_count_brute(sub, edges, device=dev))
     assert np.array_equal(hist, ref), (hist, ref)

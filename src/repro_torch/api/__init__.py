@@ -6,7 +6,8 @@
     dists, idx = index.query(queries, k=10)    # exact kNN
 
 Counterpart of ``repro.api`` with the ``brute``, ``kdtree``, ``host``,
-``chunked``, ``streaming`` and ``jit`` engines, the dual-tree ops
+``chunked``, ``streaming``, ``jit`` and ``dynamic`` engines, the
+multi-device ``sharded``, ``forest`` and ``ring``, the dual-tree ops
 (``radius``, ``kde``, ``pair_count``) and snapshots (``KNNIndex.save`` /
 ``KNNIndex.load``, in the reference's format).  ``knn_brute`` is re-exported as the
 ground-truth oracle, ``knn_round_cache_size`` counts the distinct

@@ -8,8 +8,7 @@ implements ``build(points, spec, plan)``, ``query(state, queries, k)`` and
 ``warm_ops``; engines with a host-side snapshot implement
 ``snapshot_state`` / ``restore_state`` (``KNNIndex.save`` / ``load``);
 engines declaring ``caps.mutable`` implement ``insert`` / ``delete`` (on
-the others ``KNNIndex`` raises ``MutabilityError``).  Engines of the reference that are not
-ported yet raise a ``KeyError`` saying so from ``get_engine``.
+the others ``KNNIndex`` raises ``MutabilityError``).
 """
 
 from __future__ import annotations
@@ -34,18 +33,9 @@ __all__ = [
     "register_engine",
     "get_engine",
     "available_engines",
-    "NOT_PORTED",
 ]
 
 KNOWN_OPS = frozenset({"knn", "radius", "kde", "pair_count"})
-
-# engines of the reference not ported yet -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "sharded": "Queue 1 item 18",
-    "forest": "Queue 1 item 18",
-    "ring": "Queue 1 item 18",
-}
-
 
 class MutabilityError(TypeError):
     """``insert``/``delete`` on an engine with ``caps.mutable=False``."""
@@ -151,11 +141,6 @@ def get_engine(name: str) -> EngineBase:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in NOT_PORTED:
-            raise KeyError(
-                f"engine {name!r} is not yet ported to repro_torch "
-                f"(ROADMAP {NOT_PORTED[name]}); registered: {sorted(_REGISTRY)}"
-            ) from None
         raise KeyError(
             f"unknown engine {name!r}; registered: {sorted(_REGISTRY)}"
         ) from None

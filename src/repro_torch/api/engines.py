@@ -10,6 +10,12 @@
              each query's result is emitted the round it retires
   jit        the device-resident fixed point (``core/jitsearch.py``): one
              round captured as a CUDA graph and replayed; knn only
+  sharded    the paper's §3.2 query chunking: one tree engine per device
+             slot, each answering a contiguous chunk of the batch
+  forest     one tree per slot over equal shards of the reference set
+             (each answering as ``jit`` does), lists merged on the lead slot
+  ring       reference shards resident on the slots, query blocks rotated
+             around them, every scan the leaf-scan kernel
   dynamic    the mutable logarithmic-method forest (``core/dynamic.py``):
              insert / delete, shards placed over device slots, background
              carry merges; knn only, whole-batch ``query_stream``
@@ -20,15 +26,14 @@ caller's original ordering.  ``brute``, ``host``, ``chunked`` and
 ``streaming`` declare the dual-tree ops (``radius``, ``kde``,
 ``pair_count``): brute by its all-pairs oracles, the tree engines by
 ``core/dualtree.py`` over the index's own tree and leaf store.  Every
-engine here has a host-side snapshot (``snapshot_state`` /
+engine here but the three multi-device ones (which the reference does not
+snapshot either) has a host-side snapshot (``snapshot_state`` /
 ``restore_state``) in the reference's format: tree arrays, fp32 points,
 and a quantized store's codes with their columns padded to a multiple of 8
 as the reference lays them out.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import numpy as np
 import torch
@@ -38,16 +43,7 @@ from repro_torch.api.planner import chunked_resident_bytes
 from repro_torch.core import dualtree
 from repro_torch.core.brute import knn_brute
 from repro_torch.core.hostkdtree import knn_host_kdtree
-from repro_torch.core.jitsearch import (
-    RoundsCache, TreeArrays, lazy_knn_jit, tree_arrays_from,
-)
-from repro_torch.core.lazysearch import (
-    FP32_OVERFETCH,
-    BufferKDTree,
-    SearchStats,
-    certify,
-    orig_ids,
-)
+from repro_torch.core.lazysearch import BufferKDTree, JitTree, SearchStats
 from repro_torch.core.quantize import QuantizedSlabs
 from repro_torch.core.streaming import stream_query
 from repro_torch.core.toptree import (
@@ -56,6 +52,11 @@ from repro_torch.core.toptree import (
     tree_from_arrays,
     tree_to_arrays,
 )
+from repro_torch.distributed.forest import (
+    Forest, build_forest, forest_knn, stack_forest, warm_forest,
+)
+from repro_torch.distributed.ring_knn import RingShards, ring_knn_brute, ring_shards
+from repro_torch.distributed.sharded import MultiDeviceTrees
 from repro_torch.kernels import ops as kops
 
 __all__ = []  # engines are reached through the registry, not imports
@@ -279,23 +280,11 @@ class StreamingEngine(ChunkedEngine):
         return stream_query(state, queries, k, emit)
 
 
-@dataclasses.dataclass
-class _JitState:
-    top: TopTree            # host tree: points for the brute-force last resort
-    tree: TreeArrays        # device arrays the rounds read
-    tq: int
-    backend: str
-    x_norm_max: float       # bounds the fp32 rounding in ``certify``
-    rounds: RoundsCache = dataclasses.field(default_factory=RoundsCache)
-
-
 @register_engine
 class JitEngine(EngineBase):
     """The device-resident fixed point (``core/jitsearch.py``): every round
-    over fixed shapes, captured once as a CUDA graph and replayed.  It
-    selects ``FP32_OVERFETCH`` candidates beyond k, rescores them exactly
-    on the device and keeps the rows ``certify`` proves; the rest take fp32
-    brute force over the tree's points.  Picked only when pinned."""
+    over fixed shapes, captured once as a CUDA graph and replayed, answered
+    exactly by ``lazysearch.JitTree``.  Picked only when pinned."""
 
     name = "jit"
     caps = EngineCaps(
@@ -307,17 +296,10 @@ class JitEngine(EngineBase):
         return self._state(build_top_tree(np.asarray(points, np.float32), plan.height),
                            spec, plan)
 
-    def _state(self, top: TopTree, spec, plan) -> _JitState:
-        dev = _device(spec)
-        backend = kops.resolve_backend(plan.backend, dev)
-        norms = np.sqrt(np.sum(top.points.astype(np.float64) ** 2, axis=1))
-        return _JitState(
-            top=top, tree=tree_arrays_from(top, dev),
-            tq=kops.engine_tile_q(plan.tile_q, backend), backend=backend,
-            x_norm_max=float(norms.max()),
-        )
+    def _state(self, top: TopTree, spec, plan) -> JitTree:
+        return JitTree(top, _device(spec), tile_q=plan.tile_q, backend=plan.backend)
 
-    def snapshot_state(self, state: _JitState):
+    def snapshot_state(self, state: JitTree):
         """The reference's ``tree/*`` arrays (its ``TreeArrays``: i32 split
         dims and ids, slabs with columns padded to a multiple of 8)."""
         top = state.top
@@ -348,37 +330,121 @@ class JitEngine(EngineBase):
                                leaf_pad=slabs.shape[1])
         return self._state(top, spec, plan)
 
-    def query(self, state: _JitState, queries, k):
-        top, n = state.top, state.top.n
-        m = queries.shape[0]
-        k_eff = min(k + FP32_OVERFETCH, n)
-        q = kops.owned_tensor(queries, state.tree.slabs.device)
-        d2, oi, rounds = lazy_knn_jit(
-            q, state.tree, k=k_eff, tq=state.tq, first_leaf_heap=top.first_leaf_heap,
-            backend=state.backend, cache=state.rounds,
-        )
-        raw = state.rounds[(m, k_eff)].knn_d[:m].cpu().numpy()
-        dists = np.sqrt(np.maximum(d2.cpu().numpy(), 0.0))
-        idx = oi.cpu().numpy()
-        ok = np.ones(m, bool) if k_eff >= n else certify(
-            queries, raw, dists, k, k_eff, eps=0.0, x_norm_max=state.x_norm_max)
-        dists, idx = dists[:, :k].copy(), idx[:, :k].copy()
-        rows = np.nonzero(~ok)[0]
-        if rows.size:
-            bd, bi = knn_brute(queries[rows], top.points, k, device=q.device)
-            dists[rows], idx[rows] = bd, orig_ids(top, bi)
-        stats = SearchStats(iterations=rounds, queries_advanced=rounds * m,
-                            exact_rows=int(rows.size))
-        return dists.astype(np.float32), idx.astype(np.int64), stats
+    def query(self, state: JitTree, queries, k):
+        return state.query(queries, k)
 
-    def warm(self, state: _JitState, m: int, k: int) -> None:
-        """Run the round once for a batch of ``m`` at ``k`` and capture it
-        (on CUDA), so the first query only replays."""
-        k_eff = min(k + FP32_OVERFETCH, state.top.n)
-        q = torch.zeros((m, state.top.d), device=state.tree.slabs.device)
-        lazy_knn_jit(q, state.tree, k=k_eff, tq=state.tq,
-                     first_leaf_heap=state.top.first_leaf_heap,
-                     backend=state.backend, cache=state.rounds, max_rounds=1)
+
+def _slots(spec, p: int):
+    """The first ``p`` device slots of ``spec`` (slots are ordinals: a
+    device may repeat)."""
+    devs = list(spec.devices) if spec.devices else list(kops.visible_devices())
+    if len(devs) < p:
+        raise ValueError(f"need {p} device slots, have {len(devs)}")
+    return [torch.device(d) for d in devs[:p]]
+
+
+@register_engine
+class ShardedEngine(EngineBase):
+    """The paper's §3.2 query chunking (``distributed/sharded.py``): one
+    chunked tree engine per device slot, each answering a contiguous chunk
+    of the batch.  Stateful, but ``MultiDeviceTrees`` carries its own lock,
+    so the facade need not serialize on top of it."""
+
+    name = "sharded"
+    caps = EngineCaps(
+        exact=True, out_of_core=True, multi_device=True,
+        description="paper §3.2 query chunking: one tree engine per device",
+    )
+
+    def build(self, points, spec, plan):
+        return MultiDeviceTrees(
+            points, devices=list(spec.devices) if spec.devices else None,
+            height=plan.height, n_chunks=plan.n_chunks, backend=plan.backend,
+            tile_q=plan.tile_q, buffer_size=plan.buffer_size,
+            starvation_deadline=plan.starvation_deadline, precision=plan.precision,
+        )
+
+    def query(self, state: MultiDeviceTrees, queries, k):
+        # the slots' stats snapshots are taken under the state's lock, so
+        # concurrent batches cannot clobber this aggregation
+        d, i, _, ran = state.query_with_active(queries, k)
+        return d, i, SearchStats(
+            iterations=max((s.iterations for s in ran), default=0),
+            flushes=sum(s.flushes for s in ran),
+            units_scanned=sum(s.units_scanned for s in ran),
+            points_scanned=sum(s.points_scanned for s in ran),
+            queries_advanced=sum(s.queries_advanced for s in ran),
+            chunk_rounds=sum(s.chunk_rounds for s in ran),
+            refined_rows=sum(s.refined_rows for s in ran),
+            exact_rows=sum(s.exact_rows for s in ran),
+        )
+
+    def resident_bytes(self, plan, state=None) -> int:
+        if state is not None:
+            return state.resident_bytes()   # measured, not estimated
+        # per slot: the whole structure, replicated and chunk-streamed
+        return chunked_resident_bytes(plan)
+
+
+@register_engine
+class ForestEngine(EngineBase):
+    """Per-slot buffer k-d trees over equal shards, merged on the lead slot
+    (``distributed/forest.py``); each shard answers as the ``jit`` engine
+    does."""
+
+    name = "forest"
+    caps = EngineCaps(
+        exact=True, out_of_core=True, multi_device=True,
+        description="per-shard buffer k-d trees + all-gather top-k merge",
+    )
+
+    def build(self, points, spec, plan):
+        points = np.asarray(points, np.float32)
+        n, ns = points.shape[0], plan.n_shards
+        if n % ns:
+            raise ValueError(
+                f"forest engine needs n % n_shards == 0 (n={n}, n_shards={ns}); the "
+                "planner falls back to 'sharded' for uneven sets"
+            )
+        trees, offsets = build_forest(points, ns, height=plan.height)
+        return stack_forest(trees, offsets, _slots(spec, ns), tile_q=plan.tile_q,
+                            backend=plan.backend)
+
+    def query(self, state: Forest, queries, k):
+        return forest_knn(queries, state, k=k)
+
+    def warm(self, state: Forest, m: int, k: int) -> None:
+        warm_forest(state, m, k)
+
+    def resident_bytes(self, plan, state=None) -> int:
+        return plan.slab_bytes // max(1, plan.n_shards)
+
+
+@register_engine
+class RingEngine(EngineBase):
+    """Reference shards resident on the slots, query blocks rotated around
+    them (``distributed/ring_knn.py``), every scan the leaf-scan kernel."""
+
+    name = "ring"
+    caps = EngineCaps(
+        exact=True, out_of_core=True, multi_device=True, needs_build=False,
+        description="resident reference shards, query blocks ringed",
+    )
+
+    def build(self, points, spec, plan):
+        return ring_shards(points, _slots(spec, plan.n_shards), tile_q=plan.tile_q,
+                           backend=plan.backend)
+
+    def query(self, state: RingShards, queries, k):
+        m = queries.shape[0]
+        dists, idx, brute_rows = ring_knn_brute(queries, state, k=k)
+        return dists, idx, SearchStats(iterations=state.p, points_scanned=m * state.n,
+                                       queries_advanced=m, exact_rows=brute_rows)
+
+    def resident_bytes(self, plan, state=None) -> int:
+        # the raw reference shard per slot (no leaf-structure padding)
+        p = max(1, plan.n_shards)
+        return -(-plan.n // p) * p * plan.d * 4 // p
 
 
 @register_engine

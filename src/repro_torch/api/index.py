@@ -5,8 +5,11 @@
     index = KNNIndex.build(points)            # planner picks the engine
     dists, idx = index.query(queries, k=10)   # QueryResult, tuple-unpackable
 
-With ``IndexSpec.devices`` unset the index runs on ``cuda:0`` and raises
-without a card; pass ``devices=(torch.device("cpu"),)`` for the CPU.
+With ``IndexSpec.devices`` unset the index runs on every visible CUDA
+device, one slot each, and raises without a card; pass
+``devices=(torch.device("cpu"),)`` for the CPU.  More than one slot (a
+device may repeat: ``(cuda:0,) * 4`` is four slots on one card) plans the
+``forest`` or ``sharded`` engine (planner rule 3); ``ring`` is pinned.
 ``query_stream`` delivers per-row results on an index built with
 ``IndexSpec(engine="streaming")`` (whole batches on the ``dynamic``
 engine); ``radius``, ``kde`` and ``pair_count`` run the dual-tree ops on
@@ -197,8 +200,8 @@ class KNNIndex:
         """Restore an index from a persist dir (the port's or the
         reference's): the latest complete snapshot, then a replay of the
         WAL records acknowledged after it (inserts and deletes of a mutable
-        index).  The state is restored onto ``devices`` (default
-        ``(cuda:0,)``); the snapshot itself is host-side and holds no
+        index).  The state is restored onto ``devices`` (default: every
+        visible CUDA device); the snapshot itself is host-side and holds no
         device.  The loaded index continues the same lifecycle: later
         mutations append to the same WAL, a later ``save()`` adds a
         version."""
@@ -480,8 +483,9 @@ class KNNIndex:
     def describe(self) -> str:
         """Human-readable plan summary (engine, parameters, reasons)."""
         pl = self.plan
+        slots = ", ".join(str(d) for d in self.spec.devices or ())
         lines = [
-            f"KNNIndex: n={self.n} d={self.d} engine={pl.engine} "
+            f"KNNIndex: n={self.n} d={self.d} engine={pl.engine} slots=[{slots}] "
             f"h={pl.height} n_chunks={pl.n_chunks} n_shards={pl.n_shards} "
             f"B={pl.buffer_size} precision={pl.precision} "
             f"resident~{pl.resident_bytes / 1e6:.1f}MB",

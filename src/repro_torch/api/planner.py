@@ -1,10 +1,14 @@
 """Topology/memory-aware query planner (counterpart of ``repro.api.planner``).
 
-Planning rules ported so far (numbering of ``docs/API.md``):
+Planning rules (numbering of ``docs/API.md``):
   1. an explicit ``engine=`` request is honored (parameters still filled);
   2. small jobs take ``brute``, unless a tree parameter was pinned;
-  3. (more than one device: ``forest``/``sharded`` — not ported yet,
-     ROADMAP Queue 1 item 18; raises ``NotImplementedError``);
+  3. more than one device slot => ``forest`` (one tree per slot over equal
+     shards, §3.2's scale-out) when n splits into the shard count (the
+     slot count unless pinned) with at least max(2k, 2) points a shard,
+     the shard's slab fits the budget and no ``n_chunks`` > 1 is pinned;
+     else ``sharded`` (the paper's query chunking over replicated trees,
+     which takes any n and streams chunks);
   4. under a ``memory_budget`` the slab precision is decided first
      (fp32 -> fp16 -> int8, the first whose codes plus dequantize metadata
      fit device-resident; int8 when none does), for the engines whose leaf
@@ -32,10 +36,11 @@ engine is knn-only).  ``jit``, ``host`` and ``kdtree`` are taken only when
 pinned, as in the reference.
 
 Without a ``memory_budget`` the reference plans N=1 whatever the device
-holds.  On a CUDA device the port reads the free device memory
-(``torch.cuda.mem_get_info``) and, when the leaf structure would not fit
-in half of it, streams chunks under that implicit budget (rule 5); the
-precision stays fp32 because no budget was asked for.  The reference's
+holds.  On CUDA the port reads each slot's free device memory
+(``torch.cuda.mem_get_info``, shared by the slots on one card) and, when
+the leaf structure would not fit in half of it, streams chunks under that
+implicit budget (rule 5); the precision stays fp32 because no budget was
+asked for.  The reference's
 ``Calibration`` (measured costs from its own benchmark files) is not
 ported: those numbers were not measured on this hardware.
 """
@@ -77,8 +82,8 @@ BRUTE_WORK_MAX = 1 << 21
 # engines whose leaf slabs live in a ChunkedLeafStore honor a precision
 # choice (rule 4; the dynamic forest's tree shards); those with one store
 # stream its chunks under a budget (rule 5; the forest sizes each shard's)
-PRECISION_ENGINES = ("chunked", "host", "streaming", "dynamic")
-CHUNK_ENGINES = ("chunked", "host", "streaming")
+PRECISION_ENGINES = ("chunked", "host", "streaming", "sharded", "dynamic")
+CHUNK_ENGINES = ("chunked", "host", "streaming", "sharded")
 _F32 = 4
 # share of the free device memory the leaf structure may take when the
 # caller gives no budget: the round state, work plan and merge buffers of a
@@ -87,10 +92,11 @@ _IMPLICIT_BUDGET_SHARE = 0.5
 
 
 def default_devices() -> Tuple[torch.device, ...]:
-    """``IndexSpec.devices=None``: the first CUDA device, or raise."""
-    from repro_torch.kernels.ops import resolve_device
+    """``IndexSpec.devices=None``: every visible CUDA device, one slot each
+    (``kernels/ops.py::visible_devices``), or raise without a card."""
+    from repro_torch.kernels.ops import visible_devices
 
-    return (resolve_device(None),)
+    return visible_devices()
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -186,15 +192,23 @@ class Plan:
 
 
 def _implicit_budget(devices: Sequence[Any]) -> Tuple[Optional[int], str]:
-    """Half the free memory of a CUDA device, or None elsewhere."""
-    dev = devices[0] if devices else None
-    if not isinstance(dev, torch.device) or dev.type != "cuda":
+    """Per slot, half the free memory of its CUDA device shared by the
+    device's slots (the least over the slots), or None off CUDA."""
+    cuda = [torch.device(d) for d in devices
+            if isinstance(d, torch.device) and d.type == "cuda"]
+    if not cuda or len(cuda) != len(devices):
         return None, ""
-    free, total = torch.cuda.mem_get_info(dev)
-    budget = int(free * _IMPLICIT_BUDGET_SHARE)
+    notes, budget = [], None
+    for dev in dict.fromkeys(cuda):
+        free, total = torch.cuda.mem_get_info(dev)
+        slots = cuda.count(dev)
+        share = int(free * _IMPLICIT_BUDGET_SHARE) // slots
+        budget = share if budget is None else min(budget, share)
+        notes.append(f"{dev} has {free}B free of {total}B"
+                     + (f" for {slots} slots" if slots > 1 else ""))
     return budget, (
-        f"no memory_budget: {dev} has {free}B free of {total}B; the leaf "
-        f"structure may take {budget}B of it"
+        f"no memory_budget: {'; '.join(notes)}; the leaf structure may take "
+        f"{budget}B of it per slot"
     )
 
 
@@ -221,9 +235,10 @@ def plan(
 ) -> Plan:
     """Pick an engine + parameters for (n, d) references and (m, k) queries.
 
-    ``devices`` defaults to ``(cuda:0,)`` (raises without a card);
-    ``memory_budget`` is per-device bytes for the leaf structure.  Every
-    decision is recorded in ``Plan.reasons``.
+    ``devices`` (the device slots; one device may repeat) defaults to every
+    visible CUDA device (raises without a card); ``memory_budget`` is
+    per-slot bytes for the leaf structure.  Every decision is recorded in
+    ``Plan.reasons``.
     """
     if n < 1 or d < 1:
         raise ValueError(f"need n >= 1, d >= 1; got n={n} d={d}")
@@ -361,11 +376,34 @@ def plan(
                 "+ traversal"
             )
         elif p > 1:
-            raise NotImplementedError(
-                f"{p} devices given: the multi-device engines (forest, "
-                "sharded) are not ported yet (ROADMAP Queue 1 item 18); pass "
-                "one device or pin an engine"
-            )
+            # a pinned shard count must itself divide n; otherwise the shard
+            # count is the slot count
+            shards = int(n_shards) if n_shards is not None else p
+            per_shard = slab // max(1, shards)
+            fits = memory_budget is None or per_shard <= memory_budget
+            # a pinned n_chunks > 1 is an out-of-core constraint the forest's
+            # device-resident shards cannot honor
+            wants_chunks = n_chunks is not None and n_chunks > 1
+            if n % shards == 0 and (n // shards) >= max(2 * k, 2) and fits and not wants_chunks:
+                engine = "forest"
+                reasons.append(
+                    f"{p} devices visible and n % {shards} == 0: per-shard "
+                    "buffer k-d trees + all-gather merge (paper §3.2 scale-out)"
+                )
+            else:
+                engine = "sharded"
+                if not fits:
+                    why = (f"per-shard slab {per_shard}B exceeds budget "
+                           f"{memory_budget}B (forest shards are device-resident)")
+                elif wants_chunks:
+                    why = (f"pinned n_chunks={n_chunks} requires chunk streaming, "
+                           "which forest shards cannot do")
+                else:
+                    why = f"n={n} does not split into {shards} equal shards"
+                reasons.append(
+                    f"{p} devices visible but {why}: paper-faithful query "
+                    "chunking over replicated trees"
+                )
         else:
             engine = "chunked"
             reasons.append("1 device: chunk-streamed buffer k-d tree")
@@ -468,7 +506,8 @@ def plan(
             f"{memory_budget}B — {over_detail}"
         )
     nc = int(n_chunks) if n_chunks is not None else 1
-    ns = int(n_shards) if n_shards is not None else (p if engine == "dynamic" else 1)
+    ns = int(n_shards) if n_shards is not None else (
+        p if engine in ("forest", "sharded", "ring", "dynamic") else 1)
     return Plan(
         engine=engine, n_chunks=nc, n_shards=ns,
         resident_bytes=resident_for(engine, nc, ns),

@@ -35,7 +35,8 @@ class IndexSpec:
     backend: str = "auto"                 # "auto" | "cuda" | "ref"
     k_hint: int = 10                      # expected k (plan-time cost model)
     m_hint: Optional[int] = None          # expected queries per batch
-    devices: Optional[Tuple[Any, ...]] = None   # None => (cuda:0,)
+    devices: Optional[Tuple[Any, ...]] = None   # device slots; None => every
+                                          # visible CUDA device
     memory_budget: Optional[int] = None   # device bytes for the leaf structure
     precision: Optional[str] = None       # "fp32" | "fp16" | "int8"
     strict_budget: bool = False           # over-budget plan raises BudgetError

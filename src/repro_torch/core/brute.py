@@ -55,7 +55,7 @@ def knn_brute(
     ``queries``/``points`` are numpy arrays or tensors; ``device`` defaults
     to the device of ``points`` when it is a tensor, else to ``cuda:0``.
     """
-    from repro_torch.kernels.ops import owned_tensor, resolve_device
+    from repro_torch.kernels.ops import owned_tensor, resolve_device, sqrt
 
     if device is None and isinstance(points, torch.Tensor):
         device = points.device
@@ -85,6 +85,6 @@ def knn_brute(
         for xs in range(0, n, tile_x):
             x = torch.as_tensor(pts[xs : xs + tile_x], device=dev)
             best_d, best_i = _tile_step(q, x, xs, best_d, best_i, k)
-        out_d[qs0 : qs0 + q.shape[0]] = torch.sqrt(best_d).cpu().numpy()
+        out_d[qs0 : qs0 + q.shape[0]] = sqrt(best_d).cpu().numpy()
         out_i[qs0 : qs0 + q.shape[0]] = best_i.cpu().numpy()
     return out_d, out_i

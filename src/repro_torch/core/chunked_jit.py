@@ -50,6 +50,8 @@ keeps the ladder's "shapes are bounded" property testable.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from typing import Dict, List, Set, Tuple
 
@@ -77,6 +79,15 @@ _RUNG_MULTIPLE = 16
 # distinct round shapes run so far (process-wide, like the reference's
 # jit cache)
 _ROUND_SHAPES: Set[Tuple] = set()
+
+# one thread issues a CUDA chunk round at a time.  The device slots of the
+# ``sharded`` engine (and the shards of the mutable index) run their round
+# loops from threads of one process; a round is hundreds of small torch
+# ops, each of which drops and retakes the interpreter lock, so rounds
+# issued at once pass that lock from thread to thread at every op.  Under
+# this lock a round is issued without that contention; its device work
+# still overlaps the other slots', and the readback waits are outside it.
+_ISSUE_LOCK = threading.Lock()
 
 
 def compaction_ladder(m: int) -> Tuple[int, ...]:
@@ -170,7 +181,7 @@ def _chunk_round(
         node=torch.where(in_chunk, ex.node, node),
         fromc=torch.where(in_chunk, ex.fromc, fromc),
     )
-    radius = torch.sqrt(knn_d[:m, k - 1]) + qeps
+    radius = kops.sqrt(knn_d[:m, k - 1]) + qeps
     new_leaf, st = traversal.advance(
         st, qpad, radius, split_dim, split_val, first_leaf_heap=first_leaf_heap
     )
@@ -392,16 +403,19 @@ class ChunkResidentEngine:
             info["early_retired"] += int(rc.size)
             info["retire_emits"] += 1
 
+        issue = _ISSUE_LOCK if dev.type == "cuda" else contextlib.nullcontext()
+
         def dispatch_round(visit: np.ndarray) -> None:
             nonlocal leaf
             flush_emit()   # the round updates knn_d/knn_i: deliver first
             for _cid, dev_slab, lo in store.stream(visit.tolist()):
-                leaf, nu = _chunk_round(
-                    node, fromc, leaf, knn_d, knn_i, qpad, dev_slab, lo,
-                    self._leaf_start, self._leaf_size, self._split_dim,
-                    self._split_val, self._meta, self._qeps, k=k, tq=tq,
-                    first_leaf_heap=first_leaf, backend=self.backend,
-                )
+                with issue:
+                    leaf, nu = _chunk_round(
+                        node, fromc, leaf, knn_d, knn_i, qpad, dev_slab, lo,
+                        self._leaf_start, self._leaf_size, self._split_dim,
+                        self._split_val, self._meta, self._qeps, k=k, tq=tq,
+                        first_leaf_heap=first_leaf, backend=self.backend,
+                    )
                 unit_counts.append(nu)
                 info["chunk_rounds"] += 1
             info["rounds"] += 1

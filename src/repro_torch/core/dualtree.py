@@ -64,7 +64,7 @@ import torch
 from repro_torch.core.chunked import ChunkedLeafStore
 from repro_torch.core.lazysearch import SearchStats
 from repro_torch.core.toptree import PAD_COORD, TopTree, build_top_tree
-from repro_torch.kernels.ops import owned_tensor, resolve_device
+from repro_torch.kernels.ops import owned_tensor, resolve_device, sqrt
 
 __all__ = [
     "DualTree",
@@ -349,7 +349,7 @@ def _pair_hist_kernel(aslab, bslab, ia, ib, sa, sb, edges, bounds):
         hist = _hist_counts(bins, pp, a.shape[0], e)
         q, i, k = torch.nonzero(valid & near, as_tuple=True)
         if q.numel():
-            again = _bins(torch.sqrt(_direct_d2(a[q, i], b[q, k])), edges)
+            again = _bins(sqrt(_direct_d2(a[q, i], b[q, k])), edges)
             hist += _hist_counts(again, q, a.shape[0], e)
             retested += q.numel()
         out.append(hist)
@@ -627,7 +627,7 @@ class DualTree:
             p, qi, rj = p[hit], qi[hit], rj[hit]
             q_ids.append(q_start[qs[p]] + qi)
             r_ids.append(r_start[rs[p]] + rj)
-            dists.append(torch.sqrt(dd2[hit]))
+            dists.append(sqrt(dd2[hit]))
         if q_ids:
             qrow = self._dev(qt.orig_idx.astype(np.int64))[torch.cat(q_ids)]
             ridx = self._dev(self.tree.orig_idx.astype(np.int64))[torch.cat(r_ids)]
@@ -936,7 +936,7 @@ def radius_brute(
         qi, rj = torch.nonzero(d2 <= r2, as_tuple=True)
         rows.append(qi + lo)
         cols.append(rj)
-        dists.append(torch.sqrt(d2[qi, rj]))
+        dists.append(sqrt(d2[qi, rj]))
     if rows:
         qrow, ridx, dd = torch.cat(rows), torch.cat(cols), torch.cat(dists)
         o1 = torch.sort(dd, stable=True).indices
@@ -997,7 +997,7 @@ def pair_count_brute(
     edges_dev = torch.as_tensor(edges.astype(np.float32), device=pts.device)
     hist = torch.zeros(E, dtype=torch.int64, device=pts.device)
     for lo in range(0, n, tile_q):
-        bins = _bins(torch.sqrt(_pairwise_direct_d2(pts[lo:lo + tile_q], pts)), edges_dev)
+        bins = _bins(sqrt(_pairwise_direct_d2(pts[lo:lo + tile_q], pts)), edges_dev)
         hist += _hist_counts(bins, torch.zeros_like(bins), 1, E)[0]
     hist = hist.cpu().numpy()
     zbin = np.searchsorted(edges, 0.0, side="right")

@@ -886,7 +886,7 @@ class DynamicIndex:
             best_i = torch.full((tq, kq), -1, dtype=torch.int64, device=shard.device)
             for xs in range(0, nx, tx):
                 best_d, best_i = _tile_step(q, slab[xs:xs + tx], xs, best_d, best_i, kq)
-            out_d[qs:qs + tq] = torch.sqrt(best_d.clamp_min(0.0)).cpu().numpy()
+            out_d[qs:qs + tq] = kops.sqrt(best_d.clamp_min(0.0)).cpu().numpy()
             out_i[qs:qs + tq] = best_i.cpu().numpy()
         return out_d, out_i
 

@@ -32,6 +32,7 @@ live: the reference's count.  On the CPU the same round runs eagerly.
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -55,6 +56,7 @@ _BIG = 2**30
 SYNC_EVERY = 8          # CUDA graph replays between two reads of the live flag
 _RESCORE_ROWS = 1 << 16  # query rows per step of the final rescoring
 CACHED_SHAPES = 4       # (m, k) states a RoundsCache keeps, most recent first
+_CAPTURE_LOCK = threading.Lock()
 
 
 class TreeArrays(NamedTuple):
@@ -188,7 +190,7 @@ class JitRounds:
         """One bulk-synchronous round over every query, in place."""
         t, m, k = self.tree, self.m, self.k
         self.rounds += (self.node != 0).any()
-        radius = torch.sqrt(self.knn_d[:m, k - 1])
+        radius = kops.sqrt(self.knn_d[:m, k - 1])
         leaf, st = traversal.advance(
             traversal.TraversalState(self.node, self.fromc), self.queries, radius,
             t.split_dim, t.split_val, first_leaf_heap=self.first_leaf_heap,
@@ -207,9 +209,16 @@ class JitRounds:
         self.live.copy_((st.node != 0).any())
 
     def _capture(self) -> None:
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        # on a stream of its own (``torch.cuda.graph``'s default capture
+        # stream is one for the process) and one capture at a time: the
+        # forest captures each device slot's round from that slot's thread
+        # while the other slots launch work
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK, torch.cuda.graph(
+                graph, stream=torch.cuda.Stream(self.queries.device),
+                capture_error_mode="thread_local"):
             self.round()
+        self.graph = graph
 
     def _step(self) -> None:
         if self.graph is not None:

@@ -10,8 +10,12 @@ double-buffered ``ChunkedLeafStore``:
     (``core/buffers.py``), around the device's traversal, leaf scan and
     merge.
 
-Both end in an exact fp32 re-rank of the selected candidates on the host
-(``finalize_candidates``).  A store of fp16/int8
+``JitTree`` answers one reference set exactly through the device-resident
+fixed point of ``core/jitsearch.py`` (the ``jit`` engine, and each shard of
+the ``forest``).
+
+Both tiers end in an exact fp32 re-rank of the selected candidates on the
+host (``finalize_candidates``).  A store of fp16/int8
 codes runs the engine at ``k + QUANT_OVERFETCH`` and an fp32 store at
 ``k + FP32_OVERFETCH`` (``_engine_k``); the re-rank from the fp32
 ``tree.points`` slices back to k, and rows whose answer the quantization
@@ -40,6 +44,7 @@ from repro_torch.core.chunked_jit import (
     ChunkResidentEngine,
     scan_merge,
 )
+from repro_torch.core.jitsearch import RoundsCache, lazy_knn_jit, tree_arrays_from
 from repro_torch.core.quantize import (
     QUANT_OVERFETCH,
     QUANT_REFINE_OVERFETCH,
@@ -56,6 +61,7 @@ from repro_torch.kernels import ops as kops
 __all__ = [
     "BufferKDTree",
     "HostLoop",
+    "JitTree",
     "PLAN_LADDER",
     "SearchStats",
     "finalize_candidates",
@@ -264,7 +270,7 @@ class HostLoop:
             if not queues.empty:
                 idx = queues.fetch(fetch_m)
                 rows = up(idx.astype(np.int64))
-                radius = torch.sqrt(knn_d[rows, k - 1]) + self._qeps
+                radius = kops.sqrt(knn_d[rows, k - 1]) + self._qeps
                 leaf, adv = traversal.advance(
                     traversal.TraversalState(node[rows], fromc[rows]), q[rows], radius,
                     self._split_dim, self._split_val, first_leaf_heap=first_leaf,
@@ -569,3 +575,58 @@ class BufferKDTree:
         queries = self.check_queries(queries, k)
         dists, idx, self._last_stats = self.search(queries, k)
         return dists, idx
+
+
+class JitTree:
+    """One reference set answered exactly by the device-resident fixed point
+    (``jitsearch.lazy_knn_jit``): the state of the ``jit`` engine and of
+    each ``forest`` shard.  ``top`` is the host tree, ``tree`` its arrays on
+    ``device``, ``rounds`` the ``RoundsCache`` of its captured rounds (one
+    per tree, so each device slot replays its own CUDA graphs).
+
+    ``query`` selects ``FP32_OVERFETCH`` candidates beyond k, rescores them
+    exactly on the device and keeps the rows ``certify`` proves at eps = 0;
+    the rest take fp32 brute force over ``top.points``.  Ids are the
+    caller's original ordering of ``top``'s points."""
+
+    def __init__(self, top: TopTree, device, *, tile_q: int = 128, backend: str = "auto"):
+        dev = kops.resolve_device(device)
+        self.top = top
+        self.backend = kops.resolve_backend(backend, dev)
+        self.tree = tree_arrays_from(top, dev)
+        self.tq = kops.engine_tile_q(tile_q, self.backend)
+        norms = np.sqrt(np.sum(top.points.astype(np.float64) ** 2, axis=1))
+        self.x_norm_max = float(norms.max())   # bounds the fp32 rounding in certify
+        self.rounds = RoundsCache()
+
+    def query(self, queries: np.ndarray, k: int):
+        """(dists f32[m, k] ascending Euclidean, ids i64[m, k], SearchStats)."""
+        top, n = self.top, self.top.n
+        m = queries.shape[0]
+        k_eff = min(k + FP32_OVERFETCH, n)
+        q = kops.owned_tensor(queries, self.tree.slabs.device)
+        d2, oi, rounds = lazy_knn_jit(
+            q, self.tree, k=k_eff, tq=self.tq, first_leaf_heap=top.first_leaf_heap,
+            backend=self.backend, cache=self.rounds,
+        )
+        raw = self.rounds[(m, k_eff)].knn_d[:m].cpu().numpy()
+        dists = np.sqrt(np.maximum(d2.cpu().numpy(), 0.0))
+        idx = oi.cpu().numpy()
+        ok = np.ones(m, bool) if k_eff >= n else certify(
+            queries, raw, dists, k, k_eff, eps=0.0, x_norm_max=self.x_norm_max)
+        dists, idx = dists[:, :k].copy(), idx[:, :k].copy()
+        rows = np.nonzero(~ok)[0]
+        if rows.size:
+            bd, bi = knn_brute(queries[rows], top.points, k, device=q.device)
+            dists[rows], idx[rows] = bd, orig_ids(top, bi)
+        stats = SearchStats(iterations=rounds, queries_advanced=rounds * m,
+                            exact_rows=int(rows.size))
+        return dists.astype(np.float32), idx.astype(np.int64), stats
+
+    def warm(self, m: int, k: int) -> None:
+        """Run the round once for a batch of ``m`` at ``k`` and capture it
+        (on CUDA), so the first query only replays."""
+        k_eff = min(k + FP32_OVERFETCH, self.top.n)
+        q = torch.zeros((m, self.top.d), device=self.tree.slabs.device)
+        lazy_knn_jit(q, self.tree, k=k_eff, tq=self.tq, first_leaf_heap=self.top.first_leaf_heap,
+                     backend=self.backend, cache=self.rounds, max_rounds=1)

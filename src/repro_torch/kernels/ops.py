@@ -7,7 +7,8 @@ for CUDA tensors and the plain ``leaf_scan_ref`` for CPU tensors
 choice becomes the card: entry points run on ``cuda:0`` unless the caller
 passes a CPU device, and without a card they raise instead of carrying on
 quietly on the CPU.  ``owned_tensor`` is how entry points take the
-caller's arrays: as a copy the port owns, on every device.
+caller's arrays: as a copy the port owns, on every device.  ``sqrt`` is
+the square root every distance and search radius of the port takes.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ __all__ = [
     "engine_tile_q",
     "resolve_backend",
     "resolve_device",
+    "visible_devices",
     "owned_tensor",
+    "sqrt",
     "PAD_COORD",
     "INVALID_DIST",
 ]
@@ -51,6 +54,13 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", 0)
 
 
+def visible_devices() -> Tuple[torch.device, ...]:
+    """Every visible CUDA device, ``cuda:0`` ... ``cuda:{count-1}`` (what
+    the reference's ``jax.devices()`` gives); raises without a card."""
+    resolve_device(None)
+    return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+
+
 def owned_tensor(a, device, dtype=torch.float32) -> torch.Tensor:
     """``a`` (a numpy array or a tensor) as a ``dtype`` tensor on ``device``
     that shares no memory with ``a``.  On the CPU ``torch.from_numpy`` and
@@ -61,6 +71,18 @@ def owned_tensor(a, device, dtype=torch.float32) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=dtype, copy=True)
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def sqrt(t: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of ``t`` (IEEE ``sqrt``), on its
+    device.  On CUDA that is ``torch.sqrt``.  On the CPU it is numpy's:
+    PyTorch's CPU float32 ``sqrt`` is not correctly rounded (1 ulp low at
+    267, on every call), and it once returned ``x * rsqrt(x)`` with a 12-bit
+    estimate for a sixth of a tensor, caught with its input kept and
+    correct (ROADMAP Queue 3 item 5); an exact oracle cannot rest on it."""
+    if t.device.type != "cpu":
+        return torch.sqrt(t)
+    return torch.from_numpy(np.sqrt(t.numpy()))
 
 
 def resolve_backend(backend: str, device) -> str:

@@ -206,19 +206,22 @@ def test_plan_matches_reference(kw):
 def test_planner_errors_and_limits():
     with pytest.raises(BudgetError):
         plan(50_000, 8, devices=CPU, memory_budget=1, strict_budget=True)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        plan(50_000, 8, devices=CPU * 2)
+    two = plan(50_000, 8, devices=CPU * 2)
+    assert (two.engine, two.n_shards) == ("forest", 2)
+    assert any("2 devices visible and n % 2 == 0" in r for r in two.reasons)
     p = plan(50_000, 8, devices=CPU, op="radius")
     assert p.engine == "chunked" and any("op='radius'" in r for r in p.reasons)
-    with pytest.raises(KeyError, match="not yet ported"):
-        plan(50_000, 8, devices=CPU, engine="forest")
+    pinned = plan(50_000, 8, devices=CPU, engine="forest")
+    assert (pinned.engine, pinned.n_shards) == ("forest", 1)
+    with pytest.raises(KeyError, match="unknown engine"):
+        plan(50_000, 8, devices=CPU, engine="mesh")
     mut = plan(50_000, 8, devices=CPU, mutable=True)
     assert (mut.engine, mut.merge_async) == ("dynamic", True)
     assert any("modeled crossover" in r for r in mut.reasons)
     with pytest.raises(ValueError, match="caps.mutable=False"):
         plan(50_000, 8, devices=CPU, mutable=True, engine="chunked")
-    assert sorted(available_engines()) == ["brute", "chunked", "dynamic", "host", "jit",
-                                           "kdtree", "streaming"]
+    assert sorted(available_engines()) == ["brute", "chunked", "dynamic", "forest", "host",
+                                           "jit", "kdtree", "ring", "sharded", "streaming"]
     assert sorted(available_engines(op="kde")) == ["brute", "chunked", "host", "streaming"]
     assert get_engine("chunked").caps.ops == frozenset(DUAL_OPS + ("knn",))
     assert get_engine("jit").caps.ops == frozenset({"knn"})
@@ -357,7 +360,7 @@ def test_op_caps_contract():
     assert set(available_engines(op="knn")) == set(available_engines())
     with pytest.raises(ValueError, match="unknown op"):
         available_engines(op="warp")
-    assert NON_DECLARING == ["dynamic", "jit", "kdtree"]
+    assert NON_DECLARING == ["dynamic", "forest", "jit", "kdtree", "ring", "sharded"]
     pts, q = _lattice_data(700, 16, 4, seed=22)
     idx = KNNIndex.build(pts, IndexSpec(engine="jit", height=2, devices=CPU))
     with pytest.raises(OpUnsupported, match="radius"):

@@ -730,3 +730,50 @@ def test_launch_counts_summed_across_fanout_threads():
     torch.cuda.synchronize()
     per_shard = sum(s.engine.stats.chunk_rounds for s in trees)
     assert knn_scan.leaf_scan_units.launches == per_shard > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["forest", "sharded", "ring"])
+def test_multi_device_engines_on_four_slots_of_the_card(engine):
+    """The multi-device engines on ``(cuda:0,) * 4`` (a thread and a stream
+    per slot) against the same engine on one slot and against knn_brute:
+    the same distances, ids bit for bit on ``sharded`` and ``ring`` (up to
+    ties on the forest, whose shards change with the slot count); every
+    scan of the query the CUDA kernel (launched by the wrapper, or replayed
+    in the forest's graphs: one per slot, captured by the warm while the
+    other slots run)."""
+    from repro_torch.api import IndexSpec, KNNIndex
+
+    dev = _device()
+    rng = np.random.default_rng(31)
+    pts = rng.normal(size=(40000, 10)).astype(np.float32)
+    q = rng.normal(size=(3000, 10)).astype(np.float32)
+    one = KNNIndex.build(pts, IndexSpec(engine=engine, devices=(dev,))).query(q, 10)
+    four = KNNIndex.build(pts, IndexSpec(engine=engine, devices=(dev,) * 4))
+    four.warm(q.shape[0], 10)
+    torch.cuda.synchronize()
+    rounds = ([r for sh in four._state.shards for r in sh.rounds.values()]
+              if engine == "forest" else [])
+    before = [(r.eager_rounds, r.replays) for r in rounds]
+    knn_scan.reset_launches()   # the query's own launches, not the warm's
+    res = four.query(q, 10)
+    if engine == "forest":
+        # the warm captured every slot's round: the query only replays
+        # graphs (which launch the kernel without the wrapper)
+        assert knn_scan.leaf_scan_units.launches == 0
+        assert all(r.eager_rounds == e for r, (e, _) in zip(rounds, before))
+        assert all(r.replays > p for r, (_, p) in zip(rounds, before))
+    else:
+        assert knn_scan.leaf_scan_units.launches > 0
+    bd, bi = knn_brute(q, pts, 10, device=dev)
+    np.testing.assert_allclose(res.dists, bd, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(res.dists, one.dists, rtol=1e-5, atol=1e-6)
+    d_of_idx = np.sqrt(np.sum((q[:, None, :] - pts[res.idx]) ** 2, -1))
+    np.testing.assert_allclose(d_of_idx, bd, rtol=1e-5, atol=1e-6)
+    if engine == "forest":
+        graphs = [r.graph for sh in four._state.shards for r in sh.rounds.values()]
+        assert len(graphs) == 4 and all(g is not None for g in graphs)
+        assert res.stats.exact_rows == 0
+    else:
+        assert np.array_equal(res.dists, one.dists) and np.array_equal(res.idx, one.idx)
+    assert four.resident_bytes() > 0 and len(four._state.slot_seconds) == 4

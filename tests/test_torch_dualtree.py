@@ -492,3 +492,31 @@ def test_oracles_own_their_inputs(oracle, monkeypatch):
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         np.testing.assert_array_equal(g, w)
+
+
+def test_distances_are_correctly_rounded_roots():
+    """Every distance the port returns is the IEEE (correctly rounded) fp32
+    root of its fp32 squared distance, as numpy's ``sqrt`` computes it.
+    PyTorch's CPU float32 ``sqrt`` is not: it returns 16.340134 for 267,
+    where the correctly rounded root is 16.340136, and it once returned
+    12-bit estimates for a sixth of ``radius_brute``'s distances (ROADMAP
+    Queue 3 item 5); ``kernels/ops.py::sqrt`` takes numpy's on the CPU.
+    The points are 267 apart squared: (11, 11, 5)."""
+    from repro_torch.core.brute import knn_brute
+    from repro_torch.kernels.ops import sqrt
+
+    sq = np.arange(1 << 16, dtype=np.float32)
+    np.testing.assert_array_equal(sqrt(torch.from_numpy(sq)).numpy(), np.sqrt(sq))
+    right = np.sqrt(np.float32(267.0))
+    q = np.zeros((1, 3), np.float32)
+    pts = np.array([[11.0, 11.0, 5.0], [30.0, 0.0, 0.0]], np.float32)
+    _, _, dd = radius_brute(q, pts, 17.0, device=CPU)
+    assert dd.tolist() == [right]
+    d, i = knn_brute(q, pts, 1, device=CPU)
+    assert (d[0, 0], i[0, 0]) == (right, 0)
+    ip, _, dd = DualTree(build_top_tree(pts, 1), device=CPU).radius(q, 17.0)[:3]
+    assert dd.tolist() == [right]
+    # the pair's distance lies on the edge: np.histogram's bins are [a, b)
+    hist = pair_count_brute(np.concatenate([q, pts[:1]]), [0.0, float(right), 40.0],
+                            device=CPU)
+    assert hist.tolist() == [0, 2]

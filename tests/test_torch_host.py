@@ -5,8 +5,7 @@ The same numpy points and queries go through ``repro`` and the port.  Ids
 must be equal up to ties (a tie may permute two equidistant neighbours)
 and distances agree within rtol 1e-5 / atol 1e-6; each test names the
 ``repro`` function it holds the port against.  Also here: the rows with no
-finite neighbour (a NaN or a 1e20 coordinate) on every ported engine, and
-the typed errors of the engines still to be ported.
+finite neighbour (a NaN or a 1e20 coordinate) on every ported engine.
 """
 
 import functools
@@ -20,7 +19,7 @@ from repro.core import buffers as jax_buffers
 from repro.core.hostkdtree import knn_host_kdtree as jax_knn_host_kdtree
 from repro.core.lazysearch import BufferKDTree as JaxBufferKDTree
 from repro.core.toptree import build_top_tree as jax_build_top_tree
-from repro_torch.api import IndexSpec, KNNIndex, available_engines, get_engine, knn_brute, plan
+from repro_torch.api import IndexSpec, KNNIndex, knn_brute, plan
 from repro_torch.core import buffers, dualtree
 from repro_torch.core.hostkdtree import knn_host_kdtree
 from repro_torch.core.lazysearch import PLAN_LADDER, BufferKDTree
@@ -291,20 +290,6 @@ def test_rows_without_a_finite_neighbour_get_minus_one(engine):
     good = np.setdiff1d(np.arange(40), bad)
     np.testing.assert_allclose(res.dists[good], ref.dists[good], **TOL)
     np.testing.assert_array_equal(res.idx[good], ref.idx[good])
-
-
-# ---------------------------------------------------------------------------
-# what is still to port raises with its ROADMAP item
-# ---------------------------------------------------------------------------
-@pytest.mark.parametrize("engine,item", [
-    ("sharded", "item 18"), ("forest", "item 18"), ("ring", "item 18"),
-])
-def test_unported_engines_name_their_item(engine, item):
-    assert engine not in available_engines()
-    with pytest.raises(KeyError, match=item):
-        get_engine(engine)
-    with pytest.raises(KeyError, match=item):
-        plan(50_000, 8, devices=CPUS, engine=engine)
 
 
 @pytest.mark.parametrize("engine", ["brute", "kdtree", "host", "chunked", "streaming", "jit"])
