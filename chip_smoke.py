@@ -11,6 +11,7 @@
     python3 chip_smoke.py --serve-shift 0    # the serve cell's 8192 / 2048 / 1024 requests
     python3 chip_smoke.py --multi-shift 0    # the multi cell at n = 2**24, m = 2**20
     python3 chip_smoke.py --shift 4 --multi-shift 0 --profile multi   # its engines profiled
+    python3 chip_smoke.py --lm-shift 2       # the lm cell's corpus and queries / 4
 
 Phases, each printing its own lines:
 
@@ -40,7 +41,9 @@ Phases, each printing its own lines:
               tile (two launches of 128); the wide kernel timed at W=4096,
               TQ=128, L_pad=4096: fp32 d = 130 at k = 10 and 74, fp32 d = 30
               at k = 16 (the wide cell's list) and 74, uint8 d = 30 at
-              k = 18, each beside its plain version and the library; then KNNIndex
+              k = 18, each beside its plain version and the library; the
+              narrow kernel at the lm cell's keys (fp32 d = 16, k = 16) at
+              that shape, timed likewise; then KNNIndex
               at k = 150 and at d = 130 against knn_brute, and
               IndexSpec(tile_q=256) equal to tile_q=128 on chunked and
               host;
@@ -48,7 +51,7 @@ Phases, each printing its own lines:
               m queries, d=10, from a seeded clustered Gaussian mixture;
               the plan must be the chunked engine with N=1, the kernel must
               have launched, and 1024 queries must match knn_brute;
-  5. ooc      the first n / 2**ooc_shift points (--ooc-shift, default 3:
+  5. ooc      the first n / 2**ooc_shift points (--ooc-shift, default 4:
               a smaller depth of the same mixture) under memory_budget =
               slab_bytes // 3 with precision pinned to fp32 (planner rule
               5): N >= 2 chunks streamed, exact against knn_brute (and the
@@ -84,7 +87,7 @@ Phases, each printing its own lines:
  12. host     IndexSpec(engine="host") (the paper's Algorithm 1: host
               queues, leaf buffers, work plans) on the first n / 2**host_shift
               points and m / 2**host_shift queries of main's data
-              (--host-shift, default 3; 0: main's data whole): every scan the
+              (--host-shift, default 4; 0: main's data whole): every scan the
               CUDA kernel (launches = chunk rounds), answers equal to main's
               (or ooc's, on the same points) with fp32_rows_missed = 0;
  13. host_ooc the same under memory_budget = slab_bytes // 3, fp32 (N = 7,
@@ -104,7 +107,7 @@ Phases, each printing its own lines:
               against knn_brute with fp32_rows_missed = 0;
  17. mutable  (after stream) KNNIndex.build(3n/4 points, IndexSpec(mutable=True,
               merge_async=True, persist_dir=...)) on main's mixture at
-              n / 2**mutable_shift (--mutable-shift, default 2: n = 2**22),
+              n / 2**mutable_shift (--mutable-shift, default 3: n = 2**21),
               the rest inserted in 16 batches, n / 128 ids deleted in 4
               batches, a query while merges are pending, drain(), m /
               2**mutable_shift queries (1024 against knn_brute over the live
@@ -114,7 +117,7 @@ Phases, each printing its own lines:
  18. serve    KNNServer (max_batch 1024) over the stream cell's index, the
               estimate seeded from the stream cell's seconds per round:
               a burst of 8192 >> serve_shift requests (--serve-shift,
-              default 2), every answer main's row; 2048 >> serve_shift
+              default 3), every answer main's row; 2048 >> serve_shift
               paced requests with 50 ms deadlines (completed, purged, shed);
               1024 >> serve_shift at the same rate with a deadline of twice
               the burst's seconds per batch (sla: the requests complete);
@@ -127,7 +130,7 @@ Phases, each printing its own lines:
  20. multi    (after wide) the paper's multi-device querying on
               devices=(cuda:0,) * 4 (and on every card where there are more):
               main's mixture at n / 2**multi_shift points and m / 2**multi_shift
-              queries (--multi-shift, default 2: n = 2**22, m = 2**18); no
+              queries (--multi-shift, default 3: n = 2**21, m = 2**17); no
               spec (the plan must be forest: a tree per slot over n / 4
               points, each slot's round one CUDA graph), then sharded (the
               paper's query chunks, one chunked tree per slot) and ring
@@ -137,10 +140,32 @@ Phases, each printing its own lines:
               variant (counts set to 0 after the warm; the forest's are its
               graph replays, none eager), 1024 rows against knn_brute
               (fp32_rows_missed = 0), answers equal to chunked's up to ties.
+ 21. lm       (last) kNN-LM serving with Qwen1.5-0.5B at full width (24
+              layers, d_model 1024, vocab 151936; random weights from the
+              seed; fp32 parameters, bf16 compute) on cuda:0: a corpus of
+              512 >> lm_shift sequences of 2048 tokens (--lm-shift, default
+              0: 2**20 pairs, TokenPipeline) embedded into a KNNLM datastore
+              (proj_dim 16, k 10, lam 0.25; the plan must be chunked and
+              its queries the narrow kernel); the 2**16 keys of 32 held-out
+              sequences queried, 1024 rows against knn_brute
+              (fp32_rows_missed = 0); next_token_probs on 256 held-out
+              sequences (rows sum to 1 within 1e-3; at lam = 0, on 16 of
+              them, equal to the softmax of prefill's logits within 1e-6); a mutable store
+              built on 3/4 of the corpus and extended in 4 batches (plan
+              dynamic, exact, save_datastore / load_datastore answering bit
+              for bit); serve() over a streaming store of a quarter of the
+              corpus, 64 rows equal to the direct path's (both stores take
+              the keys the first build embedded); ServeEngine (8
+              slots, max_len 2048) decoding 16 requests of 64 greedy tokens
+              (tokens/s), every token within 1e-3 of the largest logit of a
+              batched replay through decode_step, and prefill of each first
+              round's prompt against the replay (bf16: any logit within
+              0.03, the mean within 0.003; every card run read 0).
 
 Phase 3 times the main path's fp32 instance at k = 10 + FP32_OVERFETCH
 (the k the fp32 main path runs) beside k = 10, k = 18 and k = 10 +
-QUANT_REFINE_OVERFETCH (the refining pass); the JSON line's fp32 entry is
+QUANT_REFINE_OVERFETCH (the refining pass), and the same list at the lm
+cell's keys (d = 16, ``narrow<16,16>/reg``); the JSON line's fp32 entry is
 that instance, and its ``instances`` give each instance the main path ran
 with its launches and, where phase 3 timed it, its times.  main and ooc
 must miss no row against brute force (``fp32_rows_missed`` = 0).
@@ -148,9 +173,12 @@ must miss no row against brute force (``fp32_rows_missed`` = 0).
 Every cell sets the kernel's launch counts to 0 just before its query and
 reads them just after; the JSON line gives each cell's counts by variant
 name (``launches_by_cell``), under an entry for each kernel and code type:
-``leaf_scan`` (narrow, fp32; main's launches), ``leaf_scan_codes`` (narrow,
-uint8; quant's) and ``leaf_scan_wide`` (wide, fp32; the wide cell's).  A ``[done]`` line gives the script's seconds from
-the CUDA check on (the kernels' build included).  Then one JSON line describing the kernels, and
+``leaf_scan`` (narrow, fp32; main's launches; the lm cell's under ``lm``,
+``lm_probs``, ``lm_mutable`` and ``lm_serve``), ``leaf_scan_codes`` (narrow,
+uint8; quant's), ``leaf_scan_wide`` (wide, fp32; the wide cell's) and
+``leaf_scan_lm_keys`` (narrow, fp32 at d = 16; the lm cell's).  A
+``[done]`` line gives the script's seconds from the CUDA check on (the
+kernels' build included).  Then one JSON line describing the kernels, and
 last the device line.  Any failed check raises (non-zero exit); without a
 CUDA device the script exits non-zero before printing any result.  Nothing
 here imports jax or the JAX package.
@@ -200,7 +228,15 @@ KDTREE_M = 2 ** 14   # queries of the kdtree cell
 PERSIST_M = 2 ** 16  # queries the persist cell answers before and after
 WIDE_D = 130         # the wide kernel's timed rows (d > 16)
 WIDE_CELL_D = 30     # the wide cell's rows (the top of the paper's range)
+LM_KEY_D = 16        # the lm cell's keys: the kNN-LM's projection (proj_dim)
 DUAL_CHECK_SHIFT = 4  # the dual cell's pair_count_brute check on n / 2**4 points
+LM_ARCH = "qwen15_0_5b"   # the lm cell's model, at full width
+LM_SEQ = 2048        # tokens per sequence of the lm cell's corpus
+LM_CORPUS = 512      # corpus sequences (2**20 pairs), >> --lm-shift
+LM_QUERY = 32        # held-out sequences whose keys are queried (2**16), >> --lm-shift
+LM_PROBS = 256       # held-out sequences through next_token_probs, >> --lm-shift
+LM_SERVE = 64        # rows served through KNNServer, >> --lm-shift
+LM_REQUESTS, LM_SLOTS, LM_MAX_LEN, LM_NEW_TOKENS = 16, 8, 2048, 64   # decode
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -437,7 +473,53 @@ def phase_kernel(torch, dev, seed: int) -> dict:
     timed = {f"f32_k{k}": t for k, t in timed.items()}
     del q, x, qpad
     torch.cuda.empty_cache()
-    return timed, codes, phase_kernel_wide(torch, dev, gen)
+    return timed, codes, phase_kernel_wide(torch, dev, gen), phase_kernel_lm(torch, dev, gen)
+
+
+def phase_kernel_lm(torch, dev, gen) -> dict:
+    """The narrow kernel at the lm cell's keys (d = LM_KEY_D, the kNN-LM's
+    projection) and the list its k = 10 queries scan at (k +
+    FP32_OVERFETCH), at the main path's W, TQ and L_pad (the lm cell's
+    2**20 keys fill 256 leaves of 4096 rows): against its plain version,
+    timed beside it and the library; keyed ``"f32_d16_k16"``."""
+    from repro_torch.kernels import knn_scan
+
+    s, d, k = MAIN_SHAPE, LM_KEY_D, MAIN_K_EFF
+    w, tq, lp = s["w"], s["tq"], s["l_pad"]
+    q = torch.randn((w, tq, d), device=dev, generator=gen)
+    x = torch.randn((w, lp, d), device=dev, generator=gen)
+    qpad = q.reshape(w * tq, d)
+    ul = torch.arange(w, dtype=torch.int32, device=dev)
+    uq = torch.arange(w * tq, dtype=torch.int32, device=dev).reshape(w, tq)
+    nu = torch.tensor(w, dtype=torch.int32, device=dev)
+    kd, ki = knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=k)
+    rd, ri = knn_scan.leaf_scan_units_ref(qpad, x, ul, uq, nu, k=k)
+    torch.cuda.synchronize()
+    err = check_scan(torch, q, x, kd, ki, rd, ri)
+    del kd, ki, rd, ri
+    kernel_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units(qpad, x, ul, uq, nu, k=k),
+                        reps=10)
+    plain_ms = cuda_ms(torch, lambda: knn_scan.leaf_scan_units_ref(qpad, x, ul, uq, nu, k=k),
+                       reps=3)
+    xn = (x * x).sum(-1)[:, None, :]     # per-slab precompute, outside the timing
+    xt = x.transpose(1, 2)
+
+    def library():
+        d2 = torch.baddbmm(xn, q, xt, alpha=-2.0)
+        return torch.topk(d2, k, dim=-1, largest=False)
+
+    library_ms = cuda_ms(torch, library, reps=3)
+    bound_ms, bound_by = scan_bound(w, tq, lp, d, k)
+    log("kernel", case=f"lm_shape_d{d}", shape=(w, tq, lp, d), k=k,
+        variant=knn_scan.choose_variant(d, k, tq, lp).name,
+        max_abs_err=err, kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        gflops=f"{w * tq * lp * (2 * d + 3) / kernel_ms / 1e6:.1f}")
+    del q, x, qpad, xn, xt
+    torch.cuda.empty_cache()
+    return {f"f32_d{d}_k{k}": dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                                   library_ms=library_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by)}
 
 
 def phase_kernel_wide(torch, dev, gen) -> dict:
@@ -727,16 +809,22 @@ def check_exact(torch, index_res, points, queries, dev, n_check: int, live=None,
 
 
 def profile_query(torch, phase, index, queries, host_top: int = 0) -> None:
-    """Query once more under torch.profiler: device time by kernel name and
-    the device's idle share of the query's wall time; with ``host_top``,
-    also the host's self time in all and its ``host_top`` largest ops
-    (torch ops and CUDA runtime calls, every thread's)."""
+    """Query once more under torch.profiler (``profile_call``)."""
+    profile_call(torch, phase, lambda: index.query(queries, 10), host_top)
+
+
+def profile_call(torch, phase, fn, host_top: int = 0) -> None:
+    """Call ``fn`` under torch.profiler: device time by kernel name and the
+    device's idle share of the call's wall time; with ``host_top``, also
+    the host's self time in all and its ``host_top`` largest ops (torch ops
+    and CUDA runtime calls, every thread's).  Returns (wall_s, busy_s)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        index.query(queries, 10)
+        fn()
+        torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     # kernel-level events only: an aten op also carries its kernels' time
     events = [e for e in prof.key_averages()
@@ -755,6 +843,7 @@ def profile_query(torch, phase, index, queries, host_top: int = 0) -> None:
         for e in host[:host_top]:
             print(f"[{phase}]   host {e.self_cpu_time_total / 1e3:10.1f} ms {e.count:8d}x "
                   f"{e.key[:90]}", flush=True)
+    return wall_s, busy_s
 
 
 def launch_counts(knn_scan) -> dict:
@@ -827,35 +916,44 @@ def main(argv=None) -> int:
     ap.add_argument("--shift", type=int, default=0,
                     help="divide n and m by 2**shift (default: full size)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ooc-shift", type=int, default=3,
+    ap.add_argument("--ooc-shift", type=int, default=4,
                     help="run the streamed cells (ooc, quant_ooc) on n / 2**ooc_shift "
-                         "points (default 3, which keeps the whole script within "
+                         "points (default 4, which keeps the whole script within "
                          "its time limit; 0 runs them at full depth)")
-    ap.add_argument("--host-shift", type=int, default=3,
+    ap.add_argument("--host-shift", type=int, default=4,
                     help="run the host cells (host, host_ooc, kdtree) on n / "
                          "2**host_shift points and m / 2**host_shift queries (default "
-                         "3, the ooc cells' depth; 0: main's data whole)")
+                         "4, the ooc cells' depth; 0: main's data whole)")
     ap.add_argument("--wide-shift", type=int, default=2,
                     help="run the wide cell (d = 30) on n / 2**wide_shift points and "
                          "m / 2**wide_shift queries (default 2: n = 2**22, m = 2**18; "
                          "0: n = 2**24, m = 2**20)")
-    ap.add_argument("--mutable-shift", type=int, default=2,
+    ap.add_argument("--mutable-shift", type=int, default=3,
                     help="run the mutable cell on n / 2**mutable_shift points of main's "
-                         "mixture (default 2: n = 2**22, built on 3n/4, the rest "
+                         "mixture (default 3: n = 2**21, built on 3n/4, the rest "
                          "inserted) and m / 2**mutable_shift queries")
-    ap.add_argument("--serve-shift", type=int, default=2,
+    ap.add_argument("--serve-shift", type=int, default=3,
                     help="divide the serve cell's burst (8192), paced (2048) and sla "
-                         "(1024) request counts by 2**serve_shift (default 2: 2048, "
-                         "512 and 256, which keeps the script within its time limit)")
-    ap.add_argument("--multi-shift", type=int, default=2,
+                         "(1024) request counts by 2**serve_shift (default 3: 1024, "
+                         "256 and 128; at 4 the burst no longer fills the 1024-row "
+                         "bucket, its zero pad rows retire last and the cell takes "
+                         "longer)")
+    ap.add_argument("--multi-shift", type=int, default=3,
                     help="run the multi cell (forest, sharded and ring on four slots "
                          "of the card, chunked on one) on n / 2**multi_shift points and "
-                         "m / 2**multi_shift queries (default 2: n = 2**22, m = 2**18; "
-                         "0: n = 2**24, m = 2**20)")
+                         "m / 2**multi_shift queries (default 3: n = 2**21, m = 2**17, "
+                         "which keeps the whole script within its time limit with the "
+                         "lm cell; 2: n = 2**22 as the paper's multi-device findings "
+                         "were measured; 0: n = 2**24, m = 2**20)")
+    ap.add_argument("--lm-shift", type=int, default=0,
+                    help="divide the lm cell's corpus (512 sequences of 2048 tokens: "
+                         "2**20 pairs) and query counts (32, 256 and 64 held-out "
+                         "sequences) by 2**lm_shift (default 0)")
     ap.add_argument("--profile", nargs="?", const="main,ooc", default="",
                     help="also run these cells' query once under torch.profiler "
                          "(comma-separated, of main, ooc, quant, quant_ooc, jit, "
-                         "host, multi; no value: main,ooc)")
+                         "host, multi, lm (one embedding pass and a decode run); "
+                         "no value: main,ooc)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -879,7 +977,7 @@ def main(argv=None) -> int:
 
     phase_env(torch)
     phase_build()
-    scan, codes, wide = phase_kernel(torch, dev, args.seed)
+    scan, codes, wide, lm_scan = phase_kernel(torch, dev, args.seed)
     phase_facade(torch, dev, args.seed)
 
     t0 = time.perf_counter()
@@ -988,20 +1086,28 @@ def main(argv=None) -> int:
     cells["wide"] = run_wide(torch, dev, args.seed, args.shift + args.wide_shift)
     cells.update(run_multi(torch, dev, args.seed, args.shift + args.multi_shift,
                            "multi" in profiled))
+    cells.update(run_lm(torch, dev, args.seed, args.shift + args.lm_shift, "lm" in profiled))
 
-    def entry(name, kind, code, head_key, cell, timed):
+    def entry(name, kind, code, head_key, cell, timed, width=None):
         """The JSON line's entry for the ``kind`` kernel ("narrow" or
         "wide") reading ``code``: the instance a k = 10 query of ``cell``
         first runs (``head_key``), under ``instances`` every instance
         phase 3 timed or the cell ran, its launches in the cell beside its
         phase-3 times, and under ``launches_by_cell`` each cell's launches
-        of this kernel and code type, by variant name."""
+        of this kernel and code type, by variant name.  With ``width``,
+        only the narrow instances of rows that wide (their launch counts'
+        keys, which name no width, gain it: ``cell`` launches no other)."""
         head = timed[head_key]
-        keys = sorted(set(cell["by_instance"]) | set(timed))
+        by_instance = cell["by_instance"]
+        if width:
+            by_instance = {key.replace("_k", f"_d{width}_k", 1): n
+                           for key, n in by_instance.items()}
+        keys = sorted(set(by_instance) | set(timed))
+        prefix = f"{kind}<{width}," if width else f"{kind}<"
 
         def variants(launches):
             return {v: n for v, n in launches["by_variant"].items()
-                    if v.startswith(kind + "<") and (v.rsplit("/", 1)[-1] if v.rsplit(
+                    if v.startswith(prefix) and (v.rsplit("/", 1)[-1] if v.rsplit(
                         "/", 1)[-1] in ("u8", "f16") else "f32") == code}
 
         return {
@@ -1012,7 +1118,7 @@ def main(argv=None) -> int:
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "instances": {key: dict(launches=cell["by_instance"].get(key, 0),
+            "instances": {key: dict(launches=by_instance.get(key, 0),
                                     **timed.get(key, {})) for key in keys},
             "launches_by_cell": {c: dict(launches=sum(v.values()), variants=v)
                                  for c, v in ((c, variants(n)) for c, n in cells.items())
@@ -1024,7 +1130,10 @@ def main(argv=None) -> int:
                entry("leaf_scan_codes", "narrow", "u8", f"u8_k{CODE_K}", launches3, codes),
                # rows of d > 16 (wide cell, d = 30, k = 10 -> 16)
                entry("leaf_scan_wide", "wide", "f32", f"f32_d{WIDE_CELL_D}_k{MAIN_K_EFF}",
-                     cells["wide"], wide)]
+                     cells["wide"], wide),
+               # the kNN-LM's keys (lm cell, d = 16, k = 10 -> 16)
+               entry("leaf_scan_lm_keys", "narrow", "f32", f"f32_d{LM_KEY_D}_k{MAIN_K_EFF}",
+                     cells["lm"], lm_scan, width=LM_KEY_D)]
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1420,6 +1529,336 @@ def run_multi(torch, dev, seed: int, shift: int, profile: bool = False) -> dict:
                 dists_bit_for_bit=bool(np.array_equal(res.dists, ref.dists)),
                 ids_identical=bool(np.array_equal(res.idx, ref.idx)),
                 id_positions_differing=len(off[0]), answers_equal_up_to_ties=True)
+    return cells
+
+
+def lm_config():
+    """The lm cell's model: Qwen1.5-0.5B at full width."""
+    from repro_torch.configs import get_config
+
+    return get_config(LM_ARCH)
+
+
+def run_lm(torch, dev, seed: int, shift: int, profile: bool = False) -> dict:
+    """The lm cell: kNN-LM serving with Qwen1.5-0.5B at full width (random
+    weights from ``seed``) on ``dev``.  A corpus of 512 >> shift sequences of
+    2048 tokens (``TokenPipeline``, 2**20 pairs at shift 0) through
+    ``KNNLM(lm, proj_dim=16, k=10, lam=0.25).build_datastore`` (plan chunked,
+    the narrow kernel); the 2**16 keys of 32 >> shift held-out sequences
+    queried and 1024 rows held against knn_brute; ``next_token_probs`` on
+    256 >> shift held-out sequences (rows sum to 1, and at lam = 0 equal to
+    the softmax of ``prefill``'s logits); a mutable store built on 3/4 of
+    the corpus and extended in 4 batches (plan dynamic, exact, saved and
+    loaded bit for bit); ``serve()`` over a streaming store of a quarter of
+    the corpus (64 >> shift rows equal the direct path's); the mutable and
+    streaming stores take their keys from the first build's embedding of
+    the same sequences (``reuse_keys``); ``ServeEngine`` decoding 16
+    requests of 64 greedy tokens in 8 slots (max_len 2048), each token
+    checked against a batched replay through ``decode_step`` and the
+    prefill of a prompt against the replay.  With ``profile``, one
+    embedding pass and a decode run of 8 requests under torch.profiler.
+    Returns the cells' launch counts: lm (the held-out query), lm_probs,
+    lm_mutable, lm_serve."""
+    import tempfile
+
+    from repro_torch.api import IndexSpec
+    from repro_torch.core.brute import knn_brute
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import knn_scan
+    from repro_torch.models import LanguageModel
+    from repro_torch.serving import KNNLM, Request, ServeEngine
+    from repro_torch.serving.knnlm import EMBED_TOKENS
+
+    cells = {}
+    cfg = lm_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_cell = t0 = time.perf_counter()
+    lm = LanguageModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    log("lm", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, params=sum(p.numel() for p in lm.parameters()),
+        dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+        init_s=f"{time.perf_counter() - t0:.3f}",
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+
+    seqs = max(1, LM_CORPUS >> shift)
+    t0 = time.perf_counter()
+    batch = TokenPipeline(cfg.vocab_size, seq_len=LM_SEQ, global_batch=seqs,
+                          seed=seed).global_batch_at(0)
+    corpus = np.concatenate([batch["tokens"], batch["labels"][:, -1:]], axis=1)
+    held = TokenPipeline(cfg.vocab_size, seq_len=LM_SEQ, global_batch=max(1, LM_PROBS >> shift),
+                         seed=seed + 1).global_batch_at(0)["tokens"]
+    log("lm", corpus_seqs=seqs, seq_len=LM_SEQ, pairs=seqs * LM_SEQ,
+        held_out_seqs=held.shape[0], data_s=f"{time.perf_counter() - t0:.3f}")
+
+    def capture(knn):
+        """Record the keys ``knn`` embeds, and the seconds it takes."""
+        keys, secs, embed = [], [0.0], knn.embed_contexts
+
+        def recorded(tokens):
+            t = time.perf_counter()
+            out = embed(tokens)
+            secs[0] += time.perf_counter() - t
+            keys.append(out)
+            return out
+
+        knn.embed_contexts = recorded
+        return keys, secs
+
+    def reuse_keys(knn):
+        """Give ``knn`` the keys the first build embedded for the corpus
+        sequences it embeds, which must be consecutive from the first (the
+        same LM, projection and contexts: the embedding is timed once)."""
+        cursor = [0]
+
+        def embedded(ctx):
+            r0, r1 = cursor[0], cursor[0] + ctx.shape[0]
+            assert np.array_equal(ctx, corpus[r0:r1, :-1]), (r0, r1)
+            cursor[0] = r1
+            return keys[r0 * LM_SEQ: r1 * LM_SEQ]
+
+        knn.embed_contexts = embedded
+
+    # the datastore: every (context -> next token) pair of the corpus
+    knn = KNNLM(lm, proj_dim=LM_KEY_D, k=10, lam=0.25, seed=seed)
+    keys, embed_s = capture(knn)
+    torch.cuda.reset_peak_memory_stats()
+    knn_scan.reset_launches()
+    t0 = time.perf_counter()
+    knn.build_datastore(corpus)
+    build_s = time.perf_counter() - t0
+    keys = keys[0]
+    plan = knn.index.plan
+    assert plan.engine == "chunked", knn.index.describe()
+    assert knn.index.spec.devices == (dev,) and knn.index.n == keys.shape[0] == seqs * LM_SEQ
+    log("lm", datastore_keys=keys.shape[0], key_dim=keys.shape[1],
+        keys_bytes=keys.nbytes, engine=plan.engine, height=plan.height,
+        n_chunks=plan.n_chunks, embed_s=f"{embed_s[0]:.3f}",
+        embed_tokens_per_s=f"{keys.shape[0] / embed_s[0]:.0f}",
+        index_build_s=f"{build_s - embed_s[0]:.3f}",
+        resident_bytes=knn.index.resident_bytes(),
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+
+    # exact retrieval at scale: the held-out sequences' keys
+    n_query = max(1, LM_QUERY >> shift)
+    t0 = time.perf_counter()
+    qkeys = knn.embed_contexts(held[:n_query])
+    qembed_s = time.perf_counter() - t0
+    knn_scan.reset_launches()
+    t0 = time.perf_counter()
+    res = knn.index.query(qkeys, k=10)
+    query_s = time.perf_counter() - t0
+    cells["lm"] = launch_counts(knn_scan)
+    variants = cells["lm"]["by_variant"]
+    on_card = dev.type == "cuda"
+    assert not on_card or variants and all(
+        v.startswith(f"narrow<{LM_KEY_D},") for v in variants), variants
+    assert res.dists.shape == (qkeys.shape[0], 10) and np.isfinite(res.dists).all()
+    ties, missed = check_exact(torch, res, keys, qkeys, dev, min(1024, qkeys.shape[0]))
+    log("lm", queries=qkeys.shape[0], embed_s=f"{qembed_s:.3f}", query_s=f"{query_s:.3f}",
+        qps=f"{qkeys.shape[0] / query_s:.1f}", rounds=res.stats.iterations,
+        refined_rows=res.stats.refined_rows, exact_rows=res.stats.exact_rows,
+        variants=",".join(f"{v}:{c}" for v, c in variants.items()),
+        checked=min(1024, qkeys.shape[0]), tie_swaps=ties, fp32_rows_missed=missed)
+    assert missed == 0
+    if profile:   # one embedding pass: EMBED_TOKENS tokens of whole sequences
+        profile_call(torch, "lm_embed", lambda: knn.embed_contexts(
+            held[: max(1, EMBED_TOKENS // LM_SEQ)]), host_top=12)
+
+    # interpolated next-token distributions
+    knn_scan.reset_launches()
+    t0 = time.perf_counter()
+    p = knn.next_token_probs(held)
+    probs_s = time.perf_counter() - t0
+    cells["lm_probs"] = launch_counts(knn_scan)
+    assert p.shape == (held.shape[0], cfg.vocab_size) and p.dtype == np.float32
+    sums = p.sum(axis=1, dtype=np.float64)
+    assert np.abs(sums - 1).max() <= 1e-3 and (p >= 0).all(), (sums.min(), sums.max())
+    assert not on_card or cells["lm_probs"]["f32"] > 0
+    n_lam0 = min(16, held.shape[0])
+    knn.lam = 0.0
+    p0 = knn.next_token_probs(held[:n_lam0])
+    p_lm = []
+    for r0 in range(0, n_lam0, 8):
+        last, _ = lm.prefill({"tokens": held[r0:r0 + 8]})
+        p_lm.append(torch.softmax(last[:, 0, : cfg.vocab_size], -1).cpu().numpy())
+    p_lm = np.concatenate(p_lm)
+    lam0_err = float(np.abs(p0 - p_lm).max())
+    log("lm", probs_rows=p.shape[0], probs_s=f"{probs_s:.3f}",
+        rows_per_s=f"{p.shape[0] / probs_s:.1f}",
+        sum_err=f"{np.abs(sums - 1).max():.2e}", lam0_rows=n_lam0,
+        lam0_max_abs_err_vs_prefill=f"{lam0_err:.2e}",
+        launches=cells["lm_probs"]["f32"])
+    assert lam0_err <= 1e-6, lam0_err
+    del knn, p, p0, p_lm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a growing datastore: built on 3/4 of the corpus, extended in 4 batches
+    split = max(1, seqs * 3 // 4)
+    mknn = KNNLM(lm, proj_dim=LM_KEY_D, k=10, lam=0.25, seed=seed, mutable=True)
+    reuse_keys(mknn)
+    t0 = time.perf_counter()
+    mknn.build_datastore(corpus[:split])
+    mbuild_s = time.perf_counter() - t0
+    assert mknn.index.plan.engine == "dynamic", mknn.index.describe()
+    ext_s = []
+    for part in np.array_split(corpus[split:], 4):
+        if not part.shape[0]:
+            continue
+        t0 = time.perf_counter()
+        ids = mknn.extend_datastore(part)
+        ext_s.append(time.perf_counter() - t0)
+        assert ids.shape[0] == part.shape[0] * LM_SEQ
+    t0 = time.perf_counter()
+    mknn.drain_index()
+    drain_s = time.perf_counter() - t0
+    assert mknn.index.n == keys.shape[0] == mknn.values.shape[0]
+    n_check = min(1024, qkeys.shape[0])
+    knn_scan.reset_launches()
+    t0 = time.perf_counter()
+    mres = mknn.index.query(qkeys, k=10)
+    mquery_s = time.perf_counter() - t0
+    cells["lm_mutable"] = launch_counts(knn_scan)
+    mties, mmissed = check_exact(torch, mres, keys, qkeys, dev, n_check)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        version = mknn.save_datastore(tmp)
+        save_s = time.perf_counter() - t0
+        lknn = KNNLM(lm, proj_dim=LM_KEY_D, k=10, lam=0.25, seed=seed, mutable=True)
+        t0 = time.perf_counter()
+        lknn.load_datastore(tmp)
+        load_s = time.perf_counter() - t0
+        lres = lknn.index.query(qkeys, k=10)
+    assert np.array_equal(lknn.values, mknn.values)
+    assert np.array_equal(lres.dists, mres.dists) and np.array_equal(lres.idx, mres.idx)
+    log("lm", mutable_engine=mknn.index.plan.engine, built_on=split * LM_SEQ,
+        build_s=f"{mbuild_s:.3f}", embedding="reused",
+        extend_s=",".join(f"{s:.3f}" for s in ext_s), drain_s=f"{drain_s:.3f}",
+        keys=mknn.index.n, query_s=f"{mquery_s:.3f}",
+        launches=cells["lm_mutable"]["f32"], checked=n_check, tie_swaps=mties,
+        fp32_rows_missed=mmissed, refined_rows=mres.stats.refined_rows,
+        save_version=version, save_s=f"{save_s:.3f}", load_s=f"{load_s:.3f}",
+        loaded_answers_bit_for_bit=True)
+    assert mmissed == 0
+    del mknn, lknn, mres, lres
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # retrieval through KNNServer: a streaming store of a quarter of the corpus
+    sknn = KNNLM(lm, proj_dim=LM_KEY_D, k=10, lam=0.25, seed=seed,
+                 index_spec=IndexSpec(engine="streaming"))
+    reuse_keys(sknn)
+    t0 = time.perf_counter()
+    sknn.build_datastore(corpus[: max(1, seqs // 4)])
+    sbuild_s = time.perf_counter() - t0
+    rows = held[: max(1, LM_SERVE >> shift)]
+    p_direct = sknn.next_token_probs(rows)
+    server = sknn.serve(max_batch=rows.shape[0], default_deadline_ms=120_000.0)
+    try:
+        knn_scan.reset_launches()
+        t0 = time.perf_counter()
+        p_served = sknn.next_token_probs(rows)
+        served_s = time.perf_counter() - t0
+        cells["lm_serve"] = launch_counts(knn_scan)
+        stats = server.stats()
+    finally:
+        sknn.unserve()
+    np.testing.assert_allclose(p_served, p_direct, rtol=1e-5, atol=1e-6)
+    assert stats["completed"] == rows.shape[0]
+    assert not on_card or cells["lm_serve"]["f32"] > 0 and cells["lm_mutable"]["f32"] > 0
+    log("lm", serve_engine=sknn.index.plan.engine, keys=sknn.index.n,
+        build_s=f"{sbuild_s:.3f}", embedding="reused", served_rows=rows.shape[0], served_s=f"{served_s:.3f}",
+        batches=stats["batches"], close=stats["batches_by_close"],
+        launches=cells["lm_serve"]["f32"],
+        max_abs_diff_vs_direct=f"{np.abs(p_served - p_direct).max():.2e}")
+    del sknn, server, p_direct, p_served
+    gc.collect()
+    torch.cuda.empty_cache()
+    del corpus, keys, qkeys
+
+    # decode: continuous batching, greedy
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=r, prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(3, 13))
+                                               ).astype(np.int32),
+                    max_new_tokens=LM_NEW_TOKENS) for r in range(LM_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(lm, slots=LM_SLOTS, max_len=LM_MAX_LEN, seed=seed)
+    for req in reqs:
+        eng.submit(req)
+    t0 = time.perf_counter()
+    done = eng.run()
+    decode_s = time.perf_counter() - t0
+    new_tokens = sum(len(r.out_tokens) for r in done.values())
+    assert sorted(done) == list(range(LM_REQUESTS))
+    assert all(len(r.out_tokens) == LM_NEW_TOKENS for r in done.values())
+    log("lm", requests=LM_REQUESTS, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+        new_tokens=new_tokens, decode_steps=eng.decode_steps, decode_s=f"{decode_s:.3f}",
+        tokens_per_s=f"{new_tokens / decode_s:.1f}",
+        ms_per_step=f"{decode_s / eng.decode_steps * 1e3:.2f}",
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    del eng
+    if profile:   # a decode run of one slot group, 16 new tokens each
+        eng = ServeEngine(lm, slots=LM_SLOTS, max_len=LM_MAX_LEN, seed=seed)
+        for req in reqs[:LM_SLOTS]:
+            eng.submit(Request(rid=req.rid, prompt=req.prompt, max_new_tokens=16))
+        wall_s, busy_s = profile_call(torch, "lm_decode", eng.run, host_top=12)
+        log("lm_decode", decode_steps=eng.decode_steps,
+            wall_ms_per_step=f"{wall_s / eng.decode_steps * 1e3:.2f}",
+            device_ms_per_step=f"{busy_s / eng.decode_steps * 1e3:.2f}")
+        del eng
+
+    # the engine's tokens against a replay of each request's prompt and
+    # emitted tokens through decode_step, the requests of each admission
+    # round in the slots the engine gave them (round r: rids 8r .. 8r + 7),
+    # each row at its own position from 0
+    margins, first_logits = [], {}
+    for r0 in range(0, LM_REQUESTS, LM_SLOTS):
+        group = [done[rid] for rid in range(r0, min(r0 + LM_SLOTS, LM_REQUESTS))]
+        streams = [list(map(int, g.prompt)) + g.out_tokens for g in group]
+        caches = lm.init_cache(LM_SLOTS, LM_MAX_LEN)
+        for t in range(max(len(s) for s in streams) - 1):
+            toks = np.zeros((LM_SLOTS, 1), np.int64)
+            active = np.zeros((LM_SLOTS,), bool)
+            for s, st in enumerate(streams):
+                if t < len(st) - 1:
+                    toks[s, 0], active[s] = st[t], True
+            lg, caches = lm.decode_step({"tokens": toks, "pos": np.full(LM_SLOTS, t),
+                                         "active": active}, caches)
+            rows = lg[:, 0, : cfg.vocab_size].cpu().numpy()
+            for s, g in enumerate(group):
+                i = t - (len(g.prompt) - 1)    # the emitted token this step predicts
+                if active[s] and i >= 0:
+                    margins.append(float(rows[s].max() - rows[s][g.out_tokens[i]]))
+                    if i == 0:
+                        first_logits[g.rid] = rows[s]
+        del caches
+    worst = max(margins)
+    assert len(margins) == new_tokens
+    # prefill of each of the first round's prompts against the replay's
+    # logits at its last prompt position.  Every card run has read 0 (the
+    # same bf16 roundings); the limits leave room for other GEMM shapes to
+    # round otherwise: 0.03 on any logit (a few bf16 steps at the logits'
+    # scale, printed), 0.003 on the mean; a wrong position, cache slot or
+    # mask moves them by far more
+    diffs = []
+    for g in (done[rid] for rid in range(min(LM_SLOTS, LM_REQUESTS))):
+        last, _ = lm.prefill({"tokens": g.prompt[None]})
+        diffs.append(np.abs(last[0, 0, : cfg.vocab_size].cpu().numpy() - first_logits[g.rid]))
+    prefill_max = max(float(d.max()) for d in diffs)
+    prefill_mean = float(np.mean([d.mean() for d in diffs]))
+    logit_scale = float(np.mean([np.abs(first_logits[g]).mean() for g in first_logits]))
+    log("lm", replayed_tokens=len(margins), worst_margin=f"{worst:.2e}",
+        prefill_vs_replay_max=f"{prefill_max:.3e}", prefill_vs_replay_mean=f"{prefill_mean:.3e}",
+        mean_abs_logit=f"{logit_scale:.3f}")
+    assert worst <= 1e-3, worst
+    assert prefill_max <= 0.03 and prefill_mean <= 0.003, (prefill_max, prefill_mean)
+    log("lm", cell_s=f"{time.perf_counter() - t_cell:.1f}")
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
     return cells
 
 

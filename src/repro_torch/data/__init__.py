@@ -1,9 +1,6 @@
-"""repro_torch.data — the kNN data of the launcher (``PointCloud``).
+"""repro_torch.data — seeded data (counterpart of ``repro.data``): the LM
+stack's ``TokenPipeline`` and the kNN launcher's ``PointCloud``."""
 
-Counterpart of ``repro.data``; its ``TokenPipeline`` (the LM stack's) is
-ROADMAP Queue 1 item 20.
-"""
+from repro_torch.data.pipeline import PointCloud, TokenPipeline
 
-from repro_torch.data.pipeline import PointCloud
-
-__all__ = ["PointCloud"]
+__all__ = ["TokenPipeline", "PointCloud"]

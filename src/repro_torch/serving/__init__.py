@@ -1,11 +1,13 @@
-"""repro_torch.serving — online kNN serving on the port.
+"""repro_torch.serving — online serving on the port.
 
 ``KNNServer`` (``knn_server.py``) fronts a ``streaming`` or ``dynamic``
 ``KNNIndex``: admission queue, rung-shaped micro-batches, SLA-aware batch
-close, typed errors.  The reference's ``ServeEngine`` and ``KNNLM`` (the LM
-stack) are ROADMAP Queue 1 item 20.
+close, typed errors.  ``ServeEngine`` (``engine.py``) decodes requests with
+continuous batching over a ``LanguageModel``; ``KNNLM`` (``knnlm.py``)
+interpolates its next-token distribution with a buffer-k-d-tree datastore.
 """
 
+from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.knn_server import (
     DEFAULT_DEADLINE_MS,
     Cancelled,
@@ -16,8 +18,12 @@ from repro_torch.serving.knn_server import (
     ServingError,
     Ticket,
 )
+from repro_torch.serving.knnlm import KNNLM
 
 __all__ = [
+    "ServeEngine",
+    "Request",
+    "KNNLM",
     "KNNServer",
     "Ticket",
     "ServingError",

@@ -777,3 +777,33 @@ def test_multi_device_engines_on_four_slots_of_the_card(engine):
     else:
         assert np.array_equal(res.dists, one.dists) and np.array_equal(res.idx, one.idx)
     assert four.resident_bytes() > 0 and len(four._state.slot_seconds) == 4
+
+
+@pytest.mark.cuda
+def test_knnlm_datastore_queries_launch_the_narrow_kernel():
+    """A smoke-size kNN-LM on the card: the datastore (8192 keys of the
+    projected hidden states, d = 16) goes on the LM's device, its queries
+    launch the narrow leaf-scan kernel and are exact against knn_brute,
+    and the interpolated rows sum to 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+    from repro_torch.serving import KNNLM
+
+    dev = _device()
+    lm = LanguageModel(get_config("qwen15_0_5b", smoke=True))
+    assert lm.device == dev
+    knn = KNNLM(lm, proj_dim=16, k=10)
+    corpus = np.random.default_rng(0).integers(
+        0, lm.cfg.vocab_size, size=(64, 129)).astype(np.int32)
+    knn.build_datastore(corpus)
+    assert knn.index.spec.devices == (dev,) and knn.index.plan.engine == "chunked"
+    keys = knn.embed_contexts(corpus[:, :-1])
+    knn_scan.reset_launches()
+    dd, di = knn.index.query(keys[:512], k=10)
+    variants = dict(knn_scan.leaf_scan_units.launches_by_variant)
+    assert variants and all(v.startswith("narrow<") for v in variants), variants
+    bd, _ = knn_brute(keys[:512], keys, 10, device=dev)
+    np.testing.assert_allclose(dd, bd, **TOL)
+    p = knn.next_token_probs(corpus[:8, :32])
+    assert p.shape == (8, lm.cfg.vocab_size) and (p >= 0).all()
+    np.testing.assert_allclose(p.sum(1), 1.0, rtol=1e-3)
