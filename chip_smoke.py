@@ -11,7 +11,8 @@
     python3 chip_smoke.py --serve-shift 0    # the serve cell's 8192 / 2048 / 1024 requests
     python3 chip_smoke.py --multi-shift 0    # the multi cell at n = 2**24, m = 2**20
     python3 chip_smoke.py --shift 4 --multi-shift 0 --profile multi   # its engines profiled
-    python3 chip_smoke.py --lm-shift 2       # the lm cell's corpus and queries / 4
+    python3 chip_smoke.py --lm-shift 0       # the lm cell's corpus at 2**20 pairs
+    python3 chip_smoke.py --profile train    # one train step of the train cell profiled
 
 Phases, each printing its own lines:
 
@@ -130,7 +131,7 @@ Phases, each printing its own lines:
  20. multi    (after wide) the paper's multi-device querying on
               devices=(cuda:0,) * 4 (and on every card where there are more):
               main's mixture at n / 2**multi_shift points and m / 2**multi_shift
-              queries (--multi-shift, default 3: n = 2**21, m = 2**17); no
+              queries (--multi-shift, default 4: n = 2**20, m = 2**16); no
               spec (the plan must be forest: a tree per slot over n / 4
               points, each slot's round one CUDA graph), then sharded (the
               paper's query chunks, one chunked tree per slot) and ring
@@ -140,27 +141,47 @@ Phases, each printing its own lines:
               variant (counts set to 0 after the warm; the forest's are its
               graph replays, none eager), 1024 rows against knn_brute
               (fp32_rows_missed = 0), answers equal to chunked's up to ties.
- 21. lm       (last) kNN-LM serving with Qwen1.5-0.5B at full width (24
+ 21. lm       kNN-LM serving with Qwen1.5-0.5B at full width (24
               layers, d_model 1024, vocab 151936; random weights from the
               seed; fp32 parameters, bf16 compute) on cuda:0: a corpus of
               512 >> lm_shift sequences of 2048 tokens (--lm-shift, default
-              0: 2**20 pairs, TokenPipeline) embedded into a KNNLM datastore
+              1: 2**19 pairs, TokenPipeline) embedded into a KNNLM datastore
               (proj_dim 16, k 10, lam 0.25; the plan must be chunked and
-              its queries the narrow kernel); the 2**16 keys of 32 held-out
-              sequences queried, 1024 rows against knn_brute
-              (fp32_rows_missed = 0); next_token_probs on 256 held-out
+              its queries the narrow kernel); the keys of 32 >> lm_shift
+              held-out sequences queried, 1024 rows against knn_brute
+              (fp32_rows_missed = 0); next_token_probs on 256 >> lm_shift held-out
               sequences (rows sum to 1 within 1e-3; at lam = 0, on 16 of
               them, equal to the softmax of prefill's logits within 1e-6); a mutable store
               built on 3/4 of the corpus and extended in 4 batches (plan
               dynamic, exact, save_datastore / load_datastore answering bit
               for bit); serve() over a streaming store of a quarter of the
-              corpus, 64 rows equal to the direct path's (both stores take
+              corpus, 64 >> lm_shift rows equal to the direct path's (both stores take
               the keys the first build embedded); ServeEngine (8
               slots, max_len 2048) decoding 16 requests of 64 greedy tokens
               (tokens/s), every token within 1e-3 of the largest logit of a
               batched replay through decode_step, and prefill of each first
               round's prompt against the replay (bf16: any logit within
               0.03, the mean within 0.003; every card run read 0).
+ 22. train    Qwen1.5-0.5B at full width trained (random weights from the
+              seed, fp32 parameters, bf16 compute, remat "full") on
+              TokenPipeline(151936, 1024, 8): 24 steps of AdamW (lr 3e-3,
+              warmup 5), the mean loss of the last 4 below the first 4's;
+              tokens/s, ms a step, peak memory; a checkpoint at step 16
+              (CheckpointManager: save_s, bytes on disk) restored into a
+              fresh model's template (restore_s), bit for bit; from it one
+              step at grad_accum = 2 against the run's step (loss, grad
+              norm, update), steps 16-24 replayed (losses within 1e-3
+              relative of the run's; bit for bit is printed), and 2 steps
+              twice under use_deterministic_algorithms; two smoke-size fp32
+              steps on the card against the CPU (1e-4).  --profile train:
+              one more step under torch.profiler.
+ 23. families (last) the six other configs at full width (mamba2_370m at
+              its full depth of 48 layers, the others one cycle of their
+              layer pattern): two train steps on 2 x 512 tokens (plus the
+              576-token image prefix; audio frames in place of tokens); a
+              prefill of 512 tokens and 8 decode steps against a forward
+              pass over the 520 tokens, in bf16 (printed) and fp32 (held);
+              ms and peak memory for each.
 
 Phase 3 times the main path's fp32 instance at k = 10 + FP32_OVERFETCH
 (the k the fp32 main path runs) beside k = 10, k = 18 and k = 10 +
@@ -187,6 +208,7 @@ here imports jax or the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -201,6 +223,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet; at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12   # dense bf16 tensor-core peak (the train cell's bound)
 FP32_FLOPS = 67e12
 
 # (W, TQ, L_pad, d, d_pad, k): the reference kernel sweep
@@ -238,6 +261,24 @@ LM_PROBS = 256       # held-out sequences through next_token_probs, >> --lm-shif
 LM_SERVE = 64        # rows served through KNNServer, >> --lm-shift
 LM_REQUESTS, LM_SLOTS, LM_MAX_LEN, LM_NEW_TOKENS = 16, 8, 2048, 64   # decode
 TOL = dict(rtol=1e-5, atol=1e-5)
+TRAIN_ARCH = "qwen15_0_5b"   # the train cell's model, at full width
+TRAIN_SEQ, TRAIN_BATCH = 1024, 8   # TokenPipeline(151936, 1024, 8): 8192 tokens a step
+TRAIN_STEPS, TRAIN_SAVE_AT, TRAIN_DET_STEPS = 24, 16, 2
+TRAIN_LR, TRAIN_WARMUP = 3e-3, 5
+TRAIN_REPLAY_RTOL = 1e-3     # the replay's losses against the run's, relative
+# grad_accum = 2 against 1 on one batch (bf16 compute): loss and grad norm
+# relative, and the parameters' update, ||P_ga2 - P_ga1|| / ||P_ga1 - P_16||
+TRAIN_GA_LOSS_RTOL, TRAIN_GA_GNORM_RTOL, TRAIN_GA_UPDATE_RTOL = 1e-2, 1e-1, 0.1
+FAMILY_ARCHS = ("olmoe_1b_7b", "moonshot_v1_16b_a3b", "mamba2_370m", "recurrentgemma_9b",
+                "llava_next_mistral_7b", "hubert_xlarge")
+FAMILY_FULL_DEPTH = "mamba2_370m"   # the others run one cycle of their layer pattern
+FAMILY_BATCH, FAMILY_SEQ, FAMILY_DECODE = 2, 512, 8
+# decode against a forward pass over the same tokens, computing in fp32, in
+# units of max(1, mean |logit|): any logit, and the mean.  In bf16 the
+# distance is printed, not held: mamba2's 48 random layers amplify bf16
+# roundings to the logits' own scale (the reference's bf16 prefill against
+# its forward, which only moves the chunk boundaries: 3.19 on any logit)
+FAMILY_F32_MAX, FAMILY_F32_MEAN = 0.1, 0.01
 
 
 def log(phase: str, **fields) -> None:
@@ -813,11 +854,14 @@ def profile_query(torch, phase, index, queries, host_top: int = 0) -> None:
     profile_call(torch, phase, lambda: index.query(queries, 10), host_top)
 
 
-def profile_call(torch, phase, fn, host_top: int = 0) -> None:
+def profile_call(torch, phase, fn, host_top: int = 0, op_top: int = 0) -> None:
     """Call ``fn`` under torch.profiler: device time by kernel name and the
-    device's idle share of the call's wall time; with ``host_top``, also
-    the host's self time in all and its ``host_top`` largest ops (torch ops
-    and CUDA runtime calls, every thread's).  Returns (wall_s, busy_s)."""
+    device's idle share of the call's wall time; with ``op_top``, the
+    ``op_top`` torch ops whose kernels took the most device time (children
+    included: ``aten::copy_`` under ``aten::to`` counts for both); with
+    ``host_top``, also the host's self time in all and its ``host_top``
+    largest ops (torch ops and CUDA runtime calls, every thread's).
+    Returns (wall_s, busy_s)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -837,6 +881,13 @@ def profile_call(torch, phase, fn, host_top: int = 0) -> None:
     for e in events[:15]:
         print(f"[{phase}]   device {e.self_device_time_total / 1e3:10.1f} ms "
               f"{e.count:8d}x {e.key[:90]}", flush=True)
+    if op_top:   # the host ops whose kernels took the device's time
+        ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")]
+        ops.sort(key=lambda e: e.device_time_total, reverse=True)
+        for e in ops[:op_top]:
+            print(f"[{phase}]   op {e.device_time_total / 1e3:10.1f} ms {e.count:8d}x "
+                  f"{e.key[:90]}", flush=True)
     if host_top:
         host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
         log(phase, host_self_s=f"{sum(e.self_cpu_time_total for e in host) / 1e6:.3f}")
@@ -938,27 +989,32 @@ def main(argv=None) -> int:
                          "256 and 128; at 4 the burst no longer fills the 1024-row "
                          "bucket, its zero pad rows retire last and the cell takes "
                          "longer)")
-    ap.add_argument("--multi-shift", type=int, default=3,
+    ap.add_argument("--multi-shift", type=int, default=4,
                     help="run the multi cell (forest, sharded and ring on four slots "
                          "of the card, chunked on one) on n / 2**multi_shift points and "
-                         "m / 2**multi_shift queries (default 3: n = 2**21, m = 2**17, "
+                         "m / 2**multi_shift queries (default 4: n = 2**20, m = 2**16, "
                          "which keeps the whole script within its time limit with the "
-                         "lm cell; 2: n = 2**22 as the paper's multi-device findings "
-                         "were measured; 0: n = 2**24, m = 2**20)")
-    ap.add_argument("--lm-shift", type=int, default=0,
+                         "lm, train and families cells; 2: n = 2**22 as the paper's "
+                         "multi-device findings were measured; 0: n = 2**24, m = 2**20)")
+    ap.add_argument("--lm-shift", type=int, default=1,
                     help="divide the lm cell's corpus (512 sequences of 2048 tokens: "
                          "2**20 pairs) and query counts (32, 256 and 64 held-out "
-                         "sequences) by 2**lm_shift (default 0)")
+                         "sequences) by 2**lm_shift (default 1, which keeps the whole "
+                         "script within its time limit with the train and families "
+                         "cells; 0: 2**20 pairs)")
     ap.add_argument("--profile", nargs="?", const="main,ooc", default="",
                     help="also run these cells' query once under torch.profiler "
                          "(comma-separated, of main, ooc, quant, quant_ooc, jit, "
-                         "host, multi, lm (one embedding pass and a decode run); "
-                         "no value: main,ooc)")
+                         "host, multi, lm (one embedding pass and a decode run), "
+                         "train (one train step); no value: main,ooc)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # cuBLAS reads this at its first call: the train cell's deterministic
+    # replays need it (use_deterministic_algorithms)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.api import IndexSpec, estimate_slab_bytes
@@ -977,6 +1033,7 @@ def main(argv=None) -> int:
 
     phase_env(torch)
     phase_build()
+    profiled = set(filter(None, args.profile.split(",")))
     scan, codes, wide, lm_scan = phase_kernel(torch, dev, args.seed)
     phase_facade(torch, dev, args.seed)
 
@@ -985,7 +1042,6 @@ def main(argv=None) -> int:
     (n, d), m = points.shape, queries.shape[0]
     log("main", n=n, m=m, d=d, k=10, data_s=f"{time.perf_counter() - t0:.3f}")
 
-    profiled = set(filter(None, args.profile.split(",")))
     cells = {}
     index, res, launches, build_s = run_query(
         torch, "main", points, queries, None, 1024, dev, "main" in profiled)
@@ -1087,6 +1143,8 @@ def main(argv=None) -> int:
     cells.update(run_multi(torch, dev, args.seed, args.shift + args.multi_shift,
                            "multi" in profiled))
     cells.update(run_lm(torch, dev, args.seed, args.shift + args.lm_shift, "lm" in profiled))
+    run_train(torch, dev, args.seed, "train" in profiled)
+    run_families(torch, dev, args.seed)
 
     def entry(name, kind, code, head_key, cell, timed, width=None):
         """The JSON line's entry for the ``kind`` kernel ("narrow" or
@@ -1860,6 +1918,355 @@ def run_lm(torch, dev, seed: int, shift: int, profile: bool = False) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return cells
+
+
+def train_config():
+    """The train cell's model: Qwen1.5-0.5B at full width (remat "full")."""
+    from repro_torch.configs import get_config
+
+    return get_config(TRAIN_ARCH)
+
+
+def family_config(arch: str):
+    """The families phase's model: ``arch`` at full width, mamba2_370m at full
+    depth, the others one cycle of their layer pattern."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg if arch == FAMILY_FULL_DEPTH else cfg.replace(n_layers=cfg.group_size())
+
+
+def _param_drift(torch, a: dict, b: dict, base: dict = None, skip=("b_k",)) -> float:
+    """||a - b|| / ||b - base|| over two state dicts (the norms over every
+    tensor; ``base`` None: ||a - b|| / ||b||).  The attention key bias is
+    left out: its gradient is 0 in exact arithmetic, so AdamW steps it by
+    the sign of rounding noise."""
+    num = den = 0.0
+    for k, v in b.items():
+        if k.rsplit(".", 1)[-1] in skip:
+            continue
+        num += float((a[k].float() - v.float()).square().sum())
+        ref = v.float() if base is None else v.float() - base[k].float()
+        den += float(ref.square().sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def run_train(torch, dev, seed: int, profile: bool = False) -> None:
+    """The train cell: Qwen1.5-0.5B at full width (random weights from
+    ``seed``, fp32 parameters, bf16 compute, remat "full") trained on
+    ``TokenPipeline(151936, 1024, 8)`` (8 x 1024 tokens a step, lr 3e-3,
+    warmup 5) for 24 steps, checkpointed at step 16 and restored once into
+    a fresh model's template (bit for bit against the live state); from
+    the restored state: one step with grad_accum = 2 against the run's
+    ga = 1 step, steps 16-24 replayed (losses against the run's), and two
+    steps twice under ``torch.use_deterministic_algorithms(warn_only)``
+    (the ops it warns of listed); last two smoke-size fp32 steps on the
+    card against the same steps on the CPU.  With ``profile``, one more
+    step under torch.profiler."""
+    import tempfile
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import LanguageModel
+    from repro_torch.training import CheckpointManager, Hyper, adamw_init, build_train_step
+    from repro_torch.training.checkpoint import _flatten
+
+    cfg = train_config()
+    h = Hyper(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_cell = time.perf_counter()
+    lm = LanguageModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    opt = adamw_init(dict(lm.named_parameters()))
+    n_params = sum(p.numel() for p in lm.parameters())
+    log("train", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, params=n_params, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+        remat=cfg.remat, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+        lr=TRAIN_LR, warmup=TRAIN_WARMUP)
+
+    def run(model, o, t0, t1, ga=1):
+        """Steps t0..t1-1: [(loss, seconds, metrics)], each step waited for."""
+        fn = build_train_step(model, dataclasses.replace(h, grad_accum=ga))
+        out = []
+        for t in range(t0, t1):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            m = fn(o, pipe.global_batch_at(t), t)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            out.append((loss, time.perf_counter() - s, m))
+        return out
+
+    def state(model, o):
+        return {"params": model.state_dict(), "opt": o}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = CheckpointManager(tmp, keep=1)
+        first = run(lm, opt, 0, TRAIN_SAVE_AT)
+        t0 = time.perf_counter()
+        ck.save(TRAIN_SAVE_AT, state(lm, opt), extra={"data_step": TRAIN_SAVE_AT}, block=True)
+        save_s = time.perf_counter() - t0
+        nbytes = ck.nbytes()
+        fresh = LanguageModel(cfg, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(seed + 1))
+        template = state(fresh, adamw_init(dict(fresh.named_parameters())))
+        t0 = time.perf_counter()
+        restored, man = ck.restore(template, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        live, got = _flatten(state(lm, opt)), _flatten(restored)
+        assert set(live) == set(got) and man["extra"]["data_step"] == TRAIN_SAVE_AT
+        bitwise = all(torch.equal(live[k], got[k]) for k in live)
+        assert bitwise, "the restored state differs from the saved one"
+        first += run(lm, opt, TRAIN_SAVE_AT, TRAIN_SAVE_AT + 1)
+        after_ga1 = {k: v.clone() for k, v in lm.state_dict().items()}
+        first += run(lm, opt, TRAIN_SAVE_AT + 1, TRAIN_STEPS)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [x[0] for x in first]
+        steady = sorted(x[1] for i, x in enumerate(first) if i)   # step 0 warms up
+        step_s = steady[len(steady) // 2]
+        # operations from the shapes: 2 per weight and token in the bf16
+        # products (the tied embedding is the unembedding's), 4 L S H dh per
+        # token in the fp32 attention scores and values (the full square the
+        # port computes); forward, its recompute under remat and the
+        # backward's two: 4 forwards a step
+        mm = sum(p.numel() for n, p in lm.named_parameters() if p.dim() >= 2
+                 and (cfg.tie_embeddings or n != "embed.embedding"))
+        gemm = 4 * 2 * mm * tokens
+        attn = 4 * 4 * cfg.n_layers * TRAIN_SEQ * cfg.n_heads * cfg.d_head * tokens
+        bound_ms = (gemm / BF16_FLOPS + attn / FP32_FLOPS) * 1e3
+        log("train", tokens_per_step=tokens, first_loss=f"{losses[0]:.4f}",
+            last_loss=f"{losses[-1]:.4f}",
+            losses=",".join(f"{x:.4f}" for x in losses),
+            first_step_s=f"{first[0][1]:.3f}", ms_per_step=f"{step_s * 1e3:.1f}",
+            tokens_per_s=f"{tokens / step_s:.0f}",
+            tflop_per_step=f"{(gemm + attn) / 1e12:.2f}",
+            achieved_tflop_s=f"{(gemm + attn) / step_s / 1e12:.1f}",
+            bound_ms=f"{bound_ms:.1f}",
+            grad_norm_last=f"{float(first[-1][2]['grad_norm']):.4f}",
+            peak_mem_gb=f"{peak_gb:.3f}")
+        head, tail = np.mean(losses[:4]), np.mean(losses[-4:])
+        assert np.isfinite(losses).all() and tail < head, (head, tail)
+        log("train", checkpoint_step=TRAIN_SAVE_AT, save_s=f"{save_s:.3f}",
+            bytes_on_disk=nbytes, restore_s=f"{restore_s:.3f}",
+            restored_bit_for_bit=bitwise, mean_loss_first4=f"{head:.4f}",
+            mean_loss_last4=f"{tail:.4f}")
+        if profile:   # one more step (its data step, past the schedule's end)
+            fn = build_train_step(lm, h)
+            batch = pipe.global_batch_at(TRAIN_STEPS)
+            profile_call(torch, "train_profile",
+                         lambda: float(fn(opt, batch, TRAIN_STEPS)["loss"]), host_top=12,
+                         op_top=20)
+        del lm, opt, live
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def from_checkpoint():
+            """``fresh`` at the restored parameters, and a copy of the
+            restored optimizer state (the step updates it in place)."""
+            fresh.load_state_dict(restored["params"])
+            return {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                        else v.clone()) for k, v in restored["opt"].items()}
+
+        # one step from the checkpoint with grad_accum = 2 (rows j::2) against
+        # the run's ga = 1 step on the same batch
+        (loss2, _, m2), = run(fresh, from_checkpoint(), TRAIN_SAVE_AT, TRAIN_SAVE_AT + 1, ga=2)
+        ref = first[TRAIN_SAVE_AT]
+        ga_loss = abs(loss2 - ref[0]) / ref[0]
+        ga_gnorm = abs(float(m2["grad_norm"]) - float(ref[2]["grad_norm"])) / float(
+            ref[2]["grad_norm"])
+        ga_drift = _param_drift(torch, fresh.state_dict(), after_ga1, restored["params"])
+        log("train", grad_accum=2, loss=f"{loss2:.6f}", ga1_loss=f"{ref[0]:.6f}",
+            loss_rel_diff=f"{ga_loss:.2e}", grad_norm_rel_diff=f"{ga_gnorm:.2e}",
+            update_rel_diff=f"{ga_drift:.2e}")
+        assert ga_loss <= TRAIN_GA_LOSS_RTOL and ga_gnorm <= TRAIN_GA_GNORM_RTOL, (
+            ga_loss, ga_gnorm)
+        assert ga_drift <= TRAIN_GA_UPDATE_RTOL, ga_drift
+        del after_ga1
+
+        # the replay: steps 16-24 in a fresh model from the checkpoint
+        replay = run(fresh, from_checkpoint(), TRAIN_SAVE_AT, TRAIN_STEPS)
+        diffs = [abs(a[0] - b[0]) / b[0] for a, b in zip(replay, first[TRAIN_SAVE_AT:])]
+        exact = all(a[0] == b[0] for a, b in zip(replay, first[TRAIN_SAVE_AT:]))
+        log("train", replay_steps=len(replay), replay_losses_bit_for_bit=exact,
+            replay_max_rel_diff=f"{max(diffs):.2e}",
+            replay_losses=",".join(f"{x[0]:.6f}" for x in replay))
+        assert max(diffs) <= TRAIN_REPLAY_RTOL, diffs
+
+        # two steps from the checkpoint twice under deterministic algorithms
+        det, caught = [], []
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                for _ in range(2):
+                    det.append([x[0] for x in run(fresh, from_checkpoint(), TRAIN_SAVE_AT,
+                                                  TRAIN_SAVE_AT + TRAIN_DET_STEPS)])
+            caught = sorted({str(x.message).split(".")[0][:120] for x in w
+                             if "deterministic" in str(x.message)})
+        finally:
+            torch.use_deterministic_algorithms(False)
+        log("train", deterministic_replays_equal=det[0] == det[1],
+            deterministic_equal_to_run=det[0] == losses[TRAIN_SAVE_AT:
+                                                        TRAIN_SAVE_AT + TRAIN_DET_STEPS],
+            nondeterministic_ops=len(caught))
+        for msg in caught:
+            print(f"[train]   nondeterministic: {msg}", flush=True)
+    del fresh, template, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a smoke-size fp32 step on the card against the CPU
+    cpu = torch.device("cpu")
+    scfg = get_config(TRAIN_ARCH, smoke=True).replace(dtype="float32")
+    models = {cpu: LanguageModel(scfg, device=cpu, generator=torch.Generator().manual_seed(seed))}
+    models[dev] = LanguageModel(scfg, device=dev)
+    models[dev].load_state_dict(models[cpu].state_dict())
+    spipe = TokenPipeline(scfg.vocab_size, 64, 4, seed=seed)
+    metrics = {}
+    for d, model in models.items():
+        fn = build_train_step(model, Hyper(lr=1e-2, warmup_steps=1, total_steps=4))
+        o = adamw_init(dict(model.named_parameters()))
+        metrics[d] = [fn(o, spipe.global_batch_at(t), t) for t in range(2)]
+    worst = max(abs(float(a[k]) - float(b[k])) / max(abs(float(b[k])), 1e-30)
+                for ma, mb in zip(metrics[dev], metrics[cpu]) for a, b in [(ma, mb)]
+                for k in ("loss", "grad_norm"))
+    drift = _param_drift(torch, {k: v.cpu() for k, v in models[dev].state_dict().items()},
+                         models[cpu].state_dict())
+    log("train", smoke_fp32_steps=2, card_vs_cpu_metric_rel_diff=f"{worst:.2e}",
+        card_vs_cpu_param_rel_diff=f"{drift:.2e}")
+    assert worst <= 1e-4 and drift <= 1e-4, (worst, drift)
+    log("train", cell_s=f"{time.perf_counter() - t_cell:.1f}")
+
+
+def _family_batch(cfg, rng, s: int, labels: bool = True) -> dict:
+    b = {}
+    if cfg.frontend != "audio":
+        b["tokens"] = rng.integers(0, cfg.vocab_size, (FAMILY_BATCH, s)).astype(np.int64)
+    if cfg.frontend == "vision":
+        b["frontend_feats"] = rng.normal(
+            size=(FAMILY_BATCH, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    if cfg.frontend == "audio":
+        b["frontend_feats"] = rng.normal(
+            size=(FAMILY_BATCH, s, cfg.frontend_dim)).astype(np.float32)
+    if labels:
+        b["labels"] = rng.integers(0, cfg.vocab_size, (FAMILY_BATCH, s)).astype(np.int64)
+    return b
+
+
+def _decode_vs_forward(torch, lm, batch, prefix: int):
+    """A prefill of the first FAMILY_SEQ tokens (after ``prefix`` frontend
+    positions) and FAMILY_DECODE decode steps, each step's logits against a
+    forward pass over all the tokens: (max |diff|, mean |diff|, mean
+    |logit|, prefill seconds, seconds a decode step)."""
+    from repro_torch.models.transformer import grow_cache
+
+    cfg = lm.cfg
+    with torch.no_grad():
+        full, _ = lm(batch)
+    full = full[:, :, : cfg.vocab_size].float()
+    pre = dict(batch, tokens=batch["tokens"][:, :FAMILY_SEQ])
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    last, caches = lm.prefill(pre)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - s
+    caches = grow_cache(caches, cfg, prefix + FAMILY_SEQ + FAMILY_DECODE)
+    errs = [(last[:, 0, : cfg.vocab_size] - full[:, prefix + FAMILY_SEQ - 1]).abs()]
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    for i in range(FAMILY_DECODE):
+        p = prefix + FAMILY_SEQ + i
+        lg, caches = lm.decode_step(
+            {"tokens": batch["tokens"][:, FAMILY_SEQ + i: FAMILY_SEQ + i + 1],
+             "pos": np.full(FAMILY_BATCH, p)}, caches)
+        errs.append((lg[:, 0, : cfg.vocab_size] - full[:, p]).abs())
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - s) / FAMILY_DECODE
+    return (max(float(e.max()) for e in errs), float(np.mean([float(e.mean()) for e in errs])),
+            float(full.abs().mean()), prefill_s, decode_s)
+
+
+def run_families(torch, dev, seed: int) -> None:
+    """The families phase: each of the six configs the lm and train cells
+    do not run, at full width (``family_config``: mamba2_370m at full depth,
+    the others one cycle of their pattern), random weights from ``seed``:
+    two train steps on 2 x 512 tokens (llava_next_mistral_7b also takes its
+    576-token image prefix, hubert_xlarge 512 frames in place of tokens),
+    the second timed; where the config decodes, a prefill of 512 tokens and
+    8 decode steps, each step's logits against a forward pass over the same
+    520 tokens, in bf16 (printed) and in fp32 (held: ``FAMILY_F32_*``); the
+    MoE configs with the capacity raised to n_experts / top_k for this
+    check (capacity drops depend on how many tokens are routed together).
+    Prints ms and peak memory for each."""
+    from repro_torch.models import LanguageModel
+    from repro_torch.training import Hyper, adamw_init, build_train_step
+
+    t_phase = time.perf_counter()
+    for arch in FAMILY_ARCHS:
+        cfg = family_config(arch)
+        rng = np.random.default_rng(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_arch = time.perf_counter()
+        lm = LanguageModel(cfg, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+        opt = adamw_init(dict(lm.named_parameters()))
+        fn = build_train_step(lm, Hyper(lr=1e-3, warmup_steps=0, total_steps=10))
+        losses, secs = [], []
+        for t in range(2):
+            batch = _family_batch(cfg, rng, FAMILY_SEQ)
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            m = fn(opt, batch, t)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - s)
+        assert np.isfinite(losses).all(), losses
+        fields = dict(arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
+                      d_model=cfg.d_model, params=sum(p.numel() for p in lm.parameters()),
+                      tokens=FAMILY_BATCH * FAMILY_SEQ, train_ms=f"{secs[1] * 1e3:.1f}",
+                      first_step_ms=f"{secs[0] * 1e3:.1f}",
+                      loss=",".join(f"{x:.4f}" for x in losses))
+        if cfg.n_experts:
+            fields.update(moe_drop=f"{float(m['moe_drop']):.4f}",
+                          moe_load_balance=f"{float(m['moe_load_balance']):.4f}")
+        del opt, fn, m
+        peak_train = torch.cuda.max_memory_allocated() / 1e9
+        if cfg.supports_decode():
+            prefix = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+            batch = _family_batch(cfg, rng, FAMILY_SEQ + FAMILY_DECODE, labels=False)
+            for dt in ("bfloat16", "float32"):
+                # the same weights (fp32 parameters), computing in dt
+                lm.cfg = cfg.replace(dtype=dt)
+                if cfg.n_experts:
+                    lm.cfg = lm.cfg.replace(moe_capacity_factor=cfg.n_experts / cfg.moe_top_k)
+                worst, mean, scale, prefill_s, decode_s = _decode_vs_forward(
+                    torch, lm, batch, prefix)
+                tag = "" if dt == "bfloat16" else "_f32"
+                if not tag:
+                    fields.update(prefill_ms=f"{prefill_s * 1e3:.1f}",
+                                  decode_ms_per_step=f"{decode_s * 1e3:.2f}",
+                                  mean_abs_logit=f"{scale:.3f}")
+                fields[f"decode_vs_forward_max{tag}"] = f"{worst:.3e}"
+                fields[f"decode_vs_forward_mean{tag}"] = f"{mean:.3e}"
+                assert np.isfinite(worst), (dt, worst)
+                if tag:
+                    unit = max(1.0, scale)
+                    assert worst <= FAMILY_F32_MAX * unit and mean <= FAMILY_F32_MEAN * unit, (
+                        worst, mean)
+            lm.cfg = cfg
+        fields.update(peak_mem_gb=f"{peak_train:.3f}",
+                      decode_peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+                      seconds=f"{time.perf_counter() - t_arch:.1f}")
+        log("families", **fields)
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("families", phase_s=f"{time.perf_counter() - t_phase:.1f}")
 
 
 def run_mutable(torch, dev, seed: int, shift: int):

@@ -1,13 +1,20 @@
-"""repro_torch.models — the dense decoder stack (counterpart of ``repro.models``).
+"""repro_torch.models — the model stack (counterpart of ``repro.models``).
 
-``LanguageModel`` runs the mixers ``global`` / ``local`` and the MLPs
-``dense`` / ``none`` for inference; the MoE, SSM and RG-LRU families and
-the vision / audio frontends raise ``NotPorted`` (ROADMAP Queue 1 item 20's
-remainder).  ``params_from_reference`` loads a ``repro`` parameter pytree.
+``LanguageModel`` runs every family of the ten configs on one device: the
+attention mixers ``global`` / ``local``, ``rglru`` and ``ssm``, the MLPs
+``dense`` / ``moe`` / ``none``, and the vision / audio frontend stubs; it
+trains (``repro_torch.training``) and serves (``repro_torch.serving``).
+``params_from_reference`` loads a ``repro`` parameter pytree,
+``opt_state_from_reference`` its optimizer state, and
+``read_reference_checkpoint`` a checkpoint directory ``repro`` wrote.
 """
 
-from repro_torch.models.convert import params_from_reference
-from repro_torch.models.layers import NotPorted
+from repro_torch.models.convert import (
+    opt_state_from_reference,
+    params_from_reference,
+    read_reference_checkpoint,
+)
 from repro_torch.models.model import LanguageModel
 
-__all__ = ["LanguageModel", "NotPorted", "params_from_reference"]
+__all__ = ["LanguageModel", "params_from_reference", "opt_state_from_reference",
+           "read_reference_checkpoint"]

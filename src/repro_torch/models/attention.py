@@ -80,8 +80,12 @@ def attn_scale(cfg) -> float:
 
 
 def _softcap_(s: torch.Tensor, cap: float) -> torch.Tensor:
-    """tanh(s / cap) * cap, in place (s is a fresh fp32 score tile)."""
+    """tanh(s / cap) * cap, in place (s is a fresh fp32 score tile) unless
+    autograd records it: tanh's backward reads its output, which the
+    multiply would overwrite."""
     if cap:
+        if s.requires_grad:
+            return torch.tanh(s / cap) * cap
         s.div_(cap).tanh_().mul_(cap)
     return s
 

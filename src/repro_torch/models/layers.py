@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
-    "NotPorted", "ParamSet", "cdtype", "pdtype", "winit", "init_norm",
+    "ParamSet", "cdtype", "pdtype", "winit", "init_norm",
     "apply_norm", "rope_frequencies", "apply_rope", "init_mlp", "apply_mlp",
     "padded_vocab", "init_embed", "apply_embed", "apply_unembed",
     "softmax_xent",
@@ -32,10 +32,6 @@ __all__ = [
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
-
-
-class NotPorted(NotImplementedError):
-    """A model family or frontend the port does not run yet."""
 
 
 class ParamSet(nn.Module):

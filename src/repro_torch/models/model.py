@@ -7,7 +7,9 @@ here; ``models/convert.py::params_from_reference`` turns a reference
 parameter pytree into a state dict for ``load_state_dict``.
 
 Batch contract (the reference's):
-  train/prefill: {"tokens": int[B, S]} (+ "labels": int[B, S] for the loss;
+  train/prefill: {"tokens": int[B, S]} (+ "frontend_feats": float[B, T_f,
+                  frontend_dim] for the vision prefix, or in place of the
+                  tokens for audio; + "labels": int[B, S] for the loss,
                   -1 = masked)
   decode:        {"tokens": int[B, 1], "pos": int scalar or int[B],
                   "active": bool[B] (optional)} + the caches
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import transformer
+from repro_torch.models.frontends import apply_frontend, init_frontend
 from repro_torch.models.layers import (
     apply_embed,
     apply_norm,
@@ -44,8 +47,9 @@ def default_device() -> torch.device:
 
 
 class LanguageModel(nn.Module):
-    """A dense decoder bound to a config, its weights drawn from ``generator``
-    (normal / sqrt(fan_in), as the reference draws them; default seed 0)."""
+    """A model of any of the ten configs, its weights drawn from
+    ``generator`` (normal / sqrt(fan_in), as the reference draws them;
+    default seed 0)."""
 
     def __init__(self, cfg, *, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -54,6 +58,7 @@ class LanguageModel(nn.Module):
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         self.embed = init_embed(cfg, generator, device)
+        self.frontend = init_frontend(cfg, generator, device)
         self.blocks = transformer.init_stack(cfg, generator, device)
         self.final_norm = init_norm(cfg, cfg.d_model, device)
 
@@ -75,7 +80,18 @@ class LanguageModel(nn.Module):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     def _embed(self, batch) -> torch.Tensor:
-        return apply_embed(self.embed, self._tensor(batch["tokens"]), self.cfg)
+        cfg = self.cfg
+        if cfg.frontend == "audio":
+            # the encoder's input is the (stub) frame-embedding stream itself
+            return apply_frontend(self.frontend,
+                                  self._tensor(batch["frontend_feats"], torch.float32), cfg)
+        x = apply_embed(self.embed, self._tensor(batch["tokens"]), cfg)
+        if cfg.frontend == "vision":
+            # anyres image tiles form a prefix before the text tokens
+            feats = apply_frontend(self.frontend,
+                                   self._tensor(batch["frontend_feats"], torch.float32), cfg)
+            x = torch.cat([feats, x], dim=1)
+        return x
 
     # -- forward ------------------------------------------------------------
     def hidden_states(self, tokens) -> torch.Tensor:
@@ -94,9 +110,21 @@ class LanguageModel(nn.Module):
         return self.unembed(apply_norm(self.final_norm, x, self.cfg)), aux
 
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        logits, _ = self.forward(batch)
-        ce = softmax_xent(logits, self._tensor(batch["labels"]), self.cfg.vocab_size)
-        return ce, {"ce": ce, "loss": ce}
+        """(mean CE + the MoE terms, metrics: ce, loss and the moe_* terms)."""
+        cfg = self.cfg
+        logits, aux = self.forward(batch)
+        labels = self._tensor(batch["labels"])
+        if cfg.frontend == "vision":
+            # the image-prefix positions carry no LM loss
+            labels = torch.cat([labels.new_full((labels.shape[0], cfg.frontend_tokens), -1),
+                                labels], dim=1)
+        ce = softmax_xent(logits, labels, cfg.vocab_size)
+        total, metrics = ce, {"ce": ce}
+        if cfg.n_experts:
+            total = total + cfg.moe_aux_coef * aux[0] + cfg.moe_z_coef * aux[1]
+            metrics.update(moe_load_balance=aux[0], moe_z=aux[1], moe_drop=aux[2])
+        metrics["loss"] = total
+        return total, metrics
 
     @torch.no_grad()
     def prefill(self, batch) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
@@ -118,6 +146,7 @@ class LanguageModel(nn.Module):
             raise ValueError(f"{cfg.name} is encoder-only; no decode step")
         active = batch.get("active")
         x, caches = transformer.stack_decode(
-            self.blocks, self._embed(batch), caches, self._tensor(batch["pos"]), cfg,
+            self.blocks, apply_embed(self.embed, self._tensor(batch["tokens"]), cfg), caches,
+            self._tensor(batch["pos"]), cfg,
             active=None if active is None else self._tensor(active, torch.bool))
         return self.unembed(apply_norm(self.final_norm, x, cfg)), caches

@@ -423,10 +423,17 @@ def _run(code: str, **env):
                           timeout=120)
 
 
+PORT_MODULES = ("persist.format", "training.optimizer", "training.step",
+                "training.checkpoint", "models.moe", "models.ssm", "models.rglru",
+                "models.frontends", "launch.train", "examples.train_lm",
+                "examples.knnlm_serve")
+
+
 def test_port_imports_neither_jax_nor_repro():
-    """Every module of ``repro_torch`` imported (``pkgutil.walk_packages``)
-    brings in neither jax nor ``repro``; ``chip_smoke.py`` names neither in
-    any import."""
+    """Every module of ``repro_torch`` imported (``pkgutil.walk_packages``,
+    the training, family and example modules among them) brings in neither
+    jax, ``repro`` nor ``ml_dtypes``; ``chip_smoke.py`` names none of them
+    in any import."""
     import ast
 
     out = _run("""
@@ -437,21 +444,22 @@ def test_port_imports_neither_jax_nor_repro():
         for name in names:
             importlib.import_module(name)
         bad = [m for m in sys.modules
-               if m == "jax" or m.startswith(("jax.", "jaxlib"))
+               if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
                or m == "repro" or m.startswith("repro.")]
-        print("MODULES", len(names), "persist" in " ".join(names))
+        print("MODULES", len(names), sorted(names))
         print("BAD", bad)
     """)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    assert "True" in out.stdout, out.stdout
+    for name in PORT_MODULES:
+        assert f"'repro_torch.{name}'" in out.stdout, name
     tree = ast.parse(open(os.path.join(SRC, "..", "chip_smoke.py")).read())
     for node in ast.walk(tree):
         if isinstance(node, (ast.Import, ast.ImportFrom)):
             names = [a.name for a in node.names] if isinstance(node, ast.Import) else [
                 node.module or ""]
             for name in names:
-                assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), name
+                assert name.split(".")[0] not in ("jax", "jaxlib", "repro", "ml_dtypes"), name
 
 
 def _load_script(path):

@@ -1,4 +1,6 @@
-"""repro_torch's CUDA leaf-scan kernel against its plain version, on the card.
+"""repro_torch's CUDA leaf-scan kernel against its plain version, on the card,
+and the engines, the LM, the train step, checkpoints and the model families
+on the card against the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without one (it is
 decided inside each test, never at import).  The file imports neither jax
@@ -807,3 +809,122 @@ def test_knnlm_datastore_queries_launch_the_narrow_kernel():
     p = knn.next_token_probs(corpus[:8, :32])
     assert p.shape == (8, lm.cfg.vocab_size) and (p >= 0).all()
     np.testing.assert_allclose(p.sum(1), 1.0, rtol=1e-3)
+
+
+def _smoke_pair(arch, dev):
+    """The fp32 smoke model of ``arch`` on the CPU and the same weights on
+    ``dev``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    cpu = LanguageModel(cfg, device=torch.device("cpu"),
+                        generator=torch.Generator().manual_seed(0))
+    card = LanguageModel(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _rel(a, b):
+    return float((a.float().cpu() - b.float().cpu()).norm() / max(float(b.float().norm()),
+                                                                   1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen15_0_5b", "olmoe_1b_7b", "mamba2_370m",
+                                  "recurrentgemma_9b"])
+def test_train_step_on_card_matches_the_cpu(arch):
+    """Three fp32 train steps of a smoke model (remat "full") on the card
+    and on the CPU from the same weights and batches: losses and grad norms
+    within 1e-4 relative, each parameter tensor within 1e-4 of its norm
+    (the attention key bias aside: its gradient is 0 in exact arithmetic)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.training import Hyper, adamw_init, build_train_step
+
+    dev = _device()
+    models = _smoke_pair(arch, dev)
+    pipe = TokenPipeline(models[0].cfg.vocab_size, 32, 4, seed=1)
+    h = Hyper(lr=1e-2, warmup_steps=1, total_steps=6)
+    metrics = []
+    for lm in models:
+        step = build_train_step(lm, h)
+        opt = adamw_init(dict(lm.named_parameters()))
+        assert opt["m"]["embed.embedding"].device == lm.device
+        metrics.append([step(opt, pipe.global_batch_at(t), t) for t in range(3)])
+    for mc, mg in zip(*metrics):
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(mg[k]), float(mc[k]), rtol=1e-4, err_msg=k)
+    card = models[1].state_dict()
+    for k, v in models[0].state_dict().items():
+        if not k.endswith("b_k"):
+            assert _rel(card[k], v) <= 1e-4, k
+
+
+@pytest.mark.cuda
+def test_checkpoint_saved_on_cpu_restores_onto_the_card(tmp_path):
+    """A CPU run's checkpoint (params and AdamW state) restored onto the
+    card bit for bit, and the next step there matches the CPU's next step."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.training import CheckpointManager, Hyper, adamw_init, build_train_step
+
+    dev = _device()
+    cpu, card = _smoke_pair("qwen15_0_5b", dev)
+    pipe = TokenPipeline(cpu.cfg.vocab_size, 32, 4, seed=2)
+    h = Hyper(lr=1e-2, warmup_steps=1, total_steps=6)
+    step = build_train_step(cpu, h)
+    opt = adamw_init(dict(cpu.named_parameters()))
+    for t in range(2):
+        step(opt, pipe.global_batch_at(t), t)
+    ck = CheckpointManager(str(tmp_path))
+    ck.save(2, {"params": cpu.state_dict(), "opt": opt}, extra={"data_step": 2}, block=True)
+    card_opt = adamw_init(dict(card.named_parameters()))
+    got, man = ck.restore({"params": card.state_dict(), "opt": card_opt})
+    assert got["opt"]["m"]["embed.embedding"].device == dev and man["extra"]["data_step"] == 2
+    for k, v in cpu.state_dict().items():
+        assert torch.equal(got["params"][k].cpu(), v), k
+        assert torch.equal(got["opt"]["v"][k].cpu(), opt["v"][k]), k
+    card.load_state_dict(got["params"])
+    mg = build_train_step(card, h)(got["opt"], pipe.global_batch_at(2), 2)
+    mc = step(opt, pipe.global_batch_at(2), 2)
+    np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "moonshot_v1_16b_a3b", "mamba2_370m",
+                                  "recurrentgemma_9b", "llava_next_mistral_7b"])
+def test_family_decode_on_card_matches_the_cpu(arch):
+    """Each family that decodes, fp32 smoke size: prefill of 20 tokens (and
+    the image prefix) then 6 decode steps with per-row positions and one
+    row inactive on odd steps, on the card against the CPU (logits and
+    states within 1e-4)."""
+    from repro_torch.models.transformer import grow_cache
+
+    dev = _device()
+    models = _smoke_pair(arch, dev)
+    cfg = models[0].cfg
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 20))}
+    if cfg.frontend == "vision":
+        batch["frontend_feats"] = rng.normal(size=(2, cfg.frontend_tokens, cfg.frontend_dim)
+                                             ).astype(np.float32)
+    nxt = rng.integers(0, cfg.vocab_size, (6, 2))
+    outs, states = [], []
+    for lm in models:
+        logits, caches = lm.prefill(batch)
+        caches = grow_cache(caches, cfg, 40)
+        pos = np.full(2, 20 + (cfg.frontend_tokens if cfg.frontend == "vision" else 0))
+        seq = [logits]
+        for t in range(6):
+            active = np.array([True, t % 2 == 0])
+            lg, caches = lm.decode_step({"tokens": nxt[t][:, None], "pos": pos,
+                                         "active": active}, caches)
+            seq.append(lg)
+            pos = pos + active
+        outs.append(seq)
+        states.append(caches)
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-4, atol=1e-4)
+    for a, b in zip(*states):
+        for name in a:
+            np.testing.assert_allclose(b[name].float().cpu().numpy(), a[name].float().numpy(),
+                                       rtol=1e-4, atol=1e-4, err_msg=name)

@@ -34,7 +34,7 @@ from repro.models.layers import softmax_xent as ref_xent
 from repro.models.model import LanguageModel as RefLM
 from repro.models.transformer import grow_cache as ref_grow
 from repro_torch.configs import ARCH_IDS, get_config, registry
-from repro_torch.models import LanguageModel, NotPorted, params_from_reference
+from repro_torch.models import LanguageModel, params_from_reference
 from repro_torch.models import attention
 from repro_torch.models.convert import reference_layers
 from repro_torch.models.layers import softmax_xent
@@ -349,23 +349,8 @@ def test_loss_matches_reference(arch):
 
 
 # --------------------------------------------------------------------------
-# what the port does not run yet
+# devices and init
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "moonshot_v1_16b_a3b", "mamba2_370m",
-                                  "recurrentgemma_9b", "llava_next_mistral_7b",
-                                  "hubert_xlarge"])
-def test_other_families_raise_not_ported(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotPorted, match="item 20"):
-        LanguageModel(cfg, device=CPU)
-
-
-def test_frontend_params_raise_not_ported():
-    cfg = get_config("qwen15_0_5b", smoke=True)
-    with pytest.raises(NotPorted, match="item 20"):
-        params_from_reference({"frontend": {"w_proj": np.zeros((2, 2))}}, cfg)
-
-
 def test_default_device_is_the_card():
     """No device: cuda:0, and a clear error where no card is visible."""
     cfg = get_config("qwen15_0_5b", smoke=True)
