@@ -182,6 +182,24 @@ Phases, each printing its own lines:
               prefill of 512 tokens and 8 decode steps against a forward
               pass over the 520 tokens, in bf16 (printed) and fp32 (held);
               ms and peak memory for each.
+ 24. dist     (last) the language model across device slots of cuda:0
+              (``ShardedLM``, ``make_sharded_train_step``): Qwen1.5-0.5B at
+              full width cut to 4 layers on a 2 x 2 mesh, 6 steps of 8 x
+              1024 tokens in each param_mode (tp, zero1, mp_zero1, fsdp)
+              against a one-slot run from the same weights (ms a step,
+              loss and grad-norm differences, each slot's resident bytes
+              of parameters / gradients / optimizer state against the
+              specs' count, peak memory); one fp32 fsdp step against one
+              slot; tp with int8 error-feedback compression against the
+              exact all-reduce; fsdp saved at step 3 and restored on
+              2 x 2 (bit for bit against the uninterrupted run), 1 x 4 and
+              one slot; moonshot_v1_16b_a3b (one layer) with its 64
+              experts over 4 slots: a train step and a forward on 2 x 512
+              tokens against one slot, drops; qwen2_7b (2 layers, bf16
+              parameters, seq_shard) over 4 slots (kv heads split) and 8
+              (heads padded 28 -> 32, the cache split along its length):
+              prefill of 2 x 512 tokens and 16 greedy decode steps against
+              one slot.
 
 Phase 3 times the main path's fp32 instance at k = 10 + FP32_OVERFETCH
 (the k the fp32 main path runs) beside k = 10, k = 18 and k = 10 +
@@ -279,6 +297,23 @@ FAMILY_BATCH, FAMILY_SEQ, FAMILY_DECODE = 2, 512, 8
 # roundings to the logits' own scale (the reference's bf16 prefill against
 # its forward, which only moves the chunk boundaries: 3.19 on any logit)
 FAMILY_F32_MAX, FAMILY_F32_MEAN = 0.1, 0.01
+# the dist phase (the LM across device slots, four or eight slots of cuda:0)
+DIST_TRAIN_LAYERS = 4          # Qwen1.5-0.5B at full width, cut to 4 layers
+DIST_STEPS, DIST_SAVE_AT = 6, 3
+DIST_MODES = ("tp", "zero1", "mp_zero1", "fsdp")
+DIST_EP_ARCH, DIST_GQA_ARCH = "moonshot_v1_16b_a3b", "qwen2_7b"
+DIST_GQA_LAYERS, DIST_SEQ, DIST_BATCH, DIST_DECODE = 2, 512, 2, 16
+# against one slot, bf16 compute: the losses (relative) and grad norms
+# (relative) of the 6 steps, as the train cell's grad_accum check holds
+# them; the compressed run's losses against the exact run's; the slots'
+# resident bytes against the specs' count (1 %); the fp32 fsdp step
+# against one slot: loss (relative) and the parameters' update
+# (||P_mesh - P_one|| / ||P_one - P_0||); decode logits in units of
+# max(1, mean |logit|) (bf16; a wrong head, shard or cache slot moves them
+# by several units)
+DIST_LOSS_RTOL, DIST_GNORM_RTOL, DIST_EF_RTOL, DIST_BYTES_RTOL = 1e-2, 1e-1, 5e-2, 1e-2
+DIST_F32_LOSS_RTOL, DIST_F32_UPDATE_RTOL = 1e-4, 1e-2
+DIST_LOGIT_MAX = 0.5
 
 
 def log(phase: str, **fields) -> None:
@@ -1145,6 +1180,7 @@ def main(argv=None) -> int:
     cells.update(run_lm(torch, dev, args.seed, args.shift + args.lm_shift, "lm" in profiled))
     run_train(torch, dev, args.seed, "train" in profiled)
     run_families(torch, dev, args.seed)
+    run_dist(torch, dev, args.seed)
 
     def entry(name, kind, code, head_key, cell, timed, width=None):
         """The JSON line's entry for the ``kind`` kernel ("narrow" or
@@ -2267,6 +2303,394 @@ def run_families(torch, dev, seed: int) -> None:
         gc.collect()
         torch.cuda.empty_cache()
     log("families", phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
+def dist_train_config():
+    """The dist phase's training model: Qwen1.5-0.5B at full width, 4 layers."""
+    from repro_torch.configs import get_config
+
+    return get_config(TRAIN_ARCH).replace(n_layers=DIST_TRAIN_LAYERS)
+
+
+def dist_ep_config():
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DIST_EP_ARCH)
+    return cfg.replace(n_layers=cfg.group_size())
+
+
+def dist_gqa_config():
+    """qwen2_7b at full width, 2 layers, bf16 parameters as the reference
+    serves it (``launch/dryrun.py:159``), the residual stream split along
+    the sequence."""
+    from repro_torch.configs import get_config
+
+    return get_config(DIST_GQA_ARCH).replace(n_layers=DIST_GQA_LAYERS,
+                                             param_dtype="bfloat16", seq_shard=True)
+
+
+def _synced(torch, fn):
+    """(fn(), its seconds), the device waited for on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _median_ms(secs) -> float:
+    """The median of steps 2.. (the first warms up), in ms."""
+    rest = sorted(secs[1:])
+    return rest[len(rest) // 2] * 1e3
+
+
+def _update_drift(torch, a: dict, b: dict, base: dict) -> float:
+    """||a - b|| / ||b - base|| over every tensor, the key bias left out
+    (its gradient is 0 in exact arithmetic, rounding noise in practice)."""
+    return _param_drift(torch, {k: v.float().cpu() for k, v in a.items()},
+                        {k: v.float().cpu() for k, v in b.items()},
+                        {k: v.float().cpu() for k, v in base.items()})
+
+
+def run_dist(torch, dev, seed: int) -> None:
+    """The dist phase: the language model across slots of one card (see
+    the module docstring, phase 24).  Every check raises."""
+    import tempfile
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed.mesh import SlotMesh
+    from repro_torch.models import LanguageModel
+    from repro_torch.training import (
+        CheckpointManager,
+        Hyper,
+        adamw_init,
+        build_train_step,
+        gather_train_state,
+        make_sharded_train_step,
+        place_train_state,
+        sharded_adamw_init,
+        train_state_specs,
+        train_state_template,
+    )
+    from repro_torch.training.step import slot_state_bytes, spec_slot_bytes
+
+    t_phase = time.perf_counter()
+    cfg = dist_train_config()
+    h = Hyper(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    batches = [pipe.global_batch_at(t) for t in range(DIST_STEPS)]
+
+    def mesh_of(dp, tp):
+        return SlotMesh((dev,) * (dp * tp), {"data": dp, "model": tp})
+
+    def fresh(c, tp):
+        return LanguageModel(c, tp=tp, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(seed))
+
+    def one_slot(c, n_steps):
+        """(losses, grad norms, seconds, final state dict) of the local step."""
+        lm = fresh(c, 1)
+        opt = adamw_init(dict(lm.named_parameters()), master_fp32=c.param_dtype == "bfloat16")
+        fn = build_train_step(lm, h)
+        out = [_synced(torch, lambda t=t: fn(opt, batches[t], t)) for t in range(n_steps)]
+        sd = {k: v.detach().clone() for k, v in lm.state_dict().items()}
+        del lm, opt, fn
+        return ([float(m["loss"]) for m, _ in out], [float(m["grad_norm"]) for m, _ in out],
+                [s for _, s in out], sd)
+
+    def sharded(c, mesh, mode, comp=None):
+        lm = fresh(c, mesh.shape["model"])
+        step, specs = make_sharded_train_step(lm, h, mesh, param_mode=mode,
+                                              grad_compression=comp)
+        slm = lm.shard(specs["dist"], specs["params"])
+        opt = sharded_adamw_init(slm, specs["opt"], error_feedback=bool(comp))
+        del lm
+        return step, specs, slm, opt
+
+    def steps(step, slm, opt, t0, t1):
+        out = [_synced(torch, lambda t=t: step(slm, opt, batches[t], t)) for t in range(t0, t1)]
+        return [float(m["loss"]) for m, _ in out], [float(m["grad_norm"]) for m, _ in out], \
+            [s for _, s in out]
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    log("dist", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+        kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=DIST_STEPS, slots="cuda:0 x 4", mesh="data 2 x model 2",
+        threads="one (every slot issued in order from the main thread)")
+    base = {}
+    for dtype in ("float32", "bfloat16"):   # the one-slot runs: fp32 and bf16 parameters
+        torch.cuda.reset_peak_memory_stats()
+        base[dtype] = one_slot(cfg.replace(param_dtype=dtype), DIST_STEPS)
+        log("dist", run="one_slot", param_dtype=dtype, ms_per_step=f"{_median_ms(base[dtype][2]):.1f}",
+            losses=",".join(f"{x:.4f}" for x in base[dtype][0]),
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        free()
+    start = {k: v.cpu() for k, v in fresh(cfg, 2).state_dict().items()}
+    free()
+    mesh = mesh_of(2, 2)
+    fsdp_final = None
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = CheckpointManager(tmp, keep=1)
+        for mode in DIST_MODES:
+            c = cfg.replace(param_dtype="bfloat16") if mode == "mp_zero1" else cfg
+            ref_losses, ref_gn, ref_secs, _ = base[c.param_dtype]
+            torch.cuda.reset_peak_memory_stats()
+            step, specs, slm, opt = sharded(c, mesh, mode)
+            losses, gns, secs = steps(step, slm, opt, 0, DIST_SAVE_AT if mode == "fsdp"
+                                      else DIST_STEPS)
+            if mode == "fsdp":   # the checkpoint of the elastic restore, mid-run
+                saved = gather_train_state(slm, opt, specs["opt"])
+                _, save_s = _synced(torch, lambda: ck.save(DIST_SAVE_AT, saved, block=True))
+                more = steps(step, slm, opt, DIST_SAVE_AT, DIST_STEPS)
+                losses, gns, secs = losses + more[0], gns + more[1], secs + more[2]
+                fsdp_final = (losses, {k: v.cpu() for k, v in slm.state_dict().items()})
+                del saved
+            if mode == "tp":
+                tp_losses = losses
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            dtypes = {n: p.dtype for n, p in slm.params[0].items()}
+            held, want = slot_state_bytes(slm, opt), spec_slot_bytes(specs, dtypes, mesh)
+            loss_diff = max(abs(a - b) / b for a, b in zip(losses, ref_losses))
+            gn_diff = max(abs(a - b) / b for a, b in zip(gns, ref_gn))
+            log("dist", mode=mode, param_dtype=c.param_dtype,
+                ms_per_step=f"{_median_ms(secs):.1f}", one_slot_ms=f"{_median_ms(ref_secs):.1f}",
+                losses=",".join(f"{x:.4f}" for x in losses),
+                max_loss_rel_diff=f"{loss_diff:.2e}", max_grad_norm_rel_diff=f"{gn_diff:.2e}",
+                slot_param_bytes=held[0]["params"], spec_param_bytes=want[0]["params"],
+                slot_grad_bytes=step.grad_bytes[0], spec_grad_bytes=want[0]["grads"],
+                slot_opt_bytes=held[0]["opt"], spec_opt_bytes=want[0]["opt"],
+                full_fp32_param_bytes=sum(v.numel() * 4 for v in start.values()),
+                peak_mem_gb=f"{peak:.3f}")
+            for s in range(mesh.size):
+                for k, got in (("params", held[s]["params"]), ("opt", held[s]["opt"]),
+                               ("grads", step.grad_bytes[s])):
+                    assert abs(got - want[s][k]) <= DIST_BYTES_RTOL * want[s][k], (mode, s, k)
+            assert np.isfinite(losses).all(), (mode, losses)
+            assert loss_diff <= DIST_LOSS_RTOL and gn_diff <= DIST_GNORM_RTOL, (
+                mode, loss_diff, gn_diff)
+            del step, specs, slm, opt
+            free()
+
+        # the same start in fp32: one fsdp step against one slot
+        c32 = cfg.replace(dtype="float32")
+        lm1 = fresh(c32, 1)
+        fn = build_train_step(lm1, h)
+        opt1 = adamw_init(dict(lm1.named_parameters()))
+        m1 = fn(opt1, batches[0], 0)
+        one32 = {k: v.detach().cpu() for k, v in lm1.state_dict().items()}
+        del lm1, fn, opt1
+        free()
+        step, specs, slm, opt = sharded(c32, mesh, "fsdp")
+        m2 = step(slm, opt, batches[0], 0)
+        f32_loss = abs(float(m2["loss"]) - float(m1["loss"])) / float(m1["loss"])
+        f32_drift = _update_drift(torch, slm.state_dict(), one32, start)
+        log("dist", run="fsdp_fp32_step", loss=f"{float(m2['loss']):.6f}",
+            one_slot_loss=f"{float(m1['loss']):.6f}", loss_rel_diff=f"{f32_loss:.2e}",
+            update_rel_diff=f"{f32_drift:.2e}")
+        assert f32_loss <= DIST_F32_LOSS_RTOL and f32_drift <= DIST_F32_UPDATE_RTOL, (
+            f32_loss, f32_drift)
+        del step, specs, slm, opt, one32
+        free()
+
+        # int8 error-feedback compression of the data-parallel all-reduce
+        step, specs, slm, opt = sharded(cfg, mesh, "tp", comp="ef_int8")
+        ef_losses, _, ef_secs = steps(step, slm, opt, 0, DIST_STEPS)
+        ef_diff = max(abs(a - b) / b for a, b in zip(ef_losses, tp_losses))
+        log("dist", run="tp_ef_int8", losses=",".join(f"{x:.4f}" for x in ef_losses),
+            exact_losses=",".join(f"{x:.4f}" for x in tp_losses),
+            max_loss_rel_diff=f"{ef_diff:.2e}", ms_per_step=f"{_median_ms(ef_secs):.1f}")
+        assert np.isfinite(ef_losses).all() and ef_diff <= DIST_EF_RTOL, ef_diff
+        del step, specs, slm, opt
+        free()
+
+        # elastic restore of the fsdp checkpoint (step 3): on 2 x 2 fsdp, on
+        # 1 x 4 tp and on one slot, 3 more steps each
+        uninterrupted, final = fsdp_final
+        for (dp, tp), mode in (((2, 2), "fsdp"), ((1, 4), "tp"), ((1, 1), "tp")):
+            m2 = mesh_of(dp, tp)
+            lm = LanguageModel(cfg, tp=tp, device="meta")
+            step, specs = make_sharded_train_step(lm, h, m2, param_mode=mode)
+            (tree, _), restore_s = _synced(torch, lambda: ck.restore(
+                train_state_template(specs), shardings=(m2, train_state_specs(specs))))
+            slm, opt = place_train_state(cfg, specs["dist"], tree, specs)
+            del tree
+            losses = steps(step, slm, opt, DIST_SAVE_AT, DIST_STEPS)[0]
+            got = slm.state_dict()
+            bitwise = losses == uninterrupted[DIST_SAVE_AT:] and all(
+                torch.equal(v.cpu(), final[k]) for k, v in got.items())
+            diff = max(abs(a - b) / b for a, b in zip(losses, uninterrupted[DIST_SAVE_AT:]))
+            drift = _update_drift(torch, got, final, start)
+            log("dist", run="restore", saved_on="2x2 fsdp", restored_on=f"{dp}x{tp} {mode}",
+                save_s=f"{save_s:.3f}", restore_s=f"{restore_s:.3f}",
+                bytes_on_disk=ck.nbytes(), losses=",".join(f"{x:.6f}" for x in losses),
+                bit_for_bit=bitwise, max_loss_rel_diff=f"{diff:.2e}",
+                param_update_rel_diff=f"{drift:.2e}")
+            if (dp, tp) == (2, 2):
+                assert bitwise, "the same-mesh resume differs from the uninterrupted run"
+            assert diff <= DIST_LOSS_RTOL, (dp, tp, diff)
+            del step, specs, slm, opt, got
+            free()
+    del start, final, base
+    free()
+
+    run_dist_ep(torch, dev, seed, mesh_of)
+    run_dist_gqa(torch, dev, seed, mesh_of)
+    log("dist", phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
+def run_dist_ep(torch, dev, seed: int, mesh_of) -> None:
+    """Expert parallelism: moonshot_v1_16b_a3b (one layer, full width: 64
+    experts, top-6, 2 shared) with its experts over 4 model slots against
+    one slot, on 2 x 512 tokens: a forward in fp32 (the drops held equal:
+    in bf16 the partial sums' roundings can flip a near-tied routing
+    choice) and a train step and a forward in bf16 (timed)."""
+    from repro_torch.models import LanguageModel, ShardedLM
+    from repro_torch.training import (
+        Hyper,
+        adamw_init,
+        build_train_step,
+        make_sharded_train_step,
+        sharded_adamw_init,
+    )
+
+    cfg = dist_ep_config()
+    rng = np.random.default_rng(seed)
+    batch = _family_batch(cfg, rng, DIST_SEQ)
+    h = Hyper(lr=1e-3, warmup_steps=0, total_steps=10)
+    lm = LanguageModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    start = {k: v.detach().to("cpu", copy=True) for k, v in lm.state_dict().items()}
+    one = {}
+    for dt in ("float32", "bfloat16"):
+        lm.cfg = cfg.replace(dtype=dt)
+        with torch.no_grad():
+            (lg, aux), one[dt + "_fwd_s"] = _synced(torch, lambda: lm(batch))
+        one[dt] = (lg[..., : cfg.vocab_size].float().cpu(), float(aux[2]))
+        del lg
+    lm.cfg = cfg
+    opt = adamw_init(dict(lm.named_parameters()))
+    fn = build_train_step(lm, h)
+    m1, step1_s = _synced(torch, lambda: fn(opt, batch, 0))
+    del lm, opt, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = mesh_of(1, 4)
+    step, specs = make_sharded_train_step(LanguageModel(cfg, tp=4, device="meta"), h, mesh,
+                                          param_mode="tp")
+    slm = ShardedLM.place(cfg, specs["dist"], start, specs["params"])
+    del start
+    fields = {}
+    for dt in ("float32", "bfloat16"):
+        slm.cfg = cfg.replace(dtype=dt)
+        with torch.no_grad():
+            (lg, aux), fwd_s = _synced(torch, lambda: slm.forward(batch))
+        lg = lg[..., : cfg.vocab_size].float().cpu()
+        dropped = sum(int(d) for d, _ in slm.moe_counts)
+        routed = sum(int(r) for _, r in slm.moe_counts)
+        ref_lg, ref_drop = one[dt]
+        unit = max(1.0, float(ref_lg.abs().mean()))
+        tag = "_f32" if dt == "float32" else ""
+        fields.update({f"drop_frac{tag}": f"{float(aux[2]):.4f}",
+                       f"one_slot_drop_frac{tag}": f"{ref_drop:.4f}",
+                       f"dropped{tag}": f"{dropped}/{routed}",
+                       f"global_drop_frac{tag}": f"{dropped / routed:.4f}",
+                       f"forward_logit_diff{tag}": f"{float((lg - ref_lg).abs().max()) / unit:.3e}",
+                       f"forward_ms{tag}": f"{fwd_s * 1e3:.1f}",
+                       f"one_slot_forward_ms{tag}": f"{one[dt + '_fwd_s'] * 1e3:.1f}"})
+        if dt == "float32":
+            # data = 1: every expert sees the one slot's tokens and capacity,
+            # so the dropped assignments are the one slot's (the reference's
+            # drop_frac is the mean of the slots' own fractions)
+            assert abs(dropped / routed - ref_drop) <= 1e-6, (dropped, routed, ref_drop)
+            assert float((lg - ref_lg).abs().max()) <= 1e-3 * unit
+        del lg
+    slm.cfg = cfg
+    opt = sharded_adamw_init(slm, specs["opt"])
+    m4, step4_s = _synced(torch, lambda: step(slm, opt, batch, 0))
+    loss_diff = abs(float(m4["loss"]) - float(m1["loss"])) / float(m1["loss"])
+    log("dist", run="expert_parallel", arch=cfg.name, experts=cfg.n_experts,
+        experts_per_slot=cfg.n_experts // 4, top_k=cfg.moe_top_k, mesh="model 4",
+        tokens=FAMILY_BATCH * DIST_SEQ, **fields, loss=f"{float(m4['loss']):.4f}",
+        one_slot_loss=f"{float(m1['loss']):.4f}", loss_rel_diff=f"{loss_diff:.2e}",
+        train_drop_frac=f"{float(m4['moe_drop']):.4f}",
+        one_slot_train_drop_frac=f"{float(m1['moe_drop']):.4f}",
+        train_step_ms=f"{step4_s * 1e3:.1f}", one_slot_train_step_ms=f"{step1_s * 1e3:.1f}",
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    assert loss_diff <= DIST_LOSS_RTOL, loss_diff
+    del slm, opt, step, specs, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_dist_gqa(torch, dev, seed: int, mesh_of) -> None:
+    """GQA, sequence parallelism and decode: qwen2_7b (2 layers, full
+    width, bf16 parameters, seq_shard) on 4 model slots (7 heads and 1 kv
+    head a slot, K / V split by head) and on 8 (heads padded 28 -> 32, K /
+    V replicated, the cache split along its length): a prefill of 2 x 512
+    tokens and 16 greedy decode steps against one slot, both fed the one
+    slot's greedy tokens."""
+    from repro_torch.models import Dist, LanguageModel
+    from repro_torch.models.transformer import grow_cache
+
+    cfg = dist_gqa_config()
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, cfg.vocab_size, (DIST_BATCH, DIST_SEQ)).astype(np.int64)
+    max_len = DIST_SEQ + DIST_DECODE
+    for tp in (4, 8):
+        one = LanguageModel(cfg, tp=tp, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(seed))
+        mesh = mesh_of(1, tp)
+        slm = one.shard(Dist(mesh, ("data",), "model", tp))
+        runs = {}
+        for name, model in (("one", one), ("mesh", slm)):
+            (last, caches), pre_s = _synced(torch, lambda m=model: m.prefill({"tokens": prompt}))
+            caches = (grow_cache(caches, cfg, max_len) if name == "one"
+                      else model.grow_cache(caches, max_len))
+            runs[name] = {"prefill_s": pre_s, "caches": caches, "logits": [last]}
+        toks = runs["one"]["logits"][0][:, -1, : cfg.vocab_size].argmax(-1)
+        secs = {"one": [], "mesh": []}
+        for i in range(DIST_DECODE):
+            step = {"tokens": toks[:, None].cpu().numpy(), "pos": np.int64(DIST_SEQ + i)}
+            for name, model in (("one", one), ("mesh", slm)):
+                (lg, _), sec = _synced(torch, lambda m=model, n=name: m.decode_step(
+                    step, runs[n]["caches"]))
+                runs[name]["logits"].append(lg)
+                secs[name].append(sec)
+            toks = runs["one"]["logits"][-1][:, -1, : cfg.vocab_size].argmax(-1)
+        # each step's logits, in units of max(1, mean |logit|); the greedy
+        # choices: equal, or the mesh's choice within twice that step's
+        # largest difference of the one slot's best (a tie within bf16 noise)
+        diffs, agree, worst_gap = [], 0, 0.0
+        for a, b in zip(runs["mesh"]["logits"], runs["one"]["logits"]):
+            a, b = a[:, -1, : cfg.vocab_size].float(), b[:, -1, : cfg.vocab_size].float()
+            d = float((a - b).abs().max())
+            diffs.append(d / max(1.0, float(b.abs().mean())))
+            pick = a.argmax(-1)
+            agree += int((pick == b.argmax(-1)).sum())
+            gap = float((b.amax(-1) - b.gather(-1, pick[:, None])[:, 0]).max())
+            worst_gap = max(worst_gap, gap)
+            assert gap <= 2 * d, (gap, d)
+        log("dist", run="gqa_decode", arch=cfg.name, layers=cfg.n_layers, mesh=f"model {tp}",
+            heads_padded=slm.n_heads, heads_per_slot=slm.n_heads // tp,
+            kv_split="heads" if slm.kv_split else "cache length",
+            seq_shard=cfg.seq_shard, prompt=f"{DIST_BATCH}x{DIST_SEQ}",
+            prefill_logit_diff=f"{diffs[0]:.3e}",
+            decode_logit_diff_max=f"{max(diffs[1:]):.3e}",
+            decode_logit_diffs=",".join(f"{d:.2e}" for d in diffs[1:]),
+            greedy_agreement=f"{agree}/{DIST_BATCH * (DIST_DECODE + 1)}",
+            worst_greedy_gap=f"{worst_gap:.3e}",
+            prefill_ms=f"{runs['mesh']['prefill_s'] * 1e3:.1f}",
+            one_slot_prefill_ms=f"{runs['one']['prefill_s'] * 1e3:.1f}",
+            decode_ms_per_step=f"{_median_ms(secs['mesh']):.2f}",
+            one_slot_decode_ms_per_step=f"{_median_ms(secs['one']):.2f}",
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        assert max(diffs) <= DIST_LOGIT_MAX, diffs
+        del one, slm, runs
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def run_mutable(torch, dev, seed: int, shift: int):

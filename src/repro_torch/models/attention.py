@@ -26,10 +26,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.layers import ParamSet, apply_rope, cdtype, pdtype, winit
+from repro_torch.models.layers import DATA, MODEL, ParamSet, apply_rope, cdtype, pdtype, winit
 
-__all__ = ["init_attention", "attn_forward", "make_cache", "attn_decode",
-           "attn_scale", "NEG_INF"]
+__all__ = ["heads_padded", "kv_sharded", "init_attention", "attention_specs", "attend",
+           "prefill_cache", "attn_forward", "make_cache", "cache_specs", "attn_decode",
+           "decode_slots", "write_cache", "cache_values", "valid_slots", "attn_scale",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -37,8 +39,26 @@ NEG_INF = -1e30
 # --------------------------------------------------------------------------
 # params
 # --------------------------------------------------------------------------
-def init_attention(cfg, gen: torch.Generator, device) -> ParamSet:
-    d, dh, h, kv = cfg.d_model, cfg.d_head, cfg.n_heads, cfg.n_kv_heads
+def heads_padded(cfg, tp: int) -> int:
+    """The query heads, padded up to a multiple of ``tp`` where ``tp`` does
+    not divide them (``repro/models/attention.py:45``)."""
+    h = cfg.n_heads
+    if tp > 1 and h % tp:
+        return ((h + tp - 1) // tp) * tp
+    return h
+
+
+def kv_sharded(cfg, tp: int) -> bool:
+    """K / V split over the model axis by kv head (else replicated)."""
+    return tp > 1 and cfg.n_kv_heads % tp == 0
+
+
+def init_attention(cfg, gen: torch.Generator, device, tp: int = 1) -> ParamSet:
+    """``heads_padded(cfg, tp)`` query heads; the padded ones (the last
+    heads of each kv group) zeroed in ``w_q`` and ``w_o``, so the function
+    is the unpadded model's."""
+    d, dh, kv = cfg.d_model, cfg.d_head, cfg.n_kv_heads
+    h = heads_padded(cfg, tp)
     dt = pdtype(cfg)
     p = {
         "w_q": winit(gen, (d, h, dh), d, dt, device),
@@ -46,11 +66,26 @@ def init_attention(cfg, gen: torch.Generator, device) -> ParamSet:
         "w_v": winit(gen, (d, kv, dh), d, dt, device),
         "w_o": winit(gen, (h, dh, d), h * dh, dt, device),
     }
+    if h != cfg.n_heads:
+        live = (torch.arange(h, device=device) % (h // kv)) < cfg.n_heads // kv
+        p["w_q"] = p["w_q"] * live[None, :, None].to(dt)
+        p["w_o"] = p["w_o"] * live[:, None, None].to(dt)
     if cfg.attn_bias:
         p["b_q"] = torch.zeros((h, dh), dtype=dt, device=device)
         p["b_k"] = torch.zeros((kv, dh), dtype=dt, device=device)
         p["b_v"] = torch.zeros((kv, dh), dtype=dt, device=device)
     return ParamSet(**p)
+
+
+def attention_specs(cfg, tp: int) -> dict:
+    """Query heads and ``w_o``'s rows split over the model axis; K / V by
+    kv head where ``kv_sharded``, else replicated."""
+    kv = (None, MODEL, None) if kv_sharded(cfg, tp) else (None, None, None)
+    s = {"w_q": (None, MODEL, None), "w_k": kv, "w_v": kv, "w_o": (MODEL, None, None)}
+    if cfg.attn_bias:
+        bkv = (MODEL, None) if kv_sharded(cfg, tp) else (None, None)
+        s.update(b_q=(MODEL, None), b_k=bkv, b_v=bkv)
+    return s
 
 
 def _rms(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -172,31 +207,41 @@ def _attend_full(q, k, v, cfg, *, start: int, causal: bool, window: int) -> torc
 # --------------------------------------------------------------------------
 # public entry points
 # --------------------------------------------------------------------------
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg, *, start: int,
+           causal: bool, window: int) -> torch.Tensor:
+    """q: [B, S, H, dh], k / v: [B, S, KV, dh] (H a multiple of KV) -> the
+    attention output [B, S, H, dh]: one masked softmax up to
+    ``full_attn_threshold`` tokens, blocks with an online softmax above."""
+    if q.shape[1] <= cfg.full_attn_threshold:
+        return _attend_full(q, k, v, cfg, start=start, causal=causal, window=window)
+    return _attend_blocks(q, k, v, cfg, start=start, causal=causal, window=window,
+                          q_chunk=cfg.attn_q_chunk or 2048, kv_chunk=cfg.attn_kv_chunk or 2048)
+
+
+def prefill_cache(k: torch.Tensor, v: torch.Tensor, layer_window: int,
+                  start: int) -> Dict[str, torch.Tensor]:
+    """The decode-layout cache of a prefill's K / V: a window layer keeps
+    its last W positions at slots (start + i) % W (a rolling buffer)."""
+    s_len = k.shape[1]
+    if layer_window and layer_window < s_len:
+        w = layer_window
+        slots = (start + torch.arange(s_len - w, s_len, device=k.device)) % w
+        order = torch.argsort(slots)
+        return {"k": k[:, s_len - w:][:, order], "v": v[:, s_len - w:][:, order]}
+    return {"k": k, "v": v}
+
+
 def attn_forward(p, x: torch.Tensor, cfg, *, layer_window: int, causal: bool,
                  start: int = 0, return_kv: bool = False):
     """Training / prefill attention.  x: [B, S, D] -> [B, S, D] (+ the
     decode-layout KV cache when ``return_kv``, for serving prefill)."""
-    s_len = x.shape[1]
-    positions = start + torch.arange(s_len, device=x.device)
+    positions = start + torch.arange(x.shape[1], device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
-    if s_len <= cfg.full_attn_threshold:
-        out = _attend_full(q, k, v, cfg, start=start, causal=causal, window=layer_window)
-    else:
-        out = _attend_blocks(q, k, v, cfg, start=start, causal=causal,
-                             window=layer_window, q_chunk=cfg.attn_q_chunk or 2048,
-                             kv_chunk=cfg.attn_kv_chunk or 2048)
+    out = attend(q, k, v, cfg, start=start, causal=causal, window=layer_window)
     y = torch.einsum("bshk,hkd->bsd", out, p.w_o.to(cdtype(cfg)))
     if not return_kv:
         return y
-    if layer_window and layer_window < s_len:
-        # rolling cache: the last W positions at slots (start + i) % W
-        w = layer_window
-        slots = (start + torch.arange(s_len - w, s_len, device=x.device)) % w
-        order = torch.argsort(slots)
-        cache = {"k": k[:, s_len - w:][:, order], "v": v[:, s_len - w:][:, order]}
-    else:
-        cache = {"k": k, "v": v}
-    return y, cache
+    return y, prefill_cache(k, v, layer_window, start)
 
 
 def make_cache(cfg, batch: int, max_len: int, layer_window: int, device) -> Dict[str, torch.Tensor]:
@@ -216,6 +261,16 @@ def make_cache(cfg, batch: int, max_len: int, layer_window: int, device) -> Dict
             "v": torch.zeros(shape, dtype=cdtype(cfg), device=device)}
 
 
+def cache_specs(cfg, tp: int) -> Dict[str, tuple]:
+    """The cache's specs (``repro/models/attention.py:261-275``): batch over
+    the data axes; K / V by kv head where ``kv_sharded``, else split along
+    the cache's length over the model axis."""
+    kv_axis = MODEL if kv_sharded(cfg, tp) else None
+    spec = (DATA, None if kv_axis == MODEL else MODEL, kv_axis, None)
+    names = ("k", "v", "k_scale", "v_scale") if cfg.kv_cache_dtype == "int8" else ("k", "v")
+    return {n: spec for n in names}
+
+
 def _quantize_kv(x: torch.Tensor):
     """x: [B, 1, KV, dh] -> (int8 values, bf16 per-(token, head) scales)."""
     xf = x.float()
@@ -224,54 +279,68 @@ def _quantize_kv(x: torch.Tensor):
     return q, scale.to(torch.bfloat16)
 
 
+def decode_slots(pos_b: torch.Tensor, length: int, layer_window: int) -> torch.Tensor:
+    """The cache slot each row's token goes to: pos % length in a rolling
+    window buffer, else min(pos, length - 1)."""
+    return pos_b % length if layer_window else torch.clamp(pos_b, max=length - 1)
+
+
+def write_cache(cache: Dict[str, torch.Tensor], rows: torch.Tensor, slot: torch.Tensor,
+                k_new: torch.Tensor, v_new: torch.Tensor, cfg) -> None:
+    """Write ``rows``' new K / V ([B, 1, KV, dh]) at cache slots ``slot``
+    (one per row of ``rows``), in place; quantized where the cache is int8."""
+    if cfg.kv_cache_dtype == "int8":
+        k_new, ks_new = _quantize_kv(k_new)
+        v_new, vs_new = _quantize_kv(v_new)
+        cache["k_scale"][rows, slot] = ks_new[rows, 0]
+        cache["v_scale"][rows, slot] = vs_new[rows, 0]
+    cache["k"][rows, slot] = k_new[rows, 0]
+    cache["v"][rows, slot] = v_new[rows, 0]
+
+
+def cache_values(cache: Dict[str, torch.Tensor], cfg):
+    """The cache's K / V in the compute dtype (dequantized if int8)."""
+    if cfg.kv_cache_dtype == "int8":
+        dt = cdtype(cfg)
+        return cache["k"].to(dt) * cache["k_scale"].to(dt), cache["v"].to(dt) * cache["v_scale"].to(dt)
+    return cache["k"], cache["v"]
+
+
+def valid_slots(pos_b: torch.Tensor, idx: torch.Tensor, length: int,
+                layer_window: int) -> torch.Tensor:
+    """bool [B, len(idx)]: whether cache slot ``idx`` (of ``length``) holds
+    a position each row may attend to at ``pos_b``."""
+    pb = pos_b[:, None]
+    if layer_window:
+        # rolling buffer: slot i holds the largest p' <= pos with p' % L == i
+        stored = pb - ((pb - idx[None, :]) % length)
+        return (stored >= 0) & (stored > pb - layer_window)
+    return idx[None, :] <= pb
+
+
 def attn_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: torch.Tensor,
                 cfg, *, layer_window: int, active: Optional[torch.Tensor] = None):
     """Single-token decode.  x: [B, 1, D]; pos: an integer scalar (lockstep)
     or [B] (per slot, continuous batching); active: int64[n] the indices of
     the rows whose cache may be written (None: all).  Writes the cache in
-    place and returns (out [B, 1, D], cache)."""
+    place and returns (out [B, 1, D], cache).  The K / V heads are the
+    cache's: a kv-head shard of it with the matching query heads works too."""
     b = x.shape[0]
     pos_b = pos.reshape(-1).expand(b) if pos.dim() == 0 else pos
     q, k_new, v_new = _qkv(p, x, cfg, pos_b[:, None])
-    quantized = cfg.kv_cache_dtype == "int8"
     length = cache["k"].shape[1]
-    slot = pos_b % length if layer_window else torch.clamp(pos_b, max=length - 1)
-    rows = torch.arange(b, device=x.device)
-    if active is not None:
-        rows = active
-        slot = slot[rows]
-    if quantized:
-        k_w, ks_new = _quantize_kv(k_new)
-        v_w, vs_new = _quantize_kv(v_new)
-        cache["k_scale"][rows, slot] = ks_new[rows, 0]
-        cache["v_scale"][rows, slot] = vs_new[rows, 0]
-    else:
-        k_w, v_w = k_new, v_new
-    cache["k"][rows, slot] = k_w[rows, 0]
-    cache["v"][rows, slot] = v_w[rows, 0]
+    slot = decode_slots(pos_b, length, layer_window)
+    rows = torch.arange(b, device=x.device) if active is None else active
+    write_cache(cache, rows, slot[rows], k_new, v_new, cfg)
 
-    dt = cdtype(cfg)
-    kv, dh = cfg.n_kv_heads, cfg.d_head
+    kv, dh = cache["k"].shape[2], cfg.d_head
     h = q.shape[2]
     qg = q.reshape(b, 1, kv, h // kv, dh)
-    if quantized:
-        ck = cache["k"].to(dt) * cache["k_scale"].to(dt)
-        cv = cache["v"].to(dt) * cache["v_scale"].to(dt)
-    else:
-        ck, cv = cache["k"], cache["v"]
+    ck, cv = cache_values(cache, cfg)
     sc = _block_scores(qg, ck, cfg)[..., 0, :]                   # [B,KV,G,T]
-
-    # the position each cache slot holds, per batch row
-    idx = torch.arange(length, device=x.device)
-    pb = pos_b[:, None]
-    if layer_window:
-        # rolling buffer: slot i holds the largest p' <= pos with p' % L == i
-        stored = pb - ((pb - idx[None, :]) % length)
-        valid = (stored >= 0) & (stored > pb - layer_window)
-    else:
-        valid = idx[None, :] <= pb
+    valid = valid_slots(pos_b, torch.arange(length, device=x.device), length, layer_window)
     sc.masked_fill_(~valid[:, None, None, :], NEG_INF)
     pa = torch.softmax(sc, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", pa.to(cv.dtype).float(), cv.float()).to(x.dtype)
-    y = torch.einsum("bshk,hkd->bsd", out.reshape(b, 1, h, dh), p.w_o.to(dt))
+    y = torch.einsum("bshk,hkd->bsd", out.reshape(b, 1, h, dh), p.w_o.to(cdtype(cfg)))
     return y, cache

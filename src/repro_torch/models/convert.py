@@ -20,6 +20,12 @@ count and the optional fp32 master) to the port's
 checkpoint directory the reference's ``CheckpointManager`` wrote (keys are
 its ``/``-joined pytree paths, bf16 leaves stored as uint16) into both, so
 that a run trained under JAX resumes in the port.
+
+Across slots: ``shards_from_reference(params_np, cfg, dist)`` places the
+reference's parameters of ``LanguageModel(cfg, tp=T).init(...)`` (padded
+heads and all) as a ``ShardedLM`` on ``dist``'s mesh by the reference's
+specs, and ``reference_from_shards`` gathers the shards back into the
+reference's pytree of full numpy arrays, equal to its input bit for bit.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from repro_torch.models.layers import pdtype
 from repro_torch.training.checkpoint import CheckpointManager
 
 __all__ = ["params_from_reference", "opt_state_from_reference", "read_reference_checkpoint",
-           "reference_layers"]
+           "reference_layers", "shards_from_reference", "reference_from_shards"]
 
 # leaves the reference keeps in fp32 whatever cfg.param_dtype says
 _FP32_LEAVES = ("router", "A_log", "lam")
@@ -152,3 +158,50 @@ def read_reference_checkpoint(directory: str, cfg, *, step: Optional[int] = None
         tree = _nest({k: _from_stored(z[k], dtypes.get(k)) for k in z.files})
     params = params_from_reference(tree["params"], cfg, device)
     return params, opt_state_from_reference(tree["opt"], cfg, device), manifest
+
+
+def shards_from_reference(params_np, cfg, dist, specs=None):
+    """A ``ShardedLM`` on ``dist``'s mesh holding the reference's
+    parameters (``LanguageModel(cfg, tp=dist.tp).init``'s, as numpy),
+    placed by ``specs`` (default: the reference's own, ``param_specs``)."""
+    from repro_torch.models.model import param_specs
+    from repro_torch.models.sharded import ShardedLM
+
+    full = params_from_reference(params_np, cfg)
+    return ShardedLM.place(cfg, dist, full, specs if specs is not None
+                           else param_specs(cfg, dist.tp))
+
+
+def _nest_layer(flat: Dict[str, np.ndarray]) -> dict:
+    out: dict = {}
+    for key, value in flat.items():
+        node = out
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return out
+
+
+def _stack(trees: List[dict]) -> dict:
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else np.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+
+
+def reference_from_shards(sharded) -> dict:
+    """The reference's parameter pytree (``{"embed", "frontend", "blocks":
+    {"groups": [...], "rest": [...]}, "final_norm"}``, layer groups
+    stacked) of full numpy arrays gathered from a ``ShardedLM``'s shards
+    (bf16 parameters widened to fp32)."""
+    cfg = sharded.cfg
+    flat = {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+            for k, v in sharded.state_dict("cpu").items()}
+    tree = {name: _nest_layer({k[len(name) + 1:]: v for k, v in flat.items()
+                               if k.startswith(name + ".")})
+            for name in ("embed", "frontend", "final_norm")}
+    layers = [_nest_layer({k[len(f"blocks.{i}") + 1:]: v for k, v in flat.items()
+                           if k.startswith(f"blocks.{i}.")}) for i in range(cfg.n_layers)]
+    gs, ng = cfg.group_size(), cfg.n_groups()
+    groups = [_stack([layers[g * gs + li] for g in range(ng)]) for li in range(gs)] if ng else []
+    tree["blocks"] = {"groups": groups, "rest": layers[ng * gs:]}
+    return tree

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.models.layers import ParamSet, cdtype, pdtype, winit
 
-__all__ = ["init_frontend", "apply_frontend"]
+__all__ = ["init_frontend", "frontend_specs", "apply_frontend"]
 
 
 def init_frontend(cfg, gen: torch.Generator, device) -> ParamSet:
@@ -27,6 +27,16 @@ def init_frontend(cfg, gen: torch.Generator, device) -> ParamSet:
         p["tile_pos"] = torch.zeros((cfg.frontend_tokens, cfg.d_model), dtype=pdtype(cfg),
                                     device=device)
     return ParamSet(**p)
+
+
+def frontend_specs(cfg) -> dict:
+    """Replicated."""
+    if cfg.frontend == "none":
+        return {}
+    s = {"w_proj": (None, None)}
+    if cfg.frontend == "vision":
+        s["tile_pos"] = (None, None)
+    return s
 
 
 def apply_frontend(p, feats: torch.Tensor, cfg) -> torch.Tensor:

@@ -3,8 +3,12 @@
 Counterpart of ``repro.models.layers``.  Parameters live in ``ParamSet``
 modules whose attribute names are the reference's dict keys (``w_q``,
 ``scale``, ``embedding`` ...), so a reference parameter pytree maps onto the
-port's state dict name by name (``models/convert.py``).  There is no
-``resolve_specs``: the port has no ``PartitionSpec``.
+port's state dict name by name (``models/convert.py``).
+
+Each ``init_*`` has a ``*_specs`` beside it: the reference's
+``PartitionSpec`` of every parameter as a tuple (``distributed/mesh.py``),
+``MODEL`` the tensor-parallel axis, ``DATA`` a placeholder for the batch
+axes that ``resolve_specs`` replaces once the mesh is known.
 
 Weights are stored in ``cfg.param_dtype`` (fp32 by default) and cast to
 ``cfg.dtype`` (bf16) at use, as in the reference.  Where the reference asks
@@ -24,11 +28,27 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
+    "MODEL", "DATA", "resolve_specs", "norm_specs", "mlp_specs", "embed_specs",
     "ParamSet", "cdtype", "pdtype", "winit", "init_norm",
     "apply_norm", "rope_frequencies", "apply_rope", "init_mlp", "apply_mlp",
     "padded_vocab", "init_embed", "apply_embed", "apply_unembed",
     "softmax_xent",
 ]
+
+MODEL = "model"
+# the batch-sharding axes, ("data",) or ("pod", "data") once the mesh is known
+DATA = "__data__"
+
+
+def resolve_specs(tree, data_axes):
+    """Replace the DATA placeholder in a (nested) dict of specs with the
+    mesh's batch axes (``repro/models/layers.py:30-45``)."""
+    if isinstance(tree, dict):
+        return {k: resolve_specs(v, data_axes) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [resolve_specs(v, data_axes) for v in tree]
+    return tuple(tuple(data_axes) if e == DATA else e for e in tree)
+
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -72,6 +92,10 @@ def init_norm(cfg, d: int, device) -> ParamSet:
         return ParamSet(scale=scale,
                         bias=torch.zeros((d,), dtype=pdtype(cfg), device=device))
     return ParamSet(scale=scale)
+
+
+def norm_specs(cfg) -> dict:
+    return {"scale": (None,), "bias": (None,)} if cfg.norm == "layernorm" else {"scale": (None,)}
 
 
 def apply_norm(p, x: torch.Tensor, cfg, eps: float = 1e-6) -> torch.Tensor:
@@ -147,6 +171,14 @@ def init_mlp(cfg, gen: torch.Generator, device) -> ParamSet:
     return ParamSet(**p)
 
 
+def mlp_specs(cfg) -> dict:
+    """gate / up split over d_ff, down over its rows."""
+    s = {"w_up": (None, MODEL), "w_down": (MODEL, None)}
+    if cfg.mlp_gated:
+        s["w_gate"] = (None, MODEL)
+    return s
+
+
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "silu":
         return F.silu(x)
@@ -180,6 +212,14 @@ def init_embed(cfg, gen: torch.Generator, device) -> ParamSet:
     if not cfg.tie_embeddings:
         p["unembed"] = winit(gen, (d, v), d, dt, device)
     return ParamSet(**p)
+
+
+def embed_specs(cfg) -> dict:
+    """The embedding split over vocabulary rows, the unembedding over columns."""
+    s = {"embedding": (MODEL, None)}
+    if not cfg.tie_embeddings:
+        s["unembed"] = (None, MODEL)
+    return s
 
 
 def apply_embed(p, tokens: torch.Tensor, cfg) -> torch.Tensor:

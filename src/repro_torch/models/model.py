@@ -6,6 +6,13 @@ reference's stateless ``lm.forward(params, batch)`` is ``lm.forward(batch)``
 here; ``models/convert.py::params_from_reference`` turns a reference
 parameter pytree into a state dict for ``load_state_dict``.
 
+``LanguageModel(cfg, tp=T)`` has the reference's ``tp``-padded shapes
+(query heads padded to a multiple of T, the padding zeroed); its
+``param_specs()`` are the reference's PartitionSpecs by state-dict name.
+The reference's ``lm.forward(params, batch, dist)`` is
+``lm.shard(dist).forward(batch)``: a ``models/sharded.py::ShardedLM``
+holding each slot's shards (``device="meta"`` builds the shapes alone).
+
 Batch contract (the reference's):
   train/prefill: {"tokens": int[B, S]} (+ "frontend_feats": float[B, T_f,
                   frontend_dim] for the vision prefix, or in place of the
@@ -25,17 +32,20 @@ import torch
 from torch import nn
 
 from repro_torch.models import transformer
-from repro_torch.models.frontends import apply_frontend, init_frontend
+from repro_torch.models.frontends import apply_frontend, frontend_specs, init_frontend
 from repro_torch.models.layers import (
     apply_embed,
     apply_norm,
     apply_unembed,
+    embed_specs,
     init_embed,
     init_norm,
+    norm_specs,
+    resolve_specs,
     softmax_xent,
 )
 
-__all__ = ["LanguageModel", "default_device"]
+__all__ = ["LanguageModel", "default_device", "param_specs"]
 
 
 def default_device() -> torch.device:
@@ -46,21 +56,51 @@ def default_device() -> torch.device:
     return torch.device("cuda", 0)
 
 
+def param_specs(cfg, tp: int = 1) -> Dict[str, tuple]:
+    """{state-dict name: the reference's spec} of ``LanguageModel(cfg, tp)``
+    (``repro/models/model.py:47``, the stacked group axis dropped)."""
+    parts = {"embed": embed_specs(cfg), "frontend": frontend_specs(cfg)}
+    for i, kind in enumerate(cfg.layer_kinds()):
+        parts[f"blocks.{i}"] = transformer.layer_specs(cfg, kind, tp)
+    parts["final_norm"] = norm_specs(cfg)
+    return {f"{m}.{k}": v for m, d in parts.items() for k, v in d.items()}
+
+
 class LanguageModel(nn.Module):
     """A model of any of the ten configs, its weights drawn from
     ``generator`` (normal / sqrt(fan_in), as the reference draws them;
-    default seed 0)."""
+    default seed 0), with ``heads_padded(cfg, tp)`` query heads."""
 
-    def __init__(self, cfg, *, device=None, generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg, *, tp: int = 1, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         device = torch.device(device) if device is not None else default_device()
-        if generator is None:
+        if generator is None and device.type != "meta":
             generator = torch.Generator(device=device).manual_seed(0)
         self.embed = init_embed(cfg, generator, device)
         self.frontend = init_frontend(cfg, generator, device)
-        self.blocks = transformer.init_stack(cfg, generator, device)
+        self.blocks = transformer.init_stack(cfg, generator, device, tp)
         self.final_norm = init_norm(cfg, cfg.d_model, device)
+
+    def param_specs(self) -> Dict[str, tuple]:
+        """{state-dict name: spec}, in ``named_parameters`` order."""
+        specs = param_specs(self.cfg, self.tp)
+        return {k: specs[k] for k, _ in self.named_parameters()}
+
+    def sharded_specs(self, specs, data_axes) -> Dict[str, tuple]:
+        return resolve_specs(specs, data_axes)
+
+    def shard(self, dist, specs: Optional[Dict[str, tuple]] = None):
+        """This model's weights placed on ``dist``'s mesh by ``specs``
+        (default: ``param_specs()``): a ``ShardedLM``."""
+        from repro_torch.models.sharded import ShardedLM
+
+        if dist.tp != self.tp:
+            raise ValueError(f"the model was built for tp={self.tp}, the mesh has {dist.tp}")
+        return ShardedLM.place(self.cfg, dist, self.state_dict(),
+                               specs if specs is not None else self.param_specs())
 
     def bind(self, params) -> "LanguageModel":
         """Load ``params`` (a state dict, e.g. ``params_from_reference``'s)

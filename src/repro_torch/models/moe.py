@@ -1,7 +1,8 @@
-"""Top-k routed MoE FFN on one device.
+"""Top-k routed MoE FFN.
 
-Counterpart of ``repro.models.moe`` without its ``shard_map`` branch (the
-experts over a model axis are ROADMAP Queue 1 item 21).  Tokens are ranked
+Counterpart of ``repro.models.moe``; its ``shard_map`` branch (experts
+over the model axis) is ``models/sharded.py``'s, which calls
+``_dispatch_compute_combine`` with each slot's expert range.  Tokens are ranked
 into fixed-capacity per-expert queues (the buffer k-d tree's batching by
 destination, applied to routing): an exclusive cumsum over destination
 one-hots in token-major order gives each (token, slot) its place in its
@@ -21,9 +22,9 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.layers import ParamSet, _act, cdtype, pdtype, winit
+from repro_torch.models.layers import MODEL, ParamSet, _act, cdtype, pdtype, winit
 
-__all__ = ["init_moe", "moe_mlp", "MoEAux"]
+__all__ = ["init_moe", "moe_specs", "moe_mlp", "MoEAux"]
 
 
 class MoEAux(NamedTuple):
@@ -48,6 +49,16 @@ def init_moe(cfg, gen: torch.Generator, device) -> ParamSet:
     return ParamSet(**p)
 
 
+def moe_specs(cfg) -> dict:
+    """Experts split over the model axis (E / tp each), the router
+    replicated, the shared expert split over its d_ff."""
+    s = {"router": (None, None), "w_gate": (MODEL, None, None), "w_up": (MODEL, None, None),
+         "w_down": (MODEL, None, None)}
+    if cfg.n_shared_experts:
+        s.update(w_gate_sh=(None, MODEL), w_up_sh=(None, MODEL), w_down_sh=(MODEL, None))
+    return s
+
+
 def _capacity(t_tokens: int, cfg) -> int:
     c = int(np.ceil(t_tokens * cfg.moe_top_k / cfg.n_experts * cfg.moe_capacity_factor))
     return max(c, cfg.moe_top_k)
@@ -59,12 +70,15 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return v[:, :k], i[:, :k]
 
 
-def _dispatch_compute_combine(p, x2d: torch.Tensor, cfg):
-    """x2d: [T, D] against every expert.  Returns (y [T, D], probs f32 [T, E],
-    top-k expert ids [T, K], drop fraction f32)."""
+def _dispatch_compute_combine(p, x2d: torch.Tensor, cfg, e0: int = 0, e_local: int = 0):
+    """x2d: [T, D] against experts e0 .. e0 + e_local - 1 (default: every
+    expert), whose weights ``p`` holds.  Returns (y [T, D], the partial sum
+    of the local experts' outputs; probs f32 [T, E]; top-k expert ids
+    [T, K]; the fraction of the local assignments dropped, f32)."""
     dt = cdtype(cfg)
     t = x2d.shape[0]
     e, topk = cfg.n_experts, cfg.moe_top_k
+    e_local = e_local or e
     cap = _capacity(t, cfg)
 
     logits = x2d.float() @ p.router                              # [T, E] f32
@@ -73,31 +87,35 @@ def _dispatch_compute_combine(p, x2d: torch.Tensor, cfg):
     if cfg.moe_renorm:
         topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
 
-    # rank within each expert's queue, token-major (the "buffer fill")
-    ohf = torch.nn.functional.one_hot(topi, e).reshape(t * topk, e)
+    # rank within each local expert's queue, token-major (the "buffer fill")
+    local = topi - e0
+    is_local = (local >= 0) & (local < e_local)
+    safe = torch.where(is_local, local, torch.zeros_like(local))
+    ohf = (torch.nn.functional.one_hot(safe, e_local) * is_local[..., None]).reshape(
+        t * topk, e_local)
     ranks = torch.cumsum(ohf, dim=0) - ohf                        # exclusive
     pos = (ranks * ohf).sum(-1).reshape(t, topk)
-    keep = pos < cap
+    keep = is_local & (pos < cap)
 
-    # scatter tokens into [E * cap (+ dump row), D], one scatter per slot so
-    # the [T * K, D] token replication is never materialized
-    dest = torch.where(keep, topi * cap + pos, torch.full_like(pos, e * cap))
-    xe = x2d.new_zeros((e * cap + 1, x2d.shape[1]))
+    # scatter tokens into [E_local * cap (+ dump row), D], one scatter per
+    # slot so the [T * K, D] token replication is never materialized
+    dest = torch.where(keep, safe * cap + pos, torch.full_like(pos, e_local * cap))
+    xe = x2d.new_zeros((e_local * cap + 1, x2d.shape[1]))
     for kk in range(topk):
         xe = xe.index_add(0, dest[:, kk], x2d * keep[:, kk, None].to(dt))
-    xe = xe[:-1].reshape(e, cap, -1)
+    xe = xe[:-1].reshape(e_local, cap, -1)
 
     # expert FFNs: one batched GEMM per weight
     h = _act(torch.bmm(xe, p.w_gate.to(dt)), cfg.act) * torch.bmm(xe, p.w_up.to(dt))
     ye = torch.bmm(h, p.w_down.to(dt))                            # [E, cap, D]
 
     # combine: each (token, slot)'s expert output, weighted by its router prob
-    yef = torch.cat([ye.reshape(e * cap, -1), ye.new_zeros((1, ye.shape[-1]))], dim=0)
+    yef = torch.cat([ye.reshape(e_local * cap, -1), ye.new_zeros((1, ye.shape[-1]))], dim=0)
     y = torch.zeros_like(x2d)
     for kk in range(topk):
         w = (topv[:, kk] * keep[:, kk]).to(dt)
         y = y + w[:, None] * yef[dest[:, kk]]
-    dropped = (~keep).sum() / max(t * topk, 1)
+    dropped = (is_local & ~keep).sum() / torch.clamp(is_local.sum(), min=1)
     return y, probs, topi, dropped.float()
 
 

@@ -25,11 +25,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamSet, cdtype, pdtype, winit
+from repro_torch.models.layers import DATA, MODEL, ParamSet, cdtype, pdtype, winit
 from repro_torch.models.ssm import causal_conv1d, write_rows
 
-__all__ = ["init_rglru", "rglru_forward", "make_rglru_state", "rglru_decode",
-           "linear_scan"]
+__all__ = ["init_rglru", "rglru_specs", "rglru_state_specs", "rglru_forward",
+           "make_rglru_state", "rglru_decode", "linear_scan"]
 
 _C = 8.0  # Griffin's fixed gate sharpness
 
@@ -55,6 +55,19 @@ def init_rglru(cfg, gen: torch.Generator, device) -> ParamSet:
         lam=torch.as_tensor(lam0, dtype=torch.float32, device=device),
         w_out=winit(gen, (r, d), r, dt, device),
     )
+
+
+def rglru_specs(cfg) -> dict:
+    """The recurrence's width split over the model axis: every op but the
+    input and output projections is per channel, so a shard's output is a
+    partial sum of the block's."""
+    return {"w_in1": (None, MODEL), "w_in2": (None, MODEL), "conv_w": (None, MODEL),
+            "conv_b": (MODEL,), "w_a": (None, MODEL), "b_a": (MODEL,), "w_x": (None, MODEL),
+            "b_x": (MODEL,), "lam": (MODEL,), "w_out": (MODEL, None)}
+
+
+def rglru_state_specs(cfg) -> dict:
+    return {"conv": (DATA, None, MODEL), "h": (DATA, MODEL)}
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -95,8 +108,9 @@ def rglru_forward(p, x: torch.Tensor, cfg, return_state: bool = False):
     return y, {"conv": pre[:, -(width - 1):], "h": h[:, -1]}
 
 
-def make_rglru_state(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
-    r = _lru_dim(cfg)
+def make_rglru_state(cfg, batch: int, device, tp: int = 1) -> Dict[str, torch.Tensor]:
+    """The decode state (of one model shard of ``tp``)."""
+    r = _lru_dim(cfg) // tp
     return {"conv": torch.zeros((batch, cfg.conv1d_width - 1, r), dtype=cdtype(cfg),
                                 device=device),
             "h": torch.zeros((batch, r), dtype=torch.float32, device=device)}

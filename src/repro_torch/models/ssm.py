@@ -20,9 +20,10 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamSet, cdtype, pdtype, winit
+from repro_torch.models.layers import DATA, MODEL, ParamSet, cdtype, pdtype, winit
 
-__all__ = ["init_ssm", "ssm_forward", "make_ssm_state", "ssm_decode", "causal_conv1d",
+__all__ = ["init_ssm", "ssm_specs", "ssm_state_specs", "ssm_forward", "ssm_mix",
+           "ssm_decode", "ssm_decode_mix", "gated_out", "make_ssm_state", "causal_conv1d",
            "write_rows"]
 
 
@@ -53,6 +54,25 @@ def init_ssm(cfg, gen: torch.Generator, device) -> ParamSet:
     )
 
 
+def ssm_specs(cfg) -> dict:
+    """d_inner (so the heads) split over the model axis; B and C replicated."""
+    return {"w_z": (None, MODEL), "w_x": (None, MODEL), "w_b": (None, None),
+            "w_c": (None, None), "w_dt": (None, MODEL), "dt_bias": (MODEL,),
+            "A_log": (MODEL,), "D_skip": (MODEL,), "conv_w": (None, MODEL),
+            "conv_b": (MODEL,), "norm_scale": (MODEL,), "w_out": (MODEL, None)}
+
+
+def ssm_state_specs(cfg) -> dict:
+    return {"conv": (DATA, None, MODEL), "ssm": (DATA, MODEL, None, None)}
+
+
+def _local_dims(p):
+    """(d_inner, heads, head dim, state) of the parameters at hand: the
+    whole block's, or one model shard's."""
+    d_inner, h = p.w_x.shape[1], p.w_dt.shape[1]
+    return d_inner, h, d_inner // h, p.w_b.shape[1]
+
+
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   state: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Depthwise causal conv as W shifted adds.  x: [B, T, C]; w: [W, C];
@@ -81,10 +101,19 @@ def write_rows(state: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
     return state
 
 
-def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                   eps: float = 1e-6) -> torch.Tensor:
+def gate_sq(y: torch.Tensor, z: torch.Tensor):
+    """(y * silu(z) in fp32, its sum of squares over the channels)."""
     gf = (y * F.silu(z)).float()
-    return (gf * torch.rsqrt((gf * gf).mean(-1, keepdim=True) + eps)).to(y.dtype) * scale
+    return gf, (gf * gf).sum(-1, keepdim=True)
+
+
+def gated_out(p, gf: torch.Tensor, sq: torch.Tensor, d_inner: int, cfg,
+              eps: float = 1e-6) -> torch.Tensor:
+    """The gated RMS norm over ``d_inner`` channels (``sq``: their sum of
+    squares, over every model shard) and the output projection."""
+    dt = cdtype(cfg)
+    g = (gf * torch.rsqrt(sq / d_inner + eps)).to(dt) * p.norm_scale.to(dt)
+    return g @ p.w_out.to(dt)
 
 
 def _proj(p, x: torch.Tensor, cfg):
@@ -100,8 +129,17 @@ def _proj(p, x: torch.Tensor, cfg):
 def ssm_forward(p, x: torch.Tensor, cfg, return_state: bool = False):
     """x: [B, T, D] -> [B, T, D] (training / prefill); with ``return_state``
     also the decode state after the last token."""
+    y, z, state = ssm_mix(p, x, cfg)
+    gf, sq = gate_sq(y, z)
+    y = gated_out(p, gf, sq, y.shape[-1], cfg)
+    return (y, state) if return_state else y
+
+
+def ssm_mix(p, x: torch.Tensor, cfg):
+    """The block up to its gated norm: (y, z [B, T, d_inner], decode state),
+    over the heads of ``p`` (all, or one model shard's)."""
     bsz, t_len, _ = x.shape
-    d_inner, h, p_head, n = _dims(cfg)
+    d_inner, h, p_head, n = _local_dims(p)
     q = min(cfg.ssm_chunk, t_len)
     pad = (-t_len) % q
     if pad:
@@ -153,15 +191,14 @@ def ssm_forward(p, x: torch.Tensor, cfg, return_state: bool = False):
     y = y.reshape(bsz, t_len, d_inner)
     if pad:
         y, z = y[:, pad:], z[:, pad:]
-    y = _gated_rmsnorm(y, z, p.norm_scale.to(dt)) @ p.w_out.to(dt)
-    if not return_state:
-        return y
     width = p.conv_w.shape[0]
-    return y, {"conv": xin_pre[:, -(width - 1):], "ssm": s_run[:, -1]}
+    return y, z, {"conv": xin_pre[:, -(width - 1):], "ssm": s_run[:, -1]}
 
 
-def make_ssm_state(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
+def make_ssm_state(cfg, batch: int, device, tp: int = 1) -> Dict[str, torch.Tensor]:
+    """The decode state (of one model shard of ``tp``)."""
     d_inner, h, p_head, n = _dims(cfg)
+    d_inner, h = d_inner // tp, h // tp
     return {"conv": torch.zeros((batch, cfg.conv1d_width - 1, d_inner), dtype=cdtype(cfg),
                                 device=device),
             "ssm": torch.zeros((batch, h, n, p_head), dtype=torch.float32, device=device)}
@@ -171,8 +208,17 @@ def ssm_decode(p, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg,
                active: Optional[torch.Tensor] = None):
     """One token.  x: [B, 1, D] -> ([B, 1, D], state), the state written in
     place at the rows ``active`` (int64 indices; None: every row)."""
+    y, z = ssm_decode_mix(p, x, state, cfg, active)
+    gf, sq = gate_sq(y, z)
+    return gated_out(p, gf, sq, y.shape[-1], cfg), state
+
+
+def ssm_decode_mix(p, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg,
+                   active: Optional[torch.Tensor] = None):
+    """One token up to the gated norm: (y, z [B, 1, d_inner]), the state
+    written in place."""
     bsz = x.shape[0]
-    d_inner, h, p_head, n = _dims(cfg)
+    d_inner, h, p_head, n = _local_dims(p)
     dt = cdtype(cfg)
 
     z, xin, b_, c_, dtv = _proj(p, x, cfg)
@@ -185,6 +231,5 @@ def ssm_decode(p, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg,
     hnew = decay[..., None, None] * state["ssm"] + bx
     y = torch.einsum("bn,bhnp->bhp", c_[:, 0].float(), hnew)
     y = (y + xh * p.D_skip.float()[None, :, None]).to(dt).reshape(bsz, 1, d_inner)
-    y = _gated_rmsnorm(y, z, p.norm_scale.to(dt))
     write_rows(state, {"conv": conv_in[:, 1:], "ssm": hnew}, active)
-    return y @ p.w_out.to(dt), state
+    return y, z

@@ -1,6 +1,8 @@
 """Block stack: one ``Layer`` module per layer, for training and serving.
 
-Counterpart of ``repro.models.transformer`` on one device.  The reference
+Counterpart of ``repro.models.transformer``; ``Dist`` names the mesh a
+``models/sharded.py::ShardedLM`` runs on (this module is its one-slot
+path, and the layer structure both share).  The reference
 stacks the parameters of each cycle of ``cfg.layer_pattern`` and scans over
 the cycles; the port keeps a plain ``nn.ModuleList`` of layers, layer i of
 kind ``cfg.layer_kinds()[i]``, and caches as a list with one dict per layer
@@ -23,17 +25,36 @@ everything.  Only a forward that builds a graph is wrapped.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.models import attention, moe, rglru, ssm
-from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
+from repro_torch.models.layers import (
+    apply_mlp,
+    apply_norm,
+    init_mlp,
+    init_norm,
+    mlp_specs,
+    norm_specs,
+)
 
-__all__ = ["Layer", "init_stack", "stack_forward", "stack_prefill",
+__all__ = ["Dist", "Layer", "layer_specs", "init_stack", "stack_forward", "stack_prefill",
            "init_stack_cache", "stack_decode", "grow_cache"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Dist:
+    """The mesh context (``repro/models/transformer.py:46``): a
+    ``distributed.mesh.SlotMesh``, its batch axes, its model axis and the
+    tensor-parallel degree (the model axis's size)."""
+    mesh: Any
+    data_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    tp: int = 1
 
 Cache = Dict[str, torch.Tensor]
 
@@ -42,14 +63,15 @@ class Layer(nn.Module):
     """One block: norm1 -> mixer (-> norm1_post) -> residual, then the MLP
     likewise.  Submodule names are the reference's param keys."""
 
-    def __init__(self, cfg, kind: Tuple[str, str], gen: torch.Generator, device):
+    def __init__(self, cfg, kind: Tuple[str, str], gen: torch.Generator, device,
+                 tp: int = 1):
         super().__init__()
         mixer_kind, mlp_kind = kind
         self.kind = kind
         self.window = cfg.window if mixer_kind == "local" else 0
         self.norm1 = init_norm(cfg, cfg.d_model, device)
         if mixer_kind in ("global", "local"):
-            self.mixer = attention.init_attention(cfg, gen, device)
+            self.mixer = attention.init_attention(cfg, gen, device, tp)
         elif mixer_kind == "rglru":
             self.mixer = rglru.init_rglru(cfg, gen, device)
         elif mixer_kind == "ssm":
@@ -70,8 +92,26 @@ class Layer(nn.Module):
                 self.norm2_post = init_norm(cfg, cfg.d_model, device)
 
 
-def init_stack(cfg, gen: torch.Generator, device) -> nn.ModuleList:
-    return nn.ModuleList(Layer(cfg, kind, gen, device) for kind in cfg.layer_kinds())
+def layer_specs(cfg, kind: Tuple[str, str], tp: int) -> Dict[str, tuple]:
+    """{name within the layer (``mixer.w_q``): spec} for a layer of ``kind``."""
+    mixer_kind, mlp_kind = kind
+    if mixer_kind in ("global", "local"):
+        mixer = attention.attention_specs(cfg, tp)
+    else:
+        mixer = rglru.rglru_specs(cfg) if mixer_kind == "rglru" else ssm.ssm_specs(cfg)
+    parts = {"norm1": norm_specs(cfg), "mixer": mixer}
+    if cfg.post_norm:
+        parts["norm1_post"] = norm_specs(cfg)
+    if mlp_kind != "none":
+        parts["norm2"] = norm_specs(cfg)
+        parts["mlp"] = mlp_specs(cfg) if mlp_kind == "dense" else moe.moe_specs(cfg)
+        if cfg.post_norm:
+            parts["norm2_post"] = norm_specs(cfg)
+    return {f"{m}.{k}": v for m, d in parts.items() for k, v in d.items()}
+
+
+def init_stack(cfg, gen: torch.Generator, device, tp: int = 1) -> nn.ModuleList:
+    return nn.ModuleList(Layer(cfg, kind, gen, device, tp) for kind in cfg.layer_kinds())
 
 
 def _mlp_half(p: Layer, x: torch.Tensor, cfg):

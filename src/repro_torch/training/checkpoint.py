@@ -17,9 +17,13 @@ reference's):
     at the next ``wait()``;
   * **keep-k GC** with optional keep-every-n archival; ``.tmp`` leftovers
     of a crashed commit are removed;
-  * **restore onto any device**: arrays are stored whole (host values);
-    ``restore(template, device=...)`` places them on any device, so a
-    checkpoint saved on one device resumes on another bit for bit;
+  * **restore onto any device or mesh**: arrays are stored whole (host
+    values, a sharded state gathered first: ``training/step.py::
+    gather_train_state``); ``restore(template, device=...)`` places them on
+    any device, ``restore(template, shardings=(mesh, specs))`` each slot's
+    shard on its slot (the elastic restart: saved on one mesh, resumed on
+    another), so a checkpoint saved on one device resumes on another bit
+    for bit;
   * the data pipeline's step rides in the manifest (``extra``).
 
 Arrays go into one ``arrays.npz`` per checkpoint keyed by ``/``-joined
@@ -81,16 +85,23 @@ def _to_tensor(arr: np.ndarray, dtype: Optional[str], device) -> torch.Tensor:
 
 
 def _unflatten_like(template, flat: Dict[str, np.ndarray], dtypes: Dict[str, str],
-                    device, prefix: str = ""):
+                    device, prefix: str = "", placement=None):
     if isinstance(template, dict):
         return {k: _unflatten_like(v, flat, dtypes, device, f"{prefix}/{k}" if prefix
-                                   else str(k)) for k, v in template.items()}
+                                   else str(k), None if placement is None else
+                                   (placement[0], placement[1][k])) for k, v in template.items()}
     if prefix not in flat:
         raise KeyError(f"checkpoint missing leaf {prefix!r}")
     arr = flat[prefix]
     want = tuple(template.shape) if hasattr(template, "shape") else None
     if want is not None and tuple(arr.shape) != want:
         raise ValueError(f"leaf {prefix!r} shape {arr.shape} != expected {want}")
+    if placement is not None:   # each slot's shard, read from the mapped array
+        from repro_torch.distributed.mesh import shard_slices
+
+        mesh, spec = placement
+        return [_to_tensor(np.array(arr[shard_slices(arr.shape, spec, mesh, s)]),
+                           dtypes.get(prefix), mesh.devices[s]) for s in range(mesh.size)]
     if device is None:
         device = template.device if isinstance(template, torch.Tensor) else "cpu"
     return _to_tensor(arr, dtypes.get(prefix), device)
@@ -195,10 +206,14 @@ class CheckpointManager:
         return sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path))
 
     def restore(self, template: Any, *, step: Optional[int] = None,
-                device=None) -> Tuple[Any, dict]:
+                device=None, shardings=None) -> Tuple[Any, dict]:
         """Restore into ``template``'s structure (its shapes are checked; a
         missing leaf raises ``KeyError``, another shape ``ValueError``).
-        Each tensor goes to ``device``, or where the template's leaf lives."""
+        Each tensor goes to ``device``, or where the template's leaf lives;
+        with ``shardings = (mesh, specs)`` (a ``SlotMesh`` and a spec per
+        leaf, in the template's structure) each leaf becomes a list of its
+        per-slot shards instead, each on its slot
+        (``training/step.py::place_train_state`` takes that tree)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -209,5 +224,6 @@ class CheckpointManager:
             manifest = json.load(f)
         # the members mapped, not read through zipfile (5x faster for GBs)
         flat = _mmap_npz(os.path.join(path, "arrays.npz"))
-        tree = _unflatten_like(template, flat, manifest.get("dtypes", {}), device)
+        tree = _unflatten_like(template, flat, manifest.get("dtypes", {}), device,
+                               placement=shardings)
         return tree, manifest

@@ -24,7 +24,8 @@ from typing import Dict, Iterable, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Hyper", "adamw_init", "adamw_update", "lr_schedule", "global_norm"]
+__all__ = ["Hyper", "adamw_init", "adamw_update", "lr_schedule", "global_norm",
+           "opt_state_specs"]
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -72,6 +73,16 @@ def adamw_init(params: Tensors, *, master_fp32: bool = False) -> dict:
     return state
 
 
+def opt_state_specs(param_specs: Dict[str, tuple], *, master_fp32: bool = False) -> dict:
+    """The optimizer state's specs (``repro/training/optimizer.py:63``): the
+    moments (and the fp32 master) placed like the parameters, the count
+    replicated."""
+    out = {"m": dict(param_specs), "v": dict(param_specs), "count": ()}
+    if master_fp32:
+        out["master"] = dict(param_specs)
+    return out
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares, each tensor's in fp32, summed in order."""
     total = None
@@ -83,11 +94,14 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads: Tensors, state: dict, params: Tensors, step: int,
-                 h: Hyper) -> Tuple[Tensors, dict, Dict[str, object]]:
+                 h: Hyper, gnorm: torch.Tensor = None) -> Tuple[Tensors, dict, Dict[str, object]]:
     """One AdamW step, in place.  Returns (params, state, metrics) with
-    ``grad_norm`` (the norm before clipping, a tensor) and ``lr``."""
+    ``grad_norm`` (the norm before clipping, a tensor) and ``lr``.  A
+    sharded step passes the norm of the whole gradient as ``gnorm`` (one
+    slot's ``grads`` are a shard of it)."""
     names = list(params)
-    gnorm = global_norm(grads[k] for k in names)
+    if gnorm is None:
+        gnorm = global_norm(grads[k] for k in names)
     scale = torch.clamp(h.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = lr_schedule(step, h)
     state["count"] += 1

@@ -928,3 +928,55 @@ def test_family_decode_on_card_matches_the_cpu(arch):
         for name in a:
             np.testing.assert_allclose(b[name].float().cpu().numpy(), a[name].float().numpy(),
                                        rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["tp", "zero1", "mp_zero1", "fsdp"])
+def test_sharded_lm_on_four_slots_of_the_card_matches_one_slot(mode):
+    """Qwen1.5 smoke in fp32 on a 2 x 2 mesh of four slots of cuda:0
+    (``ShardedLM``): the forward's logits within 1e-4 (in norm) of the
+    one-slot model's on the card, and one ``make_sharded_train_step``
+    (``mode``) against ``build_train_step`` on one slot: the loss within
+    1e-5, the update within 1e-2 of its norm (the first AdamW step moves
+    each weight by about lr times the sign of its gradient)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed.mesh import SlotMesh
+    from repro_torch.models import LanguageModel
+    from repro_torch.training import (
+        Hyper,
+        adamw_init,
+        build_train_step,
+        make_sharded_train_step,
+        sharded_adamw_init,
+    )
+
+    dev = _device()
+    cfg = get_config("qwen15_0_5b", smoke=True).replace(dtype="float32")
+    if mode == "mp_zero1":
+        cfg = cfg.replace(param_dtype="bfloat16")
+    one = LanguageModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    start = {k: v.detach().clone() for k, v in one.state_dict().items()}
+    batch = TokenPipeline(cfg.vocab_size, 32, 4, seed=1).global_batch_at(0)
+    h = Hyper(lr=1e-2, warmup_steps=1, total_steps=6)
+    mesh = SlotMesh((dev,) * 4, {"data": 2, "model": 2})
+    lm = LanguageModel(cfg, tp=2, device=dev)
+    lm.load_state_dict(start)
+    step, specs = make_sharded_train_step(lm, h, mesh, param_mode=mode)
+    slm = lm.shard(specs["dist"], specs["params"])
+    with torch.no_grad():
+        want, got = one(batch)[0], slm.forward(batch)[0]
+    assert got.device == dev
+    assert _rel(got, want) <= 1e-4
+    m1 = build_train_step(one, h)(adamw_init(dict(one.named_parameters()),
+                                             master_fp32=mode == "mp_zero1"), batch, 1)
+    m4 = step(slm, sharded_adamw_init(slm, specs["opt"]), batch, 1)
+    np.testing.assert_allclose(float(m4["loss"]), float(m1["loss"]), rtol=1e-5)
+    num = den = 0.0
+    after = slm.state_dict(dev)
+    for k, v in one.state_dict().items():
+        if k.endswith("b_k"):
+            continue
+        num += float((after[k].float() - v.float()).square().sum())
+        den += float((v.float() - start[k].float()).square().sum())
+    assert (num / den) ** 0.5 <= 1e-2
