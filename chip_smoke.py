@@ -182,7 +182,7 @@ Phases, each printing its own lines:
               prefill of 512 tokens and 8 decode steps against a forward
               pass over the 520 tokens, in bf16 (printed) and fp32 (held);
               ms and peak memory for each.
- 24. dist     (last) the language model across device slots of cuda:0
+ 24. dist     the language model across device slots of cuda:0
               (``ShardedLM``, ``make_sharded_train_step``): Qwen1.5-0.5B at
               full width cut to 4 layers on a 2 x 2 mesh, 6 steps of 8 x
               1024 tokens in each param_mode (tp, zero1, mp_zero1, fsdp)
@@ -200,6 +200,22 @@ Phases, each printing its own lines:
               (heads padded 28 -> 32, the cache split along its length):
               prefill of 2 x 512 tokens and 16 greedy decode steps against
               one slot.
+ 25. roofline (last) ``repro_torch.roofline`` and the dry run: the card's
+              peaks come from ``roofline.HW``; one train step of the train
+              cell: ``model_flops`` (spec / refined), the script's own
+              count, ``FlopCounterMode`` over the step on the card equal
+              to ``count_ops`` over the same step on ``meta``, and the meta
+              run's predicted peak within ``ROOFLINE_PEAK_FACTOR`` of
+              ``max_memory_allocated`` over a step; the dry runs of
+              ``DRYRUN_CELLS`` on 256 meta slots (qwen2_7b train_4k and
+              decode_32k, knn_service; started in the background after
+              the build phase, CPU only): seconds, dominant term, bytes
+              per slot; the knn_service reckoning equal to the ring's
+              real launches at the multi cell's size (their units, TQ,
+              L_pad, d); ``Calibration.refresh()`` on the card (GB/s, us a
+              transfer) and a ``Calibration`` from this run's main and
+              kdtree numbers planning the ooc cell's points: the plan's
+              reasons cite it, 1024 queries exact against knn_brute.
 
 Phase 3 times the main path's fp32 instance at k = 10 + FP32_OVERFETCH
 (the k the fp32 main path runs) beside k = 10, k = 18 and k = 10 +
@@ -239,10 +255,18 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet; at a 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12   # dense bf16 tensor-core peak (the train cell's bound)
-FP32_FLOPS = 67e12
+
+
+def hw(key: str) -> float:
+    """The card's peak ``key`` from ``repro_torch.roofline.HW`` (H100 SXM
+    data sheet, at a 700 W power limit): ``hbm_bw``, ``peak_flops`` (dense
+    bf16, the train cell's bound), ``fp32_flops``."""
+    if os.path.join(ROOT, "src") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.roofline import HW
+
+    return HW[key]
+
 
 # (W, TQ, L_pad, d, d_pad, k): the reference kernel sweep
 # (tests/test_kernels_knn.py SWEEP)
@@ -316,6 +340,19 @@ DIST_F32_LOSS_RTOL, DIST_F32_UPDATE_RTOL = 1e-4, 1e-2
 DIST_LOGIT_MAX = 0.5
 
 
+# each run_query cell's query seconds, query count and chunk rounds (the
+# roofline phase's calibration reads main's), and the kdtree line's paired
+# host / chunked q/s
+MEASURED = {}
+# the dry-run cells the roofline phase reads: (arch, shape), run in the
+# background from the end of the build phase
+DRYRUN_CELLS = (("qwen2_7b", "train_4k"), ("qwen2_7b", "decode_32k"), ("knn_service", "knn_1M"))
+# the roofline phase: the meta run's predicted peak of a train step against
+# the card's max_memory_allocated, as measured / predicted within
+# [1 / ROOFLINE_PEAK_FACTOR, ROOFLINE_PEAK_FACTOR]
+ROOFLINE_PEAK_FACTOR = 1.25
+
+
 def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
@@ -348,7 +385,7 @@ def scan_bound(w: int, tq: int, lp: int, d: int, k: int, code: str = "f32"):
             "u8": w * lp * d + 8 * w * d + w * (-(-lp // 8))}[code]
     bytes_moved = slab + 4 * (w * tq * d + w + w * tq) + 8 * w * tq * k
     ops = w * tq * lp * (2 * d + 3)
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    t_bytes, t_ops = bytes_moved / hw("hbm_bw"), ops / hw("fp32_flops")
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -934,10 +971,11 @@ def profile_call(torch, phase, fn, host_top: int = 0, op_top: int = 0) -> None:
 
 def launch_counts(knn_scan) -> dict:
     """The leaf-scan wrapper's counts since its last reset: per code type,
-    ``by_instance`` per (code type, k) and ``by_variant`` per launch name."""
+    ``by_instance`` per (code type, k), ``by_variant`` per launch name and
+    ``work`` per (W units, TQ, L_pad, d)."""
     w = knn_scan.leaf_scan_units
     return dict(w.launches_by_code, by_instance=dict(w.launches_by_instance),
-                by_variant=dict(w.launches_by_variant))
+                by_variant=dict(w.launches_by_variant), work=dict(w.launch_work))
 
 
 def one_card(torch):
@@ -972,6 +1010,7 @@ def run_query(torch, phase, points, queries, spec, n_check, dev, profile=False):
     assert (res.idx >= 0).all()
     ties, missed = check_exact(torch, res, points, queries, dev, n_check)
     st = res.stats
+    MEASURED[phase] = dict(query_s=query_s, m=queries.shape[0], chunk_rounds=st.chunk_rounds)
     log(phase, engine=index.plan.engine, n_chunks=index.plan.n_chunks,
         height=index.plan.height, precision=index.plan.precision,
         resident_bytes=index.resident_bytes(),
@@ -1068,6 +1107,7 @@ def main(argv=None) -> int:
 
     phase_env(torch)
     phase_build()
+    dryruns = start_dryruns()
     profiled = set(filter(None, args.profile.split(",")))
     scan, codes, wide, lm_scan = phase_kernel(torch, dev, args.seed)
     phase_facade(torch, dev, args.seed)
@@ -1146,6 +1186,9 @@ def main(argv=None) -> int:
         quant_ooc.describe())
     assert res4.stats.chunk_copies > 0 and launches4["u8"] > 0
     same_answers("quant_ooc", res4, ooc_ref, ooc_points)
+    # the roofline phase plans the ooc cell's points under a calibration
+    cal_cell = dict(points=ooc_points.copy(), queries=queries[:1024].copy(),
+                    spec=IndexSpec(precision="fp32", memory_budget=ooc_slab // 3))
     cells["quant_ooc"] = launches4
     del quant_ooc, res4
     torch.cuda.empty_cache()
@@ -1181,6 +1224,10 @@ def main(argv=None) -> int:
     run_train(torch, dev, args.seed, "train" in profiled)
     run_families(torch, dev, args.seed)
     run_dist(torch, dev, args.seed)
+    multi_shift = args.shift + args.multi_shift
+    run_roofline(torch, dev, args.seed, dryruns, cal_cell,
+                 ring=(cells["multi_slots4_ring"]["work"], 2 ** (24 - multi_shift),
+                       2 ** (20 - multi_shift), 10, 4))
 
     def entry(name, kind, code, head_key, cell, timed, width=None):
         """The JSON line's entry for the ``kind`` kernel ("narrow" or
@@ -1420,6 +1467,7 @@ def run_host(torch, points, queries, ref, dev, same_answers, profile=False) -> d
     np.testing.assert_allclose(cq.dists, hq.dists, rtol=1e-5, atol=1e-6)
     d_of_idx = np.sqrt(np.sum((q[:, None, :] - points[kd.idx]) ** 2, -1))
     np.testing.assert_allclose(d_of_idx, hq.dists, rtol=1e-5, atol=1e-6)
+    MEASURED["kdtree"] = dict(m=q.shape[0], host_s=host_s, chunked_s=chunked_s)
     log("kdtree", n=points.shape[0], m=q.shape[0], build_s=f"{build_s:.3f}",
         query_s=f"{kd_s:.3f}", qps=f"{q.shape[0] / kd_s:.1f}",
         host_query_s=f"{host_s:.3f}", host_qps=f"{q.shape[0] / host_s:.1f}",
@@ -1987,6 +2035,18 @@ def _param_drift(torch, a: dict, b: dict, base: dict = None, skip=("b_k",)) -> f
     return (num / max(den, 1e-300)) ** 0.5
 
 
+def train_step_ops(cfg, lm, seq: int, tokens: int):
+    """(bf16 matrix-product operations, fp32 attention operations) of one
+    train step, from the shapes: 2 per weight and token in the bf16
+    products (the tied embedding is the unembedding's), 4 L S H dh per
+    token in the fp32 attention scores and values (the full square the
+    port computes); forward, its recompute under remat and the backward's
+    two: 4 forwards a step."""
+    mm = sum(p.numel() for n, p in lm.named_parameters() if p.dim() >= 2
+             and (cfg.tie_embeddings or n != "embed.embedding"))
+    return 4 * 2 * mm * tokens, 4 * 4 * cfg.n_layers * seq * cfg.n_heads * cfg.d_head * tokens
+
+
 def run_train(torch, dev, seed: int, profile: bool = False) -> None:
     """The train cell: Qwen1.5-0.5B at full width (random weights from
     ``seed``, fp32 parameters, bf16 compute, remat "full") trained on
@@ -2064,16 +2124,8 @@ def run_train(torch, dev, seed: int, profile: bool = False) -> None:
         losses = [x[0] for x in first]
         steady = sorted(x[1] for i, x in enumerate(first) if i)   # step 0 warms up
         step_s = steady[len(steady) // 2]
-        # operations from the shapes: 2 per weight and token in the bf16
-        # products (the tied embedding is the unembedding's), 4 L S H dh per
-        # token in the fp32 attention scores and values (the full square the
-        # port computes); forward, its recompute under remat and the
-        # backward's two: 4 forwards a step
-        mm = sum(p.numel() for n, p in lm.named_parameters() if p.dim() >= 2
-                 and (cfg.tie_embeddings or n != "embed.embedding"))
-        gemm = 4 * 2 * mm * tokens
-        attn = 4 * 4 * cfg.n_layers * TRAIN_SEQ * cfg.n_heads * cfg.d_head * tokens
-        bound_ms = (gemm / BF16_FLOPS + attn / FP32_FLOPS) * 1e3
+        gemm, attn = train_step_ops(cfg, lm, TRAIN_SEQ, tokens)
+        bound_ms = (gemm / hw("peak_flops") + attn / hw("fp32_flops")) * 1e3
         log("train", tokens_per_step=tokens, first_loss=f"{losses[0]:.4f}",
             last_loss=f"{losses[-1]:.4f}",
             losses=",".join(f"{x:.4f}" for x in losses),
@@ -2691,6 +2743,194 @@ def run_dist_gqa(torch, dev, seed: int, mesh_of) -> None:
         del one, slm, runs
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# the roofline phase
+# --------------------------------------------------------------------------
+def start_dryruns(out_dir=None):
+    """Start ``python -m repro_torch.launch.dryrun`` for each of
+    ``DRYRUN_CELLS`` in the background (one process each, on meta slots:
+    no card, CPU only), writing under a fresh directory of TMPDIR.  Returns
+    ({(arch, shape): (process, json path, log path)}, the directory); the
+    processes are killed at exit if still running."""
+    import atexit
+    import tempfile
+
+    out = out_dir or tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(filter(None, [os.path.join(ROOT, "src"),
+                                                        os.environ.get("PYTHONPATH")])))
+    procs = {}
+    for arch, shape in DRYRUN_CELLS:
+        logf = os.path.join(out, f"{arch}__{shape}.log")
+        with open(logf, "w") as f:
+            pr = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                                   "--arch", arch, "--shape", shape, "--out", out],
+                                  stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        procs[arch, shape] = (pr, os.path.join(out, f"{arch}__{shape}__single.json"), logf)
+
+    def stop():
+        for pr, _, _ in procs.values():
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+
+    atexit.register(stop)
+    log("roofline", dryrun_cells=",".join(f"{a}x{sh}" for a, sh in DRYRUN_CELLS),
+        started_in_background=True, out=out)
+    return procs
+
+
+def run_roofline(torch, dev, seed: int, dryruns, cal_cell, ring) -> None:
+    """The roofline phase (``repro_torch.roofline``, ``launch/dryrun.py``,
+    the planner's ``Calibration``):
+
+    1. one train step of the train cell (Qwen1.5-0.5B at full width, 8 x
+       1024 tokens, one slot): ``model_flops``' spec / refined, the script's
+       own count (``train_step_ops``), ``FlopCounterMode``'s count over the
+       step on the card, which must equal ``count_ops``' count of the same
+       step on ``meta``, and the meta run's predicted peak (arguments + the
+       peak live bytes) beside ``max_memory_allocated`` over a step, within
+       ``ROOFLINE_PEAK_FACTOR``;
+    2. the background dry runs of ``DRYRUN_CELLS`` on 256 meta slots: each
+       cell's seconds, dominant term and bytes per slot;
+    3. the knn_service reckoning against real launches: at the multi
+       cell's size on four slots of the card the ring's leaf-scan launches
+       (``ring`` = its launch work, n, m, d, slots) must sum to the
+       operations ``dryrun.knn_ring_launches`` reckons;
+    4. ``Calibration.refresh()`` on the card (GB/s, us a transfer), then a
+       ``Calibration`` from this run's numbers (round_s = main's query
+       seconds / its chunk rounds; engine_qps of chunked and host from the
+       kdtree line's paired measurement) plans the ooc cell's points: the
+       plan's reasons must cite it, and its answers to 1024 queries must be
+       exact against knn_brute."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.api import Calibration, KNNIndex
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models import LanguageModel
+    from repro_torch.roofline import model_flops
+    from repro_torch.roofline.calibrate import count_ops
+    from repro_torch.training import Hyper, adamw_init, build_train_step
+
+    t_phase = time.perf_counter()
+    meta = torch.device("meta")
+    cfg = train_config()
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    mf = model_flops(cfg, ShapeSpec("train_cell", "train", TRAIN_SEQ, TRAIN_BATCH))
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    h = Hyper(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+
+    # the step on meta: FLOPs, bytes, predicted peak
+    t0 = time.perf_counter()
+    lm = LanguageModel(cfg, device=meta)
+    opt = adamw_init(dict(lm.named_parameters()))
+    batch = {k: torch.as_tensor(v).to(meta) for k, v in pipe.global_batch_at(0).items()}
+    step = build_train_step(lm, h)
+    c = count_ops(lambda: step(opt, batch, 0))
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    args_b = nbytes(lm.parameters()) + nbytes(
+        t for v in opt.values() for t in (v.values() if isinstance(v, dict) else [v])) + nbytes(
+        batch.values())
+    predicted = args_b + c.temp_bytes
+    meta_s = time.perf_counter() - t0
+    gemm, attn = train_step_ops(cfg, lm, TRAIN_SEQ, tokens)
+    del lm, opt, batch, step
+
+    # the same step on the card
+    torch.cuda.synchronize()
+    lm = LanguageModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    opt = adamw_init(dict(lm.named_parameters()))
+    step = build_train_step(lm, h)
+    with FlopCounterMode(display=False) as fc:
+        float(step(opt, pipe.global_batch_at(0), 0)["loss"])
+    card_flops = fc.get_total_flops()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    float(step(opt, pipe.global_batch_at(1), 1)["loss"])
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated()
+    del lm, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    ratio = measured / predicted
+    log("roofline", train_step=cfg.name, tokens=tokens,
+        model_flops_spec=f"{mf['spec']:.6e}", model_flops_refined=f"{mf['refined']:.6e}",
+        script_count=f"{gemm + attn:.6e}", script_gemm=f"{gemm:.6e}", script_attn=f"{attn:.6e}",
+        flop_counter_card=card_flops, count_meta=int(c.flops),
+        flops_equal=card_flops == int(c.flops), bytes_meta=f"{c.bytes:.6e}",
+        predicted_peak_gb=f"{predicted / 1e9:.3f}", argument_gb=f"{args_b / 1e9:.3f}",
+        temp_gb=f"{c.temp_bytes / 1e9:.3f}", measured_peak_gb=f"{measured / 1e9:.3f}",
+        measured_over_predicted=f"{ratio:.4f}", factor=ROOFLINE_PEAK_FACTOR,
+        meta_ops=c.ops, meta_memo_hits=c.memo_hits, meta_s=f"{meta_s:.2f}")
+    assert card_flops == int(c.flops), (card_flops, c.flops)
+    assert 1 / ROOFLINE_PEAK_FACTOR <= ratio <= ROOFLINE_PEAK_FACTOR, (measured, predicted)
+
+    # the dry-run cells (started after the build phase)
+    for (arch, shape), (pr, path, logf) in dryruns.items():
+        rc = pr.wait(timeout=600)
+        assert rc == 0, open(logf).read()[-3000:]
+        with open(path) as f:
+            res = json.load(f)
+        assert res["supported"] and res["chips"] == 256, res
+        mem, rf = res["memory"], res["roofline"]
+        per_slot = res["costs"].get("bytes_per_device", res["costs"]["bytes_total"] / 256)
+        log("roofline", dryrun=f"{arch}x{shape}", slots=res["chips"],
+            seconds=f"{res['elapsed_s']:.1f}", dominant=res["dominant"],
+            compute_s=f"{rf['compute_s']:.6g}", memory_s=f"{rf['memory_s']:.6g}",
+            collective_s=f"{rf['collective_s']:.6g}",
+            bytes_accessed_per_slot=f"{per_slot:.6e}",
+            argument_bytes_per_slot=mem["argument_bytes"], temp_bytes_per_slot=mem["temp_bytes"],
+            peak_bytes_per_slot=mem["peak_bytes"], fits_80g=mem["fits_80g"],
+            useful_ratio=f"{res['useful_ratio']:.4f}")
+        assert all(np.isfinite(rf[k]) and rf[k] >= 0
+                   for k in ("compute_s", "memory_s", "collective_s"))
+
+    # the knn_service reckoning against the ring's real launches
+    work, n, m, d, p = ring
+    launched = sum(cnt * w * tq * lp * (2 * dd + 3) for (w, tq, lp, dd), cnt in work.items())
+    reckoned = sum(dr.leaf_scan_work(*x, k=1)[0] for x in dr.knn_ring_launches(n, m, d, p))
+    log("roofline", knn_ring_n=n, knn_ring_m=m, slots=p, launches=sum(work.values()),
+        launched_ops=launched, reckoned_ops=int(reckoned), equal=launched == reckoned)
+    assert launched == reckoned and launched > 0, (launched, reckoned)
+
+    # the planner's Calibration: refresh on the card, then this run's own
+    fresh = Calibration.refresh(device=dev)
+    log("roofline", calibration_refresh_gbps=f"{fresh.h2d_gbps:.3f}",
+        us_per_transfer=f"{fresh.h2d_latency_s * 1e6:.1f}", source=fresh.source)
+    main, kd = MEASURED["main"], MEASURED["kdtree"]
+    cal = Calibration(h2d_gbps=fresh.h2d_gbps, h2d_latency_s=fresh.h2d_latency_s,
+                      round_s=main["query_s"] / max(1, main["chunk_rounds"]),
+                      engine_qps={"chunked": kd["m"] / kd["chunked_s"],
+                                  "host": kd["m"] / kd["host_s"]},
+                      age_s=0.0, source="chip_smoke this run (main, kdtree)")
+    spec = cal_cell["spec"].replace(calibration=cal)
+    if one_card(torch):
+        spec = spec.replace(devices=one_card(torch))
+    points, queries = cal_cell["points"], cal_cell["queries"]
+    index = KNNIndex.build(points, spec)
+    for r in index.plan.reasons:
+        print(f"[roofline]   plan: {r}", flush=True)
+    cites = [r for r in index.plan.reasons if cal.source in r]
+    res = index.query(queries, 10)
+    ties, missed = check_exact(torch, res, points, queries, dev, queries.shape[0])
+    log("roofline", calibrated_plan=index.plan.engine, n_chunks=index.plan.n_chunks,
+        starvation_deadline=index.plan.starvation_deadline, calibrated=index.plan.calibrated,
+        round_ms=f"{cal.round_s * 1e3:.3f}",
+        engine_qps=",".join(f"{e}:{q:.1f}" for e, q in cal.engine_qps.items()),
+        reasons_citing=len(cites), checked=queries.shape[0], tie_swaps=ties,
+        fp32_rows_missed=missed)
+    assert index.plan.calibrated and cites, index.plan.reasons
+    assert missed == 0
+    del index
+    torch.cuda.empty_cache()
+    log("roofline", cell_s=f"{time.perf_counter() - t_phase:.1f}")
 
 
 def run_mutable(torch, dev, seed: int, shift: int):

@@ -28,7 +28,9 @@ from repro_torch.api.engine import (
     register_engine,
 )
 from repro_torch.api.planner import (
+    CALIBRATION_STALE_S,
     BudgetError,
+    Calibration,
     Plan,
     estimate_meta_bytes,
     estimate_slab_bytes,
@@ -62,6 +64,8 @@ __all__ = [
     "estimate_slab_bytes",
     "estimate_meta_bytes",
     "BudgetError",
+    "Calibration",
+    "CALIBRATION_STALE_S",
     "Engine",
     "EngineBase",
     "EngineCaps",

@@ -55,7 +55,7 @@ from repro_torch.persist import PersistError, VersionStore, WriteAheadLog
 __all__ = ["KNNIndex"]
 
 # IndexSpec fields a snapshot manifest records (the reference's list): the
-# host-bound ones (devices, persist_dir) are not in it
+# host-bound ones (devices, persist_dir, a measured calibration) are not in it
 _SPEC_MANIFEST_FIELDS = (
     "engine", "op", "height", "n_chunks", "n_shards", "buffer_size",
     "tile_q", "backend", "k_hint", "m_hint", "memory_budget", "precision",
@@ -124,6 +124,7 @@ class KNNIndex:
             op=spec.op,
             mutable=spec.mutable,
             merge_async=spec.merge_async,
+            calibration=spec.calibration,
         )
         engine = get_engine(pl.engine)
         state = engine.build(points, spec, pl)

@@ -40,16 +40,31 @@ holds.  On CUDA the port reads each slot's free device memory
 (``torch.cuda.mem_get_info``, shared by the slots on one card) and, when
 the leaf structure would not fit in half of it, streams chunks under that
 implicit budget (rule 5); the precision stays fp32 because no budget was
-asked for.  The reference's
-``Calibration`` (measured costs from its own benchmark files) is not
-ported: those numbers were not measured on this hardware.
+asked for.
+
+MEASURED-COST CALIBRATION (the reference's): pass a ``Calibration``
+(host->device copy rate, the fused round's cost, per-engine q/s, the
+dynamic engine's measured crossover) and decisions become calibrated: the
+single-device engine choice compares measured q/s, the chunk-visit
+starvation deadline follows the copy-cost / round-cost ratio, the chunk
+note gives the predicted copy time, and a measured crossover replaces the
+dynamic engine's model.  Every calibrated decision lands in
+``Plan.reasons`` with the numbers it used.  ``Calibration.load`` reads
+only the port's own files (``BENCH_torch_copy_cost.json``,
+``BENCH_torch_engine.json``, ``BENCH_torch_dynamic.json``), never the
+reference's ``BENCH_*.json``, which were measured on other hardware;
+``Calibration.refresh`` measures the copy rate on the card inline.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
-from typing import Any, Optional, Sequence, Tuple
+import os
+import time
+import warnings
+from typing import Any, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -65,8 +80,10 @@ __all__ = [
     "estimate_meta_bytes",
     "chunked_resident_bytes",
     "default_devices",
+    "Calibration",
     "BRUTE_N_MAX",
     "BRUTE_WORK_MAX",
+    "CALIBRATION_STALE_S",
     "PRECISION_ENGINES",
     "CHUNK_ENGINES",
 ]
@@ -79,6 +96,16 @@ class BudgetError(ValueError):
 
 BRUTE_N_MAX = 2048
 BRUTE_WORK_MAX = 1 << 21
+# Calibration measurements older than this are STALE: the planner still
+# uses them (measured-but-old usually beats rule-based) but warns and
+# records the staleness in Plan.reasons so decisions stay auditable.
+CALIBRATION_STALE_S = 7 * 24 * 3600.0
+# the port's own calibration files (Calibration.load); the reference's
+# BENCH_copy_cost.json / BENCH_engine.json / BENCH_dynamic.json hold
+# another machine's numbers and are never read
+COPY_COST_FILE = "BENCH_torch_copy_cost.json"
+ENGINE_FILE = "BENCH_torch_engine.json"
+DYNAMIC_FILE = "BENCH_torch_dynamic.json"
 # engines whose leaf slabs live in a ChunkedLeafStore honor a precision
 # choice (rule 4; the dynamic forest's tree shards); those with one store
 # stream its chunks under a budget (rule 5; the forest sizes each shard's)
@@ -161,6 +188,162 @@ def _clamp_height(n: int, k: int, height: Optional[int]) -> Tuple[int, Tuple[str
     return h, reasons
 
 
+def _probe_h2d(
+    sizes_mb: Tuple[float, float] = (1.0, 8.0), repeats: int = 3, device=None
+) -> Tuple[float, float]:
+    """Two-point host->device copy fit: (bandwidth GB/s, fixed latency s).
+
+    The median of ``repeats`` synchronized copies of pageable host memory
+    to ``device`` (default cuda:0) at two sizes, solved for slope
+    (bandwidth) and intercept (per-transfer latency)."""
+    dev = torch.device(device) if device is not None else torch.device("cuda", 0)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda *a: None)
+    points = []
+    for mb in sizes_mb:
+        nbytes = int(mb * (1 << 20))
+        host = torch.zeros(nbytes // 4, dtype=torch.float32)
+        host.to(dev, copy=True)     # warm the path
+        sync(dev)
+        ts = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            host.to(dev, copy=True)
+            sync(dev)
+            ts.append(time.perf_counter() - t0)
+        points.append((float(nbytes), sorted(ts)[len(ts) // 2]))
+    (b0, t0), (b1, t1) = points
+    slope = max((t1 - t0) / max(b1 - b0, 1.0), 1e-15)
+    intercept = max(t0 - slope * b0, 0.0)
+    return 1.0 / (slope * 1e9), intercept
+
+
+@dataclasses.dataclass(frozen=True)
+class Calibration:
+    """Measured machine numbers the planner may substitute for its rules.
+
+    ``Calibration.load()`` assembles one from whichever of the port's
+    calibration files exist (``BENCH_torch_copy_cost.json``: H2D rate and
+    the fused round's cost; ``BENCH_torch_engine.json``: per-engine q/s;
+    ``BENCH_torch_dynamic.json``: the dynamic engine's build rate and
+    crossover; the reference's keys), ``refresh()`` measures the copy rate
+    inline, and a caller may build one from its own measurements.  All
+    fields optional: a partial calibration informs only the decisions it
+    has numbers for.
+    """
+
+    h2d_gbps: Optional[float] = None       # host->device copy bandwidth
+    h2d_latency_s: float = 0.0             # fixed per-transfer cost
+    round_s: Optional[float] = None        # one fused round, reference shape
+    engine_qps: Mapping[str, float] = dataclasses.field(default_factory=dict)
+    build_pps: Optional[float] = None      # static index build, points/sec
+    dynamic_crossover: Optional[int] = None  # measured batch size beyond
+                                           # which rebuild-from-scratch beats
+                                           # batch-dynamic merge
+    dynamic_measured: bool = False         # True when the dynamic bench ran:
+                                           # tells "measured: no crossover in
+                                           # range" (crossover None) from
+                                           # "never measured"
+    age_s: Optional[float] = None          # seconds since the OLDEST source
+                                           # file was measured; None = unknown
+    slow_age_s: Optional[float] = None     # seconds since the oldest SLOW
+                                           # field (round cost, engine q/s)
+                                           # was measured: the inline H2D
+                                           # probe cannot refresh these, so
+                                           # their staleness survives refresh
+    source: str = ""
+
+    @property
+    def stale(self) -> bool:
+        """True when the oldest source measurement has outlived
+        ``CALIBRATION_STALE_S``: plan() warns and records it in reasons."""
+        return self.age_s is not None and self.age_s > CALIBRATION_STALE_S
+
+    @property
+    def slow_stale(self) -> bool:
+        """True when the slow fields (round cost, engine q/s) have outlived
+        the staleness window; ``refresh()`` carries ``slow_age_s``."""
+        return self.slow_age_s is not None and self.slow_age_s > CALIBRATION_STALE_S
+
+    def chunk_copy_s(self, chunk_bytes: int) -> Optional[float]:
+        """Predicted seconds to stream one chunk slab host->device."""
+        if self.h2d_gbps is None or self.h2d_gbps <= 0:
+            return None
+        return self.h2d_latency_s + chunk_bytes / (self.h2d_gbps * 1e9)
+
+    @classmethod
+    def refresh(cls, base: Optional["Calibration"] = None, device=None) -> "Calibration":
+        """Re-run the cheap copy-cost probe inline on ``device`` (default
+        cuda:0) and fold the fresh H2D numbers over ``base`` (keeping its
+        engine q/s etc., and its ``slow_age_s``)."""
+        gbps, latency_s = _probe_h2d(device=device)
+        base = base if base is not None else cls()
+        src = "inline-refresh" if not base.source else base.source + "+inline-refresh"
+        return dataclasses.replace(
+            base, h2d_gbps=gbps, h2d_latency_s=latency_s, age_s=0.0,
+            slow_age_s=base.slow_age_s, source=src,
+        )
+
+    @classmethod
+    def load(cls, root: Optional[str] = None) -> Optional["Calibration"]:
+        """Assemble from the port's calibration files under ``root``
+        (default: the checkout this package sits in).  Returns None when
+        none exists: callers then plan by rule.  The age is the files'
+        modification time."""
+        if root is None:
+            root = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", ".."))
+        h2d_gbps, h2d_latency_s, round_s = None, 0.0, None
+        build_pps, dynamic_crossover = None, None
+        engine_qps: dict = {}
+        sources, mtimes, slow_mtimes = [], [], []
+        cc = os.path.join(root, COPY_COST_FILE)
+        if os.path.exists(cc):
+            with open(cc) as f:
+                data = json.load(f)
+            h2d_gbps = data.get("h2d_gbps")
+            h2d_latency_s = data.get("h2d_latency_s", 0.0)
+            round_s = data.get("round_s")
+            sources.append(COPY_COST_FILE)
+            mtimes.append(os.path.getmtime(cc))
+            if round_s is not None:
+                slow_mtimes.append(os.path.getmtime(cc))
+        eb = os.path.join(root, ENGINE_FILE)
+        if os.path.exists(eb):
+            with open(eb) as f:
+                data = json.load(f)
+            m = data.get("shape", {}).get("m")
+            for eng, key in (("chunked", "chunked_s"), ("host", "host_s")):
+                qps = data.get(f"{eng}_qps")
+                if qps is None and m and data.get(key):
+                    qps = m / data[key]
+                if qps:
+                    engine_qps[eng] = float(qps)
+            sources.append(ENGINE_FILE)
+            mtimes.append(os.path.getmtime(eb))
+            if engine_qps:
+                slow_mtimes.append(os.path.getmtime(eb))
+        db = os.path.join(root, DYNAMIC_FILE)
+        dynamic_measured = False
+        if os.path.exists(db):
+            with open(db) as f:
+                data = json.load(f)
+            build_pps = data.get("build_pps")
+            dynamic_crossover = data.get("crossover_batch")
+            dynamic_measured = True
+            sources.append(DYNAMIC_FILE)
+            mtimes.append(os.path.getmtime(db))
+        if not sources:
+            return None
+        now = time.time()
+        return cls(
+            h2d_gbps=h2d_gbps, h2d_latency_s=h2d_latency_s, round_s=round_s,
+            engine_qps=engine_qps, build_pps=build_pps,
+            dynamic_crossover=dynamic_crossover, dynamic_measured=dynamic_measured,
+            age_s=max(0.0, now - min(mtimes)),
+            slow_age_s=max(0.0, now - min(slow_mtimes)) if slow_mtimes else None,
+            source="+".join(sources),
+        )
+
+
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """A fully-resolved execution plan (every engine parameter pinned)."""
@@ -182,6 +365,7 @@ class Plan:
     precision: str = "fp32"
     over_budget: bool = False
     starvation_deadline: int = DEFAULT_STARVATION_DEADLINE
+    calibrated: bool = False     # True when a Calibration informed decisions
     crossover_batch: Optional[int] = None  # dynamic: insert batches at or
                                  # above this flatten the forest
     merge_async: bool = False    # dynamic: carry merges on a background worker
@@ -232,13 +416,17 @@ def plan(
     op: str = "knn",
     mutable: Optional[bool] = None,
     merge_async: Optional[bool] = None,
+    calibration: Optional[Calibration] = None,
 ) -> Plan:
     """Pick an engine + parameters for (n, d) references and (m, k) queries.
 
     ``devices`` (the device slots; one device may repeat) defaults to every
     visible CUDA device (raises without a card); ``memory_budget`` is
-    per-slot bytes for the leaf structure.  Every decision is recorded in
-    ``Plan.reasons``.
+    per-slot bytes for the leaf structure.  ``calibration`` substitutes
+    measured numbers for the rules where it has them (``Calibration``);
+    the string ``"refresh"`` loads the port's calibration files and, when
+    they are missing or stale, measures the copy rate inline on the first
+    slot's device.  Every decision is recorded in ``Plan.reasons``.
     """
     if n < 1 or d < 1:
         raise ValueError(f"need n >= 1, d >= 1; got n={n} d={d}")
@@ -276,6 +464,41 @@ def plan(
         devices = default_devices()
     p = max(1, len(devices))
     reasons: list = []
+
+    if isinstance(calibration, str):
+        if calibration != "refresh":
+            raise ValueError(
+                f"calibration={calibration!r}: pass a Calibration, None, "
+                "or the string 'refresh'"
+            )
+        loaded = Calibration.load()
+        if loaded is None or loaded.stale:
+            first = devices[0] if devices else None
+            calibration = Calibration.refresh(
+                loaded, device=first if isinstance(first, torch.device) else None)
+            reasons.append(
+                "calibration auto-refresh: "
+                + ("no bench files found" if loaded is None
+                   else f"sources {loaded.age_s / 86400.0:.1f}d old")
+                + f"; inline H2D probe measured {calibration.h2d_gbps:.2f}"
+                f"GB/s + {calibration.h2d_latency_s * 1e6:.0f}us/transfer "
+                f"({calibration.source})"
+            )
+        else:
+            calibration = loaded
+
+    if calibration is not None and calibration.stale:
+        age_d = calibration.age_s / 86400.0
+        warnings.warn(
+            f"planner calibration is {age_d:.1f} days old "
+            f"(source: {calibration.source}); re-measure it on this machine "
+            f"({COPY_COST_FILE}, {ENGINE_FILE})",
+            stacklevel=2,
+        )
+        reasons.append(
+            f"calibration stale: oldest source measured {age_d:.1f}d ago "
+            f"({calibration.source}); using it, but numbers may have drifted"
+        )
 
     h, h_reasons = _clamp_height(n, k, height)
     reasons.extend(h_reasons)
@@ -356,7 +579,38 @@ def plan(
                 f" [over budget: even N={nc} (one leaf per chunk) holds "
                 f"{resident}B resident — budget is below the 2-chunk floor]"
             )
+        if calibration is not None:
+            copy_s = calibration.chunk_copy_s((resident - meta) // 2)
+            if copy_s is not None:
+                note += (
+                    f"; calibrated chunk copy ~{copy_s * 1e3:.2f}ms at "
+                    f"{calibration.h2d_gbps:.1f}GB/s"
+                )
+                if calibration.round_s:
+                    note += f" vs fused round ~{calibration.round_s * 1e3:.2f}ms"
         return nc, note, over
+
+    def calibrated_deadline() -> Tuple[int, Optional[str]]:
+        """Starvation deadline (rounds a pending chunk may be skipped) from
+        the measured copy-cost / round-cost ratio: when slab copies dominate
+        a round, let cold chunks wait longer so each visit is denser; when
+        rounds dominate, visit promptly."""
+        if calibration is None:
+            return DEFAULT_STARVATION_DEADLINE, None
+        n_leaves = 1 << h
+        nc_cand = n_chunks if n_chunks else 2
+        chunk_bytes = (-(-n_leaves // max(1, nc_cand))) * (slab // n_leaves)
+        copy_s = calibration.chunk_copy_s(chunk_bytes)
+        if copy_s is None or not calibration.round_s:
+            return DEFAULT_STARVATION_DEADLINE, None
+        ratio = copy_s / max(calibration.round_s, 1e-9)
+        dl = int(min(16, max(1, round(ratio))))
+        src = f"; {calibration.source}" if calibration.source else ""
+        return dl, (
+            f"calibrated starvation deadline {dl} rounds: chunk copy "
+            f"~{copy_s * 1e3:.2f}ms / round ~{calibration.round_s * 1e3:.2f}ms "
+            f"(ratio {ratio:.2f}{src})"
+        )
 
     tree_requested = height is not None or n_chunks is not None or buffer_size is not None
     small_job = n <= BRUTE_N_MAX or k * 4 > n or (m is not None and m * n <= BRUTE_WORK_MAX)
@@ -404,6 +658,28 @@ def plan(
                     f"{p} devices visible but {why}: paper-faithful query "
                     "chunking over replicated trees"
                 )
+        elif calibration is not None and calibration.engine_qps:
+            # calibrated single-device choice: measured q/s beats the rule,
+            # among engines that can honor an out-of-core constraint
+            candidates = {}
+            for name, qps in calibration.engine_qps.items():
+                try:
+                    caps = get_engine(name).caps
+                except KeyError:
+                    continue
+                if memory_budget is not None and not caps.out_of_core:
+                    continue
+                candidates[name] = qps
+            if candidates:
+                engine = max(candidates, key=candidates.get)
+                measured = ", ".join(f"{e}={q:.0f} q/s" for e, q in sorted(candidates.items()))
+                reasons.append(
+                    f"1 device, calibrated engine choice ({measured}; "
+                    f"{calibration.source}): {engine}"
+                )
+            else:
+                engine = "chunked"
+                reasons.append("1 device: chunk-streamed buffer k-d tree")
         else:
             engine = "chunked"
             reasons.append("1 device: chunk-streamed buffer k-d tree")
@@ -451,7 +727,7 @@ def plan(
     crossover = None
     do_merge_async = False
     if engine == "dynamic":
-        crossover, note = _mutable_costing(n)
+        crossover, note = _mutable_costing(n, calibration)
         reasons.append(note)
         # background staging unless pinned off: queries keep answering from
         # the pre-merge shards, only insert/query tail latency changes
@@ -500,6 +776,17 @@ def plan(
                     f"envelope (precision {prec})"
                 )
 
+    if (calibration is not None and calibration.slow_stale
+            and engine in ("chunked", "host", "sharded", "streaming", "dynamic")):
+        # the inline H2D refresh cannot re-measure these: disclose that the
+        # deadline / engine-choice inputs are old
+        reasons.append(
+            "calibration stale: slow fields (round cost, engine q/s) "
+            f"measured {calibration.slow_age_s / 86400.0:.1f}d ago and the "
+            "inline H2D probe cannot refresh them; re-measure them on this "
+            f"machine ({COPY_COST_FILE}, {ENGINE_FILE})"
+        )
+
     if over_budget and strict_budget:
         raise BudgetError(
             f"strict_budget: no {engine} plan fits memory_budget="
@@ -508,29 +795,54 @@ def plan(
     nc = int(n_chunks) if n_chunks is not None else 1
     ns = int(n_shards) if n_shards is not None else (
         p if engine in ("forest", "sharded", "ring", "dynamic") else 1)
+    deadline, dl_note = calibrated_deadline()
+    if dl_note is not None and engine in CHUNK_ENGINES:
+        reasons.append(dl_note)
     return Plan(
         engine=engine, n_chunks=nc, n_shards=ns,
         resident_bytes=resident_for(engine, nc, ns),
+        starvation_deadline=deadline, calibrated=calibration is not None,
         precision=prec, over_budget=over_budget, crossover_batch=crossover,
         merge_async=do_merge_async, reasons=tuple(reasons), **base
     )
 
 
-def _mutable_costing(n: int) -> Tuple[int, str]:
+def _mutable_costing(n: int, calibration: Optional[Calibration] = None) -> Tuple[
+        Optional[int], str]:
     """Rebuild-vs-merge crossover of the dynamic engine, the reference's
     model: a batch of b points absorbed by the carry chain costs ~b * levels
     point rebuilds, a flattening rebuild ~n + b; they cross at ~n / levels.
-    The reference overrides the model with its measured crossover
-    (``BENCH_dynamic.json``); that file was measured on other hardware with
-    the other package, so the port keeps the model until a measurement on
-    its own hardware exists."""
+    A calibration with a measured crossover overrides the model (a measured
+    None means batch-dynamic ingest won at every measured size: nothing is
+    forced through a flattening rebuild); a measured build rate turns the
+    model's ratios into seconds."""
     from repro_torch.core.dynamic import DEFAULT_BASE_CAPACITY
 
     levels = max(1, math.ceil(math.log2(max(2.0, n / DEFAULT_BASE_CAPACITY))))
+    if calibration is not None and calibration.dynamic_measured:
+        if calibration.dynamic_crossover:
+            cx = int(calibration.dynamic_crossover)
+            return cx, (
+                f"mutable: dynamic engine; measured rebuild-vs-merge "
+                f"crossover at batches >= {cx} points ({calibration.source})"
+            )
+        return None, (
+            "mutable: dynamic engine; measured: batch-dynamic ingest won at "
+            "every measured batch size, no flattening threshold pinned "
+            f"({calibration.source})"
+        )
     cx = max(DEFAULT_BASE_CAPACITY, n // levels)
-    return cx, (
+    note = (
         f"mutable: dynamic engine; carry-chain merge touches a point <= "
         f"{levels}x vs full rebuild of {n}, modeled crossover at batches >= "
-        f"{cx} (the model's: no crossover measured on this hardware; the "
-        "reference's BENCH_dynamic.json is not read)"
+        f"{cx}"
     )
+    if calibration is not None and calibration.build_pps:
+        note += (
+            f" (~{cx * levels / calibration.build_pps:.2f}s merge "
+            f"~= {(n + cx) / calibration.build_pps:.2f}s rebuild at "
+            f"{calibration.build_pps:.0f} pts/s)"
+        )
+    if calibration is None:
+        note += f" (the model's: no crossover measured, no {DYNAMIC_FILE} given)"
+    return cx, note

@@ -3,9 +3,8 @@
 Counterpart of ``repro.api.spec``: ``IndexSpec`` is what a caller asks for
 (``None`` = let the planner decide), ``QueryResult`` what a query returns,
 ``RadiusResult`` and ``StatResult`` what the dual-tree ops return.  The
-reference's ``calibration`` (ROADMAP Queue 1 item 19) and
-``compile_cache_dir`` (XLA's compile cache; nothing is compiled here) are
-not here.
+reference's ``compile_cache_dir`` (XLA's compile cache; nothing is
+compiled here) is not here.
 """
 
 from __future__ import annotations
@@ -40,6 +39,11 @@ class IndexSpec:
     memory_budget: Optional[int] = None   # device bytes for the leaf structure
     precision: Optional[str] = None       # "fp32" | "fp16" | "int8"
     strict_budget: bool = False           # over-budget plan raises BudgetError
+    calibration: Optional[Any] = None     # planner.Calibration (measured costs);
+                                          # None => plan by rule; the string
+                                          # "refresh" measures the copy rate
+                                          # inline when the port's calibration
+                                          # files are missing or stale
     # -- mutation (the dynamic engine) ---------------------------------
     mutable: Optional[bool] = None        # True: the index takes insert /
                                           # delete (plans 'dynamic')

@@ -1,7 +1,5 @@
-"""Architecture configs (``--arch`` selectable), copied from ``repro.configs``.
-
-``configs/shapes.py`` (the dry run's input specs) is not ported: it waits for
-the dry-run launcher (ROADMAP Queue 1 item 19).
+"""Architecture configs (``--arch`` selectable), copied from ``repro.configs``,
+and ``configs/shapes.py``: the dry run's shape cells and input specs.
 """
 
 from repro_torch.configs.base import ARCH_IDS, ArchConfig, get_config, registry

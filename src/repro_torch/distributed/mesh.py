@@ -25,7 +25,9 @@ reduce-scatter), and every sum over slots, forward or backward, adds slot
 issues every slot's work on the current stream; a value moves between
 slots by ``.to(device)`` (nothing on one card, where the slots' outputs
 are views of one result).  ``torch.distributed`` is not used: NCCL refuses
-two ranks on one GPU, and the reference is one controller too.
+two ranks on one GPU, and the reference is one controller too.  Each
+collective, forward or backward, is recorded once for the roofline's
+collective count (``roofline/analysis.py::record_collective``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ import math
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+
+from repro_torch.roofline.analysis import record_collective
 
 __all__ = ["SlotMesh", "Spec", "spec_axes", "split_bounds", "shard_slices", "shard_shape",
            "place", "gather", "all_sum", "all_gather", "reduce_scatter", "all_max", "reduce_to"]
@@ -199,6 +203,10 @@ def _sum_on(ts: Sequence[torch.Tensor], device) -> torch.Tensor:
     return out
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _spread(t: torch.Tensor, devices: Sequence[torch.device]) -> tuple:
     """``t`` on every device: the tensor itself for the first, a view where
     a slot shares its device, a copy otherwise."""
@@ -214,6 +222,7 @@ class _AllSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        record_collective("all-reduce", _nbytes(grads[0]), len(grads))
         total = _sum_on(grads, grads[0].device)
         return (None,) + tuple(total if d == total.device else total.to(d)
                                for d in ctx.devices)
@@ -229,6 +238,7 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        record_collective("reduce-scatter", _nbytes(grads[0]), len(grads))
         total = _sum_on(grads, grads[0].device)
         pieces = torch.split(total, ctx.sizes, dim=ctx.dim)
         return (None, None) + tuple(g.to(d) for g, d in zip(pieces, ctx.devices))
@@ -246,6 +256,7 @@ class _ReduceScatter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        record_collective("all-gather", _nbytes(grads[0]), len(grads))
         full = torch.cat([g.to(grads[0].device) for g in grads], dim=ctx.dim)
         return (None, None) + tuple(full if d == full.device else full.to(d)
                                     for d in ctx.devices)
@@ -256,6 +267,7 @@ def all_sum(parts: Sequence[torch.Tensor], devices: Sequence[torch.device]) -> L
     the slots' gradients the same way (Megatron's all-reduce, both ways)."""
     if len(parts) == 1:
         return [parts[0]]
+    record_collective("all-reduce", _nbytes(parts[0]), len(parts))
     return list(_AllSum.apply(list(devices), *parts))
 
 
@@ -265,6 +277,7 @@ def all_gather(parts: Sequence[torch.Tensor], dim: int,
     reduce-scatter of the slots' gradients."""
     if len(parts) == 1:
         return [parts[0]]
+    record_collective("all-gather", _nbytes(parts[0]), len(parts))
     return list(_AllGather.apply(dim, list(devices), *parts))
 
 
@@ -274,12 +287,14 @@ def reduce_scatter(parts: Sequence[torch.Tensor], dim: int,
     i; backward: an all-gather of the pieces' gradients."""
     if len(parts) == 1:
         return [parts[0]]
+    record_collective("reduce-scatter", _nbytes(parts[0]), len(parts))
     return list(_ReduceScatter.apply(dim, list(devices), *parts))
 
 
 def all_max(parts: Sequence[torch.Tensor], devices: Sequence[torch.device]) -> List[torch.Tensor]:
     """The elementwise max over the slots, on every slot (no gradient: a
     softmax's shift, or ``pmax`` of a quantization scale)."""
+    record_collective("all-reduce", _nbytes(parts[0]), len(parts))
     with torch.no_grad():
         out = parts[0].detach().to(devices[0])
         for p in parts[1:]:
@@ -289,5 +304,7 @@ def all_max(parts: Sequence[torch.Tensor], devices: Sequence[torch.device]) -> L
 
 def reduce_to(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
     """Σ parts on one slot's ``device``, slot 0 first (plain autograd: each
-    part's gradient is the result's)."""
+    part's gradient is the result's; counted as the reference's program
+    sums, an all-reduce)."""
+    record_collective("all-reduce", _nbytes(parts[0]), len(parts))
     return _sum_on(parts, torch.device(device))

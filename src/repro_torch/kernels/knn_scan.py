@@ -376,8 +376,9 @@ def leaf_scan_units(
     of at most ``MAX_TQ`` slots, one launch each.  ``launches`` counts every
     launch, ``launches_by_code`` those of each code type,
     ``launches_by_instance`` those of each (code type, k), keyed
-    ``"f32_k12"`` (the wide kernel's ``"f32_d30_k16"``), and
-    ``launches_by_variant`` those of each ``Variant.name``.
+    ``"f32_k12"`` (the wide kernel's ``"f32_d30_k16"``),
+    ``launches_by_variant`` those of each ``Variant.name`` and
+    ``launch_work`` those of each (W, TQ, L_pad, d).
     """
     if qpad.device.type != "cuda":
         raise ValueError(
@@ -427,7 +428,7 @@ def _launch(v: Variant, qpad, slab, unit_leaf, unit_query, n_units, k, scale, of
             f"{lib.leaf_scan_error_string(err).decode()}"
         )
     count_launch(code, f"{code}_k{k}" if v.kind == "narrow" else f"{code}_d{d}_k{k}",
-                 v.name)
+                 v.name, (w, tq, l_pad, d))
     return out_d, out_i
 
 
@@ -437,15 +438,21 @@ def _launch(v: Variant, qpad, slab, unit_leaf, unit_query, n_units, k, scale, of
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(code: str, instance: str, variant: str) -> None:
+def count_launch(code: str, instance: str, variant: str, work=None) -> None:
     """Add one launch to the counts of ``leaf_scan_units``: in all, for the
-    code type, the (code type, k) instance and the variant name."""
+    code type, the (code type, k) instance and the variant name, and under
+    ``launch_work`` for its ``work`` = (W units, TQ, L_pad, d): the launch's
+    grid of work units (the plan's capacity, known on the host; units past
+    ``n_units`` end at once), from which its operations W TQ L_pad (2d + 3)
+    are reckoned."""
     w = leaf_scan_units
     with _COUNT_LOCK:
         w.launches += 1
         w.launches_by_code[code] += 1
         w.launches_by_instance[instance] = w.launches_by_instance.get(instance, 0) + 1
         w.launches_by_variant[variant] = w.launches_by_variant.get(variant, 0) + 1
+        if work is not None:
+            w.launch_work[work] = w.launch_work.get(work, 0) + 1
 
 
 def reset_launches() -> None:
@@ -455,10 +462,11 @@ def reset_launches() -> None:
         leaf_scan_units.launches_by_code = dict.fromkeys(CODES, 0)
         leaf_scan_units.launches_by_instance = {}
         leaf_scan_units.launches_by_variant = {}
+        leaf_scan_units.launch_work = {}
 
 
 # kernel launches (not plain-version calls), in all, per code type, per
-# (code type, k) and per variant
+# (code type, k), per variant and per (W, TQ, L_pad, d)
 reset_launches()
 
 

@@ -298,6 +298,26 @@ def write_cache(cache: Dict[str, torch.Tensor], rows: torch.Tensor, slot: torch.
     cache["v"][rows, slot] = v_new[rows, 0]
 
 
+def write_cache_where(cache: Dict[str, torch.Tensor], rows: torch.Tensor, slot: torch.Tensor,
+                      keep: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                      cfg) -> None:
+    """``write_cache`` at every row of ``rows``: the new K / V where
+    ``keep``, the cache's own values (written back) elsewhere.  No shape
+    depends on the data (``keep`` selects by value, not by index), so it
+    also runs on ``meta`` tensors; each row writes one slot of its own
+    cache row, so the written-back rows change nothing."""
+    pairs = [("k", k_new), ("v", v_new)]
+    if cfg.kv_cache_dtype == "int8":
+        k_new, ks_new = _quantize_kv(k_new)
+        v_new, vs_new = _quantize_kv(v_new)
+        pairs = [("k_scale", ks_new), ("v_scale", vs_new), ("k", k_new), ("v", v_new)]
+    for name, new in pairs:
+        t = cache[name]
+        old = t[rows, slot]
+        m = keep.reshape((-1,) + (1,) * (old.dim() - 1))
+        t[rows, slot] = torch.where(m, new[rows, 0], old)
+
+
 def cache_values(cache: Dict[str, torch.Tensor], cfg):
     """The cache's K / V in the compute dtype (dequantized if int8)."""
     if cfg.kv_cache_dtype == "int8":

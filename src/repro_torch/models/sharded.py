@@ -677,8 +677,10 @@ class ShardedLM:
                 spans.append((lo, hi))
                 slot = attention.decode_slots(pos_b, length, window)
                 rows = torch.arange(h.shape[0], device=h.device) if act_s is None else act_s[s]
-                mine = rows[(slot[rows] >= lo) & (slot[rows] < hi)]
-                attention.write_cache(c, mine, slot[mine] - lo, k_new, v_new, cfg)
+                if hi > lo:   # the rows whose slot is in this stretch (by value)
+                    at = slot[rows]
+                    attention.write_cache_where(c, rows, (at - lo).clamp(0, hi - lo - 1),
+                                                (at >= lo) & (at < hi), k_new, v_new, cfg)
                 lo = hi
             qf = all_gather(qs, 2, devs)
             scores, maxes, values = [], [], []

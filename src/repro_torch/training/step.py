@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.mesh import shard_shape, shard_slices, spec_axes
+from repro_torch.roofline.analysis import record_collective
 from repro_torch.training.compression import ef_int8_allreduce, init_error_state
 from repro_torch.training.optimizer import Hyper, adamw_update, opt_state_specs
 
@@ -368,9 +369,14 @@ def make_sharded_train_step(lm, h: Hyper, mesh, *, data_axes: Tuple[str, ...] = 
                             opt[s]["error"][n] = err[n].to(mesh.devices[s])
                     continue
                 # summed in fp32, kept in the parameter's dtype as the
-                # reference's gradients are (bf16 under mp_zero1)
+                # reference's gradients are (bf16 under mp_zero1): the
+                # reference's all-reduce, or its reduce-scatter where the
+                # gradient is split further over the data axes
                 total = _sum_slots([local[s][n] for s in members]).to(
                     params.params[members[0]][n].dtype)
+                record_collective("reduce-scatter" if (n, members[0]) in chunk
+                                  else "all-reduce",
+                                  total.numel() * total.element_size(), len(members))
                 for s in members:
                     t = total.to(mesh.devices[s])
                     out[s][n] = t[chunk[n, s]] if (n, s) in chunk else t
@@ -409,13 +415,14 @@ def make_sharded_train_step(lm, h: Hyper, mesh, *, data_axes: Tuple[str, ...] = 
             if dim is None:
                 continue
             for grp in mesh.groups(spec_axes(gspecs[n][dim])):
-                for src in grp:
-                    sl = chunk[n, src]
-                    piece = params.params[src][n].detach()[sl]
-                    for dst in grp:
-                        if dst != src:
-                            params.params[dst][n].detach()[sl].copy_(
-                                piece.to(mesh.devices[dst]))
+                # the group's chunks, in its order, are the whole shard
+                pieces = [params.params[src][n].detach()[chunk[n, src]] for src in grp]
+                record_collective("all-gather", pieces[0].numel() * pieces[0].element_size(),
+                                  len(grp))
+                lead = pieces[0].device
+                full = torch.cat([p.to(lead) for p in pieces], dim=dim)
+                for dst in grp:
+                    params.params[dst][n].detach().copy_(full)
 
     def step_fn(params, opt_state: List[dict], batch: Dict[str, object], step: int):
         ga = h.grad_accum

@@ -426,7 +426,9 @@ def _run(code: str, **env):
 PORT_MODULES = ("persist.format", "training.optimizer", "training.step",
                 "training.checkpoint", "models.moe", "models.ssm", "models.rglru",
                 "models.frontends", "launch.train", "examples.train_lm",
-                "examples.knnlm_serve")
+                "examples.knnlm_serve", "roofline.calibrate", "configs.shapes",
+                "launch.dryrun", "launch.perf", "examples.quickstart",
+                "examples.outlier_detection")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -498,3 +500,283 @@ def test_build_without_card_and_without_cpu_device_raises():
     """, CUDA_VISIBLE_DEVICES="")
     assert out.returncode == 0, out.stderr
     assert "RAISED" in out.stdout and "torch.device('cpu')" in out.stdout
+
+
+# --------------------------------------------------------------------------
+# measured-cost calibration (tests/test_api.py TestCalibration, both packages)
+# --------------------------------------------------------------------------
+def _cal_pair(**kw):
+    """The same ``Calibration`` in both packages (tests/test_api.py's base)."""
+    from repro_torch.api import Calibration
+
+    base = dict(h2d_gbps=10.0, h2d_latency_s=50e-6, round_s=5e-3,
+                engine_qps={"chunked": 2500.0, "host": 600.0}, source="test")
+    base.update(kw)
+    return Calibration(**base), jax_api.Calibration(**base)
+
+
+def _calibrated_reasons(p, mask: bool):
+    import re
+
+    rs = [r for r in p.reasons if "calibrat" in r or "measured" in r]
+    return [re.sub(r"\d+(\.\d+)?", "#", r) for r in rs] if mask else rs
+
+
+def _plan_both(cal, **kw):
+    """The port's plan on one CPU slot and the reference's on one device,
+    with the same calibration pair (or the same non-pair argument); the
+    engine, n_chunks, starvation deadline, ``calibrated`` and the reasons
+    that cite a calibration must be equal.  The port stores rows unpadded
+    (the reference pads d to a multiple of 8), so where d is not such a
+    multiple the byte counts in the reasons differ and their words must
+    not."""
+    pc, rc = cal if isinstance(cal, tuple) else (cal, cal)
+    port = plan(devices=CPU, calibration=pc, **kw)
+    ref = jax_api.plan(devices=[object()], calibration=rc, **kw)
+    for f in ("engine", "n_chunks", "starvation_deadline", "calibrated", "crossover_batch"):
+        assert getattr(port, f) == getattr(ref, f), f
+    mask = kw["d"] % 8 != 0
+    assert _calibrated_reasons(port, mask) == _calibrated_reasons(ref, mask)
+    return port, ref
+
+
+class TestCalibration:
+    """Measured-cost planning: a Calibration turns rule-based decisions
+    into calibrated ones, in both packages alike."""
+
+    def test_uncalibrated_plan_defaults(self):
+        p, _ = _plan_both(None, n=50_000, d=8, m=50_000)
+        assert not p.calibrated and p.starvation_deadline >= 1
+
+    def test_calibrated_engine_choice_shows_numbers(self):
+        p, _ = _plan_both(_cal_pair(), n=50_000, d=8, m=50_000)
+        assert p.calibrated and p.engine == "chunked"   # 2500 q/s beats 600 q/s
+        assert any("calibrated engine choice" in r and "2500" in r for r in p.reasons)
+
+    def test_calibrated_choice_can_flip_engine(self):
+        p, _ = _plan_both(_cal_pair(engine_qps={"chunked": 100.0, "host": 900.0}),
+                          n=50_000, d=8, m=50_000)
+        assert p.engine == "host"
+
+    @pytest.mark.parametrize("d", [8, 10])
+    def test_calibrated_deadline_from_cost_ratio(self, d):
+        n = 200_000
+        h = plan(n, d, devices=CPU).height
+        budget = estimate_slab_bytes(n, d, h) // 3
+        rbudget = jax_api.estimate_slab_bytes(n, d, h) // 3
+        for cal, want in ((dict(h2d_gbps=0.001, round_s=1e-3), 16),
+                          (dict(h2d_gbps=1000.0, round_s=5e-3), 1)):
+            pc, rc = _cal_pair(**cal)
+            port = plan(n, d, k=10, devices=CPU, memory_budget=budget, calibration=pc)
+            ref = jax_api.plan(n, d, k=10, devices=[object()], memory_budget=rbudget,
+                               calibration=rc)
+            assert port.starvation_deadline == ref.starvation_deadline == want
+            assert (port.engine, port.n_chunks, port.calibrated) == (
+                ref.engine, ref.n_chunks, ref.calibrated)
+            assert _calibrated_reasons(port, d % 8 != 0) == _calibrated_reasons(ref, d % 8 != 0)
+            assert any("starvation deadline" in r for r in port.reasons)
+
+    @pytest.mark.parametrize("d", [8, 10])
+    def test_calibrated_chunk_note_shows_copy_cost(self, d):
+        n = 200_000
+        h = plan(n, d, devices=CPU).height
+        pc, rc = _cal_pair()
+        port = plan(n, d, k=10, devices=CPU, memory_budget=estimate_slab_bytes(n, d, h) // 3,
+                    calibration=pc, precision="fp32")
+        ref = jax_api.plan(n, d, k=10, devices=[object()],
+                           memory_budget=jax_api.estimate_slab_bytes(n, d, h) // 3,
+                           calibration=rc, precision="fp32")
+        assert port.n_chunks == ref.n_chunks > 1
+        assert _calibrated_reasons(port, d % 8 != 0) == _calibrated_reasons(ref, d % 8 != 0)
+        assert any("calibrated chunk copy" in r and "GB/s" in r for r in port.reasons)
+
+    def test_partial_calibration_is_harmless(self):
+        from repro_torch.api import Calibration
+
+        p, _ = _plan_both((Calibration(source="empty"), jax_api.Calibration(source="empty")),
+                          n=50_000, d=8, m=50_000)
+        assert p.calibrated and p.engine == "chunked" and p.starvation_deadline >= 1
+
+    def test_load_roundtrip(self, tmp_path):
+        """``load`` reads the port's own file names, with the reference's
+        keys, as the reference reads its own."""
+        import json
+
+        from repro_torch.api import Calibration
+
+        files = {"copy_cost": {"h2d_gbps": 12.5, "h2d_latency_s": 1e-5, "round_s": 4e-3},
+                 "engine": {"shape": {"m": 2000}, "chunked_s": 0.8, "host_s": 3.2,
+                            "chunked_qps": 2500.0}}
+        (tmp_path / "port").mkdir()
+        (tmp_path / "ref").mkdir()
+        for name, data in files.items():
+            (tmp_path / "port" / f"BENCH_torch_{name}.json").write_text(json.dumps(data))
+            (tmp_path / "ref" / f"BENCH_{name}.json").write_text(json.dumps(data))
+        cal = Calibration.load(root=str(tmp_path / "port"))
+        rcal = jax_api.Calibration.load(root=str(tmp_path / "ref"))
+        for f in ("h2d_gbps", "h2d_latency_s", "round_s", "engine_qps", "build_pps",
+                  "dynamic_crossover", "dynamic_measured"):
+            assert getattr(cal, f) == getattr(rcal, f), f
+        assert cal.engine_qps["host"] == pytest.approx(2000 / 3.2)
+        assert cal.source == "BENCH_torch_copy_cost.json+BENCH_torch_engine.json"
+
+    def test_load_reads_only_the_ports_files(self, tmp_path):
+        """A directory with only the reference's files (another machine's
+        numbers) gives no calibration, nor does a missing one."""
+        import json
+
+        from repro_torch.api import Calibration
+
+        for name in ("copy_cost", "engine", "dynamic"):
+            (tmp_path / f"BENCH_{name}.json").write_text(json.dumps({"h2d_gbps": 1.0}))
+        assert Calibration.load(root=str(tmp_path)) is None
+        assert Calibration.load(root=str(tmp_path / "nowhere")) is None
+
+    def test_stale_calibration_warns_and_lands_in_reasons(self):
+        pc, rc = _cal_pair(age_s=10 * 86400.0)
+        assert pc.stale and rc.stale
+        with pytest.warns(UserWarning, match="days old"):
+            p, _ = _plan_both((pc, rc), n=50_000, d=8, m=50_000)
+        assert any("calibration stale" in r for r in p.reasons) and p.calibrated
+
+    def test_fresh_calibration_does_not_warn(self):
+        import warnings as _warnings
+
+        with _warnings.catch_warnings():
+            _warnings.simplefilter("error")
+            p, _ = _plan_both(_cal_pair(age_s=3600.0), n=50_000, d=8, m=50_000)
+        assert not any("stale" in r for r in p.reasons)
+
+    def test_load_derives_age_from_file_mtime(self, tmp_path):
+        import json
+        import time
+
+        from repro_torch.api import CALIBRATION_STALE_S, Calibration
+
+        assert CALIBRATION_STALE_S == jax_api.CALIBRATION_STALE_S
+        cc = tmp_path / "BENCH_torch_copy_cost.json"
+        cc.write_text(json.dumps({"h2d_gbps": 10.0, "round_s": 1e-3}))
+        old = time.time() - (CALIBRATION_STALE_S + 86400)
+        os.utime(cc, (old, old))
+        cal = Calibration.load(root=str(tmp_path))
+        assert cal.age_s > CALIBRATION_STALE_S and cal.stale and cal.slow_stale
+        os.utime(cc, None)
+        assert not Calibration.load(root=str(tmp_path)).stale
+
+    @pytest.mark.parametrize("crossover", [4096, None])
+    def test_load_reads_dynamic_bench(self, tmp_path, crossover):
+        """A measured crossover overrides the dynamic engine's model; a
+        measured None (batch-dynamic won at every size) pins none."""
+        import json
+
+        from repro_torch.api import Calibration
+
+        data = json.dumps({"build_pps": 1e6, "crossover_batch": crossover})
+        (tmp_path / "BENCH_torch_dynamic.json").write_text(data)
+        (tmp_path / "BENCH_dynamic.json").write_text(data)
+        cal = Calibration.load(root=str(tmp_path))
+        rcal = jax_api.Calibration.load(root=str(tmp_path))
+        assert cal.dynamic_measured and cal.dynamic_crossover == crossover
+        assert "BENCH_torch_dynamic.json" in cal.source
+        port = plan(50_000, 8, devices=CPU, mutable=True, calibration=cal)
+        ref = jax_api.plan(50_000, 8, devices=[object()], mutable=True, calibration=rcal)
+        assert port.crossover_batch == ref.crossover_batch == crossover
+        mut = [r for r in port.reasons if r.startswith("mutable: dynamic engine")]
+        rmut = [r for r in ref.reasons if r.startswith("mutable: dynamic engine")]
+        assert [r.replace("BENCH_torch_", "BENCH_") for r in mut] == rmut
+
+    def test_spec_carries_calibration_through_facade(self):
+        pts, q = _data(6000, 64, 6, seed=9)
+        pc, _ = _cal_pair()
+        idx = KNNIndex.build(pts, IndexSpec(engine="chunked", height=4, calibration=pc,
+                                            devices=CPU))
+        assert idx.plan.calibrated
+        dists, ids = idx.query(q, k=5)
+        bd, _ = knn_brute(q, pts, 5, device="cpu")
+        np.testing.assert_allclose(dists, bd, rtol=1e-4, atol=1e-4)
+
+    def test_refresh_remeasures_h2d_over_base(self):
+        from repro_torch.api import Calibration
+
+        base = Calibration(h2d_gbps=0.001, round_s=5e-3, engine_qps={"chunked": 2500.0},
+                           age_s=30 * 86400.0, source="old-bench")
+        cal = Calibration.refresh(base, device=torch.device("cpu"))
+        assert cal.h2d_gbps > 0.001 and cal.h2d_latency_s >= 0.0
+        assert not cal.stale and cal.age_s == 0.0
+        assert cal.round_s == 5e-3 and cal.engine_qps == {"chunked": 2500.0}
+        assert cal.source == "old-bench+inline-refresh"
+
+    def test_plan_refresh_string(self, tmp_path, monkeypatch):
+        """``calibration="refresh"`` with no calibration files measures the
+        copy rate on the first slot's device; any other string raises."""
+        import warnings as _warnings
+
+        from repro_torch.api import planner as planner_mod
+
+        monkeypatch.setattr(planner_mod.Calibration, "load",
+                            classmethod(lambda cls, root=None: None))
+        with _warnings.catch_warnings():
+            _warnings.simplefilter("error", UserWarning)
+            p = plan(50_000, 8, m=50_000, devices=CPU, calibration="refresh")
+        assert p.calibrated
+        assert any(r.startswith("calibration auto-refresh: no bench files found")
+                   for r in p.reasons)
+        with pytest.raises(ValueError, match="refresh"):
+            plan(50_000, 8, devices=CPU, calibration="reload")
+
+
+# --------------------------------------------------------------------------
+# the examples (examples/quickstart.py, examples/outlier_detection.py)
+# --------------------------------------------------------------------------
+def test_quickstart_example_matches_reference():
+    """``repro_torch.examples.quickstart`` at 20000 points and 2000 queries
+    on the CPU against the reference example's calls at that size: the
+    same answers, device-resident and under a third of the budget."""
+    from repro.data.pipeline import PointCloud as RefCloud
+    from repro_torch.examples import quickstart
+
+    got = quickstart.main(["--device", "cpu", "--n", "20000", "--m", "2000"])
+    pc = RefCloud(20000, 10, seed=0)
+    points, queries = pc.points(), pc.queries(2000)
+    index = jax_api.KNNIndex.build(points, height=7)
+    rd, ri = index.query(queries, k=10)
+    budget = index.resident_bytes() // 3
+    chunked = jax_api.KNNIndex.build(points, spec=jax_api.IndexSpec(height=7,
+                                                                    memory_budget=budget))
+    cd, ci = chunked.query(queries[:2000], k=10)
+    _assert_same_answers(SimpleNamespace(dists=got["dists"], idx=got["idx"]), rd, ri,
+                         points, queries)
+    _assert_same_answers(SimpleNamespace(dists=got["chunked_dists"], idx=got["chunked_idx"]),
+                         cd, ci, points, queries[:2000])
+    assert got["recall"] == 1.0
+    assert (got["engine"], got["chunked_engine"]) == (index.engine_name, chunked.engine_name)
+
+
+def test_outlier_detection_example_matches_reference():
+    """``repro_torch.examples.outlier_detection`` at 6000 sources (height 6)
+    on the CPU against the reference example's calls on the same catalog:
+    the same outliers flagged; the port's neighbor counts are the exact
+    (float64) ones, and the reference's differ from them only by pairs
+    within its decomposed fp32 form's rounding of r (|d^2 - r^2| <= 4 eps
+    (|q|^2 + |x|^2)); the port's radius is the direct fp32 form."""
+    from repro_torch.examples import outlier_detection
+
+    n, r = 6000, 0.02
+    got = outlier_detection.main(["--device", "cpu", "--n", str(n), "--height", "6"])
+    data = outlier_detection.catalog(n)
+    index = jax_api.KNNIndex.build(data, spec=jax_api.IndexSpec(op="radius", height=6,
+                                                                m_hint=len(data)))
+    indptr, ids, dists = index.radius(data, r)
+    want = np.diff(indptr) - 1
+    rank = np.argsort(want, kind="stable")
+    assert got["flagged"] == set(rank[:outlier_detection.N_ANOM].tolist()) == set(
+        range(n, n + outlier_detection.N_ANOM))
+    x = data.astype(np.float64)
+    sq = (x ** 2).sum(1)
+    eps = np.finfo(np.float32).eps
+    for lo in range(0, len(x), 1024):
+        d2 = ((x[lo:lo + 1024, None, :] - x[None]) ** 2).sum(-1)
+        exact = (d2 <= r * r).sum(1) - 1
+        np.testing.assert_array_equal(got["counts"][lo:lo + 1024], exact)
+        near = (np.abs(d2 - r * r) <= 4 * eps * (sq[lo:lo + 1024, None] + sq[None])).sum(1)
+        assert (np.abs(want[lo:lo + 1024] - exact) <= near).all()

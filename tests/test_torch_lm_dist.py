@@ -46,7 +46,7 @@ from repro.training.compression import ef_int8_allreduce as ref_ef_int8_allreduc
 from repro.training.step import apply_fsdp as ref_apply_fsdp
 from repro_torch.configs import get_config
 from repro_torch.distributed.mesh import SlotMesh, shard_shape
-from repro_torch.launch.mesh import DryRunNotPorted, data_axes_of, make_production_mesh, tp_of
+from repro_torch.launch.mesh import data_axes_of, make_production_mesh, tp_of
 from repro_torch.models import (
     Dist,
     LanguageModel,
@@ -309,9 +309,13 @@ def test_parameter_shapes_match_reference():
     assert ref_shapes["blocks.0.mixer.w_q"] == (3584, 32, 128)
 
 
-def test_mesh_helpers_match_reference():
+def test_mesh_helpers_match_reference(monkeypatch):
     """``data_axes_of`` / ``tp_of`` against ``repro.launch.mesh``'s on the
-    reference's FakeMesh and on a SlotMesh; the pod meshes raise."""
+    reference's FakeMesh and on a SlotMesh; ``make_production_mesh``'s
+    shape and axis names against ``repro.launch.mesh.make_production_mesh``
+    (its ``make_mesh`` replaced by one that records the layout: the
+    reference's pods need 256 / 512 devices)."""
+    import repro.launch.mesh as ref_mesh
     for shape in ({"pod": 2, "data": 16, "model": 16}, {"data": 2, "model": 2}):
         fake = FakeMesh(shape)
         assert data_axes_of(fake) == ref_data_axes_of(fake)
@@ -319,8 +323,14 @@ def test_mesh_helpers_match_reference():
     mesh = SlotMesh((CPU,) * 8, {"data": 4, "model": 2})
     assert data_axes_of(mesh) == ("data",) and tp_of(mesh) == 2
     assert mesh.group(5, ("data",)) == [1, 3, 5, 7] and mesh.coords(5) == {"data": 2, "model": 1}
-    with pytest.raises(DryRunNotPorted, match="item 19"):
-        make_production_mesh()
+    monkeypatch.setattr(ref_mesh, "make_mesh", lambda shape, axes: FakeMesh(dict(zip(axes, shape))))
+    for multi_pod in (False, True):
+        ref = ref_mesh.make_production_mesh(multi_pod=multi_pod)
+        got = make_production_mesh(multi_pod=multi_pod)
+        assert got.axis_names == ref.axis_names and got.shape == ref.shape
+        assert got.size == (512 if multi_pod else 256)
+        assert {d.type for d in got.devices} == {"meta"}
+        assert data_axes_of(got) == ref_data_axes_of(ref) and tp_of(got) == ref_tp_of(ref) == 16
 
 
 # --------------------------------------------------------------------------
