@@ -242,6 +242,7 @@ here imports jax or the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -291,6 +292,7 @@ REFINE_K = 74
 STREAM_M = 2 ** 16   # queries of the stream cell
 KDTREE_M = 2 ** 14   # queries of the kdtree cell
 PERSIST_M = 2 ** 16  # queries the persist cell answers before and after
+STAMP_ROUNDS = 64    # replayed rounds of the jit cell traced against its stamps
 WIDE_D = 130         # the wide kernel's timed rows (d > 16)
 WIDE_CELL_D = 30     # the wide cell's rows (the top of the paper's range)
 LM_KEY_D = 16        # the lm cell's keys: the kNN-LM's projection (proj_dim)
@@ -971,11 +973,30 @@ def profile_call(torch, phase, fn, host_top: int = 0, op_top: int = 0) -> None:
 
 def launch_counts(knn_scan) -> dict:
     """The leaf-scan wrapper's counts since its last reset: per code type,
-    ``by_instance`` per (code type, k), ``by_variant`` per launch name and
-    ``work`` per (W units, TQ, L_pad, d)."""
+    ``by_instance`` per (code type, k) and ``by_variant`` per launch name."""
     w = knn_scan.leaf_scan_units
     return dict(w.launches_by_code, by_instance=dict(w.launches_by_instance),
-                by_variant=dict(w.launches_by_variant), work=dict(w.launch_work))
+                by_variant=dict(w.launches_by_variant))
+
+
+@contextlib.contextmanager
+def record_scans(shapes: list):
+    """Append each ``kernels/ops.py::leaf_scan_units`` call's (W units, TQ,
+    L_pad, d) to ``shapes`` while the block runs: the launch grid, from
+    which its operations W TQ L_pad (2d + 3) are reckoned."""
+    from repro_torch.kernels import ops as kops
+
+    real = kops.leaf_scan_units
+
+    def spy(q, slab, unit_leaf, unit_query, n_units, **kw):
+        shapes.append((unit_leaf.shape[0], unit_query.shape[1], slab.shape[1], slab.shape[2]))
+        return real(q, slab, unit_leaf, unit_query, n_units, **kw)
+
+    kops.leaf_scan_units = spy
+    try:
+        yield
+    finally:
+        kops.leaf_scan_units = real
 
 
 def one_card(torch):
@@ -1226,7 +1247,7 @@ def main(argv=None) -> int:
     run_dist(torch, dev, args.seed)
     multi_shift = args.shift + args.multi_shift
     run_roofline(torch, dev, args.seed, dryruns, cal_cell,
-                 ring=(cells["multi_slots4_ring"]["work"], 2 ** (24 - multi_shift),
+                 ring=(cells["multi_slots4_ring"]["shapes"], 2 ** (24 - multi_shift),
                        2 ** (20 - multi_shift), 10, 4))
 
     def entry(name, kind, code, head_key, cell, timed, width=None):
@@ -1349,10 +1370,23 @@ def run_jit(torch, points, queries, main_res, dev, same_answers, profile=False) 
     equal main's up to ties (rows whose distances differ settled by
     knn_brute, both exact there).  The leaf-scan wrapper counts its launches
     only at the eager round and at capture: the kernel runs once per round
-    executed, so launches are printed as eager rounds + graph replays."""
+    executed, so launches are printed as eager rounds + graph replays.
+
+    The round's own counts are checked too: the stamp and tally wrappers
+    launch five stamps and one tally at the eager round and at the capture
+    and nothing at a replay; the query's counts and phase seconds are
+    printed with the live curve of its round log; and the phase seconds of
+    the first ``STAMP_ROUNDS`` replayed rounds at the query's own m are held
+    against a ``torch.profiler`` trace of them (``stamp.trace_bounds``):
+    each no less than its kernels' span between its stamps and no more than
+    its stamps' span, to within a microsecond a stamp."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from repro_torch import tracing
     from repro_torch.api import IndexSpec, KNNIndex
-    from repro_torch.core.jitsearch import lazy_knn_jit
-    from repro_torch.kernels import knn_scan
+    from repro_torch.core.jitsearch import PHASES, lazy_knn_jit
+    from repro_torch.kernels import knn_scan, stamp
 
     m = queries.shape[0]
     torch.cuda.synchronize()
@@ -1362,9 +1396,11 @@ def run_jit(torch, points, queries, main_res, dev, same_answers, profile=False) 
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    stamp.reset_launches()
     index.warm(m, 10)          # one eager round, then the capture
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    assert stamp.launches == {"stamp": 10, "tally": 2}, stamp.launches
     (rounds_state,) = index._state.rounds.values()
     eager0, replays0 = rounds_state.eager_rounds, rounds_state.replays
     knn_scan.reset_launches()
@@ -1375,6 +1411,24 @@ def run_jit(torch, points, queries, main_res, dev, same_answers, profile=False) 
     replays = rounds_state.replays - replays0
     eager = rounds_state.eager_rounds - eager0
     wrapper = knn_scan.leaf_scan_units.launches_by_code["f32"]
+    assert stamp.launches == {"stamp": 10, "tally": 2}, stamp.launches
+    qs, work = res.stats, rounds_state.last
+    (rounds_span,) = [sp for sp in tracing.spans()
+                      if sp.name == "query.rounds" and sp.call == qs.call]
+    phases_s = sum(sec for _, sec in qs.phase_s)
+    assert 0 < phases_s <= rounds_span.seconds, (phases_s, rounds_span.seconds)
+    visits = work.log[:, 0]
+    live = {}
+    for pct in (50, 10, 1):
+        under = np.flatnonzero(visits < m * pct / 100)
+        live[f"live_under_{pct}pct_at_round"] = int(under[0]) + 1 if under.size else None
+    log("jit_counts", leaf_visits=qs.leaf_visits, useful_pairs=qs.useful_pairs,
+        units_scanned=qs.units_scanned, scan_pairs=qs.scan_pairs,
+        steady_rounds=qs.steady_rounds, iterations=qs.iterations,
+        round_fill_pct=100 * qs.leaf_visits / (m * qs.steady_rounds),
+        scan_fill_pct=100 * qs.useful_pairs / qs.scan_pairs,
+        **{f"{name}_s": sec for name, sec in qs.phase_s}, phases_s=phases_s,
+        rounds_span_s=rounds_span.seconds, **live)
     # the fixed point alone (replayed rounds + the device rescoring), without
     # the certificate and the brute force of unproven rows
     st = index._state
@@ -1385,6 +1439,22 @@ def run_jit(torch, points, queries, main_res, dev, same_answers, profile=False) 
                  first_leaf_heap=st.top.first_leaf_heap, backend=st.backend, cache=st.rounds)
     torch.cuda.synchronize()
     fixed_point_s = time.perf_counter() - t0
+    # the stamps against the profiler's trace of the same rounds
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rounds_state.run(q_dev, max_rounds=STAMP_ROUNDS)
+    cuda = torch.autograd.DeviceType.CUDA
+    inner, outer = stamp.trace_bounds(
+        (e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events() if e.device_type() == cuda)
+    traced = rounds_state.last
+    assert inner.shape == (traced.executed, len(PHASES)), (inner.shape, traced.executed)
+    step = 1e-6 * traced.executed
+    for p, (name, sec) in enumerate(traced.phase_s):
+        lo, hi = float(inner[:, p].sum()), float(outer[:, p].sum())
+        log("jit_stamps", of=name, rounds=traced.executed, kernels_s=lo, stamped_s=sec,
+            stamps_s=hi, inside=lo - step <= sec <= hi + step)
+        assert lo - step <= sec <= hi + step and lo > 0, (name, lo, sec, hi)
     del q_dev
     assert index.plan.engine == "jit" and rounds_state.graph is not None
     assert replays > 0 and eager == 0, (replays, eager)
@@ -1558,7 +1628,6 @@ def run_multi(torch, dev, seed: int, shift: int, profile: bool = False) -> dict:
     (host ops too), and the sharded query once more with the chunk rounds'
     issue lock (``chunked_jit._ISSUE_LOCK``) taken away, timed beside it.
     Returns each engine's launch counts."""
-    import contextlib
 
     from repro_torch.api import IndexSpec, KNNIndex
     from repro_torch.core import chunked_jit
@@ -1607,10 +1676,12 @@ def run_multi(torch, dev, seed: int, shift: int, profile: bool = False) -> dict:
         warm_launches = launch_counts(knn_scan)
         eager0, replays0 = graph_rounds()
         knn_scan.reset_launches()   # the query's own launches from here
+        shapes = []
         t0 = time.perf_counter()
-        res = index.query(queries, 10)
+        with record_scans(shapes):
+            res = index.query(queries, 10)
         query_s = time.perf_counter() - t0
-        launches = launch_counts(knn_scan)
+        launches = dict(launch_counts(knn_scan), shapes=shapes)
         eager1, replays1 = graph_rounds()
         replays, eager = replays1 - replays0, eager1 - eager0
         peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
@@ -2797,7 +2868,7 @@ def run_roofline(torch, dev, seed: int, dryruns, cal_cell, ring) -> None:
        cell's seconds, dominant term and bytes per slot;
     3. the knn_service reckoning against real launches: at the multi
        cell's size on four slots of the card the ring's leaf-scan launches
-       (``ring`` = its launch work, n, m, d, slots) must sum to the
+       (``ring`` = their shapes, n, m, d, slots) must sum to the
        operations ``dryrun.knn_ring_launches`` reckons;
     4. ``Calibration.refresh()`` on the card (GB/s, us a transfer), then a
        ``Calibration`` from this run's numbers (round_s = main's query
@@ -2893,10 +2964,10 @@ def run_roofline(torch, dev, seed: int, dryruns, cal_cell, ring) -> None:
                    for k in ("compute_s", "memory_s", "collective_s"))
 
     # the knn_service reckoning against the ring's real launches
-    work, n, m, d, p = ring
-    launched = sum(cnt * w * tq * lp * (2 * dd + 3) for (w, tq, lp, dd), cnt in work.items())
+    shapes, n, m, d, p = ring
+    launched = sum(w * tq * lp * (2 * dd + 3) for w, tq, lp, dd in shapes)
     reckoned = sum(dr.leaf_scan_work(*x, k=1)[0] for x in dr.knn_ring_launches(n, m, d, p))
-    log("roofline", knn_ring_n=n, knn_ring_m=m, slots=p, launches=sum(work.values()),
+    log("roofline", knn_ring_n=n, knn_ring_m=m, slots=p, launches=len(shapes),
         launched_ops=launched, reckoned_ops=int(reckoned), equal=launched == reckoned)
     assert launched == reckoned and launched > 0, (launched, reckoned)
 

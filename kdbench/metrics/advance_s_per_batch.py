@@ -1,0 +1,12 @@
+"""Device seconds per batch of the round's ``advance`` phase: the queries'
+advance to their next leaf (the search radius and ``traversal.advance``).
+Stamps on the card's clock inside the captured round
+(``SearchStats.phase_s``), every replay included, the gaps between the
+phase's kernels too; the mean over the window's batches."""
+
+PHASE = "advance"
+
+
+def read(run):
+    got = [dict(getattr(b.stats, "phase_s", ())).get(PHASE) for b in run.batches]
+    return sum(got) / len(got) if got and None not in got else None

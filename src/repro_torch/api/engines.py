@@ -38,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.api.engine import KNOWN_OPS, EngineBase, EngineCaps, register_engine
 from repro_torch.api.planner import chunked_resident_bytes
 from repro_torch.core import dualtree
@@ -156,7 +157,8 @@ class HostKDTreeEngine(EngineBase):
     )
 
     def build(self, points, spec, plan):
-        return build_top_tree(np.asarray(points, np.float32), plan.height)
+        with tracing.span("build.tree"):
+            return build_top_tree(np.asarray(points, np.float32), plan.height)
 
     def query(self, state: TopTree, queries, k):
         d, i = knn_host_kdtree(queries, state, k)
@@ -293,8 +295,9 @@ class JitEngine(EngineBase):
     )
 
     def build(self, points, spec, plan):
-        return self._state(build_top_tree(np.asarray(points, np.float32), plan.height),
-                           spec, plan)
+        with tracing.span("build.tree"):
+            top = build_top_tree(np.asarray(points, np.float32), plan.height)
+        return self._state(top, spec, plan)
 
     def _state(self, top: TopTree, spec, plan) -> JitTree:
         return JitTree(top, _device(spec), tile_q=plan.tile_q, backend=plan.backend)

@@ -33,6 +33,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.api.engine import (
     KNOWN_OPS,
     EngineBase,
@@ -96,7 +97,8 @@ class KNNIndex:
     def build(
         cls, points: np.ndarray, spec: Optional[IndexSpec] = None, **overrides
     ) -> "KNNIndex":
-        """Plan + build an index over ``points``."""
+        """Plan + build an index over ``points`` (host span ``build``, with
+        ``build.plan`` and the engine's ``build.tree`` / ``build.upload``)."""
         spec = spec or IndexSpec()
         if overrides:
             spec = spec.replace(**overrides)
@@ -106,28 +108,30 @@ class KNNIndex:
         n, d = points.shape
         if spec.devices is None:
             spec = spec.replace(devices=default_devices())
-        pl = make_plan(
-            n, d,
-            m=spec.m_hint,
-            k=spec.k_hint,
-            devices=spec.devices,
-            memory_budget=spec.memory_budget,
-            engine=spec.engine,
-            height=spec.height,
-            n_chunks=spec.n_chunks,
-            n_shards=spec.n_shards,
-            buffer_size=spec.buffer_size,
-            tile_q=spec.tile_q,
-            backend=spec.backend,
-            precision=spec.precision,
-            strict_budget=spec.strict_budget,
-            op=spec.op,
-            mutable=spec.mutable,
-            merge_async=spec.merge_async,
-            calibration=spec.calibration,
-        )
-        engine = get_engine(pl.engine)
-        state = engine.build(points, spec, pl)
+        with tracing.span("build"):
+            with tracing.span("build.plan"):
+                pl = make_plan(
+                    n, d,
+                    m=spec.m_hint,
+                    k=spec.k_hint,
+                    devices=spec.devices,
+                    memory_budget=spec.memory_budget,
+                    engine=spec.engine,
+                    height=spec.height,
+                    n_chunks=spec.n_chunks,
+                    n_shards=spec.n_shards,
+                    buffer_size=spec.buffer_size,
+                    tile_q=spec.tile_q,
+                    backend=spec.backend,
+                    precision=spec.precision,
+                    strict_budget=spec.strict_budget,
+                    op=spec.op,
+                    mutable=spec.mutable,
+                    merge_async=spec.merge_async,
+                    calibration=spec.calibration,
+                )
+            engine = get_engine(pl.engine)
+            state = engine.build(points, spec, pl)
         idx = cls(spec=spec, plan=pl, engine=engine, state=state, n=n, d=d)
         if spec.persist_dir:
             idx._init_persistence()
@@ -280,14 +284,17 @@ class KNNIndex:
 
     def query(self, queries: np.ndarray, k: Optional[int] = None) -> QueryResult:
         """k nearest neighbors of every query row (``k`` defaults to the
-        spec's ``k_hint``)."""
+        spec's ``k_hint``), under the host span ``query``, whose call id
+        the result's ``stats.call`` carries."""
         k = int(k) if k is not None else self.spec.k_hint
         queries = self._check_queries(queries)
         if k > self.n:
             raise ValueError(f"k={k} > n={self.n}")
-        dists, idx, stats = self._serialized(
-            self._engine.query, self._state, queries, k
-        )
+        with tracing.span("query") as here:
+            dists, idx, stats = self._serialized(
+                self._engine.query, self._state, queries, k
+            )
+        stats = dataclasses.replace(stats, call=here.call)
         self._record_stats(stats)
         return QueryResult(dists=dists, idx=idx, stats=stats,
                            engine=self.plan.engine, k=k)
@@ -456,7 +463,8 @@ class KNNIndex:
         k = int(k) if k is not None else self.spec.k_hint
         mm = int(m) if m is not None else (self.spec.m_hint or self.spec.tile_q)
         if "knn" in ops:
-            self._serialized(self._engine.warm, self._state, mm, k)
+            with tracing.span("warm"):
+                self._serialized(self._engine.warm, self._state, mm, k)
         dual = tuple(op for op in ops if op != "knn")
         if dual:
             for op in dual:

@@ -28,6 +28,15 @@ has finished changes nothing (``advance`` and ``exit_leaf`` leave
 dump row), so the replays past the fixed point are harmless, and
 ``rounds`` counts, on the device, only the rounds in which a query was
 live: the reference's count.  On the CPU the same round runs eagerly.
+
+The round counts its own work on the device, in buffers the graph updates
+on every replay: each round's leaf visits, (query, real row) pairs and plan
+units (a row of the round log, ``kernels/ops.py::tally``), and the device
+time of its four phases (advance, plan, scan, merge), measured by stamps on
+the card's clock (``kernels/ops.py::stamp``; the host's clock on the CPU).
+The tally runs after the round's last stamp, so the counting's own time is
+in no phase.  One copy after the loop reads them back into
+``JitRounds.last``.
 """
 
 from __future__ import annotations
@@ -39,12 +48,14 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import traversal
 from repro_torch.kernels import ops as kops
 
 __all__ = [
     "TreeArrays",
     "JitRounds",
+    "RoundWork",
     "RoundsCache",
     "lazy_knn_jit",
     "rescore",
@@ -56,6 +67,8 @@ _BIG = 2**30
 SYNC_EVERY = 8          # CUDA graph replays between two reads of the live flag
 _RESCORE_ROWS = 1 << 16  # query rows per step of the final rescoring
 CACHED_SHAPES = 4       # (m, k) states a RoundsCache keeps, most recent first
+LOG_ROUNDS = 4096       # rounds the round log keeps; later ones count in the sums only
+PHASES = ("advance", "plan", "scan", "merge")   # the stamped phases of a round, in order
 _CAPTURE_LOCK = threading.Lock()
 
 
@@ -149,6 +162,18 @@ def _merge(knn_d, knn_i, nd, nli, valid, ustart, unit_query, k: int) -> None:
     knn_i[safe_q] = torch.gather(ci, 1, sel[:, :k])
 
 
+class RoundWork(NamedTuple):
+    """What one ``JitRounds.run`` counted on the device."""
+
+    executed: int          # rounds run, the replays past the fixed point included
+    leaf_visits: int       # queries placed into a plan, summed over the rounds
+    useful_pairs: int      # (query, real row of its leaf) pairs of those visits
+    units_scanned: int     # the plans' occupied units (``n_units``)
+    phase_s: Tuple[Tuple[str, float], ...]   # (phase, device seconds), ``PHASES`` order
+    log: np.ndarray        # i64[min(rounds, LOG_ROUNDS), 3]: each live round's
+                           # visits, pairs and units
+
+
 class JitRounds:
     """The fixed point's state for a batch of ``m`` queries at list width
     ``k``, in static buffers, and its round (captured on CUDA).
@@ -160,7 +185,9 @@ class JitRounds:
     leaf-scan wrapper counts its kernel launches once at the eager round
     and once at capture: a replay launches the captured kernel without the
     wrapper, so the kernel runs once per round executed
-    (``eager_rounds + replays``)."""
+    (``eager_rounds + replays``).  What the rounds did is counted by the
+    round itself, replays included: ``last`` holds the last run's
+    ``RoundWork``."""
 
     def __init__(self, tree: TreeArrays, m: int, k: int, *, tq: int,
                  first_leaf_heap: int, backend: str = "auto",
@@ -182,24 +209,39 @@ class JitRounds:
         self.knn_i = torch.full((self.m + 1, self.k), -1, dtype=torch.int32, device=dev)
         self.rounds = torch.zeros((), dtype=torch.int32, device=dev)
         self.live = torch.ones((), dtype=torch.bool, device=dev)
+        # the device's counts, read back in one copy: the round log (row r
+        # holds live round r's visits, pairs and units, row LOG_ROUNDS + 1
+        # the sums of the rounds past it; row 0 stays 0), then the phase
+        # clock (the last stamp, then each phase's nanoseconds)
+        rows = LOG_ROUNDS + 2
+        self.tally = torch.zeros((rows * 3 + 1 + len(PHASES),), dtype=torch.int64, device=dev)
+        self._log = self.tally[: rows * 3].view(rows, 3)
+        self._clock = self.tally[rows * 3:]
+        self.last: Optional[RoundWork] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.eager_rounds = 0   # rounds run eagerly (lifetime)
         self.replays = 0        # graph replays (lifetime)
 
     def round(self) -> None:
-        """One bulk-synchronous round over every query, in place."""
-        t, m, k = self.tree, self.m, self.k
+        """One bulk-synchronous round over every query, in place, stamped
+        at the start and at the end of each phase, then tallied (five
+        stamps and one tally: the six launches the counts add)."""
+        t, m, k, clock = self.tree, self.m, self.k, self._clock
+        kops.stamp(clock, 0)
         self.rounds += (self.node != 0).any()
         radius = kops.sqrt(self.knn_d[:m, k - 1])
         leaf, st = traversal.advance(
             traversal.TraversalState(self.node, self.fromc), self.queries, radius,
             t.split_dim, t.split_val, first_leaf_heap=self.first_leaf_heap,
         )
+        kops.stamp(clock, 1)
         unit_leaf, unit_query, n_units = _build_plan(leaf, self.tq, t.leaf_start.shape[0])
+        kops.stamp(clock, 2)
         nd, nli = kops.leaf_scan_units(
             self.queries, t.slabs, unit_leaf, unit_query, n_units, k=self.kl,
             backend=self.backend,
         )
+        kops.stamp(clock, 3)
         ul = unit_leaf.long()
         valid = nli < t.leaf_size[ul][:, None, None]
         _merge(self.knn_d, self.knn_i, nd, nli, valid, t.leaf_start[ul], unit_query, k)
@@ -207,6 +249,9 @@ class JitRounds:
         self.node.copy_(st.node)
         self.fromc.copy_(st.fromc)
         self.live.copy_((st.node != 0).any())
+        kops.stamp(clock, 4)
+        # the round's counts, after its last stamp: in no phase's time
+        kops.tally(self._log, leaf, t.leaf_size, n_units, self.rounds)
 
     def _capture(self) -> None:
         # on a stream of its own (``torch.cuda.graph``'s default capture
@@ -214,7 +259,7 @@ class JitRounds:
         # forest captures each device slot's round from that slot's thread
         # while the other slots launch work
         graph = torch.cuda.CUDAGraph()
-        with _CAPTURE_LOCK, torch.cuda.graph(
+        with tracing.span("warm.capture"), _CAPTURE_LOCK, torch.cuda.graph(
                 graph, stream=torch.cuda.Stream(self.queries.device),
                 capture_error_mode="thread_local"):
             self.round()
@@ -243,11 +288,12 @@ class JitRounds:
         self.knn_i.fill_(-1)
         self.rounds.zero_()
         self.live.fill_(True)
+        self.tally.zero_()
 
     def run(self, queries: torch.Tensor, max_rounds: int = 0) -> int:
         """Rounds to the fixed point (at most ``max_rounds`` when > 0);
         returns the rounds executed, live or not (the device count of live
-        rounds is ``self.rounds``)."""
+        rounds is ``self.rounds``), and keeps their counts in ``last``."""
         self.reset(queries)
         done = 0
         if self.cuda and self.graph is None:
@@ -267,7 +313,21 @@ class JitRounds:
                 torch.cuda.current_stream(self.queries.device).synchronize()
             if not bool(flag):
                 break
+        self.last = self._read(done)
         return done
+
+    def _read(self, executed: int) -> RoundWork:
+        """The counts of the rounds just run, from one copy of ``tally``."""
+        tally = self.tally.cpu().numpy()
+        rows = LOG_ROUNDS + 2
+        log = tally[: rows * 3].reshape(rows, 3)
+        visits, pairs, units = (int(x) for x in log.sum(0))
+        seconds = tally[rows * 3 + 1:] / 1e9
+        return RoundWork(
+            executed=executed, leaf_visits=visits, useful_pairs=pairs, units_scanned=units,
+            phase_s=tuple(zip(PHASES, (float(s) for s in seconds))),
+            log=log[1: 1 + min(int(self.rounds), LOG_ROUNDS)].copy(),
+        )
 
 
 class RoundsCache(OrderedDict):
@@ -325,13 +385,22 @@ def lazy_knn_jit(
 
     Returns (sq_dists f32[m, k], original ids i64[m, k], rounds).  ``cache``
     (a ``RoundsCache``, or any dict) keeps each (m, k)'s ``JitRounds`` (and
-    so its CUDA graph) across calls, the one just used last.
+    so its CUDA graph) across calls, the one just used last; its ``last``
+    holds the rounds' device counts.  Host spans ``query.rounds`` (the
+    replays and flag reads) and ``query.rescore`` (ending in a synchronize,
+    so it holds the rescoring's device time, not only its launch).
     """
-    queries = queries.to(tree.slabs.device)
+    dev = tree.slabs.device
+    queries = queries.to(dev)
     r = _rounds_for(queries.shape[0], k, tree, tq, first_leaf_heap, backend, cache)
-    r.run(queries, max_rounds)
-    d2, oi = rescore(queries, tree, r.knn_i[: r.m])
-    return d2, oi, int(r.rounds)
+    with tracing.span("query.rounds"):
+        r.run(queries, max_rounds)
+        rounds = int(r.rounds)
+    with tracing.span("query.rescore"):
+        d2, oi = rescore(queries, tree, r.knn_i[: r.m])
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+    return d2, oi, rounds
 
 
 def _rounds_for(m, k, tree, tq, first_leaf_heap, backend, cache) -> JitRounds:

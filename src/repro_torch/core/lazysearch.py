@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import traversal
 from repro_torch.core.brute import knn_brute
 from repro_torch.core.buffers import LeafBuffers, QueryQueues, build_work_plan
@@ -156,6 +157,12 @@ class SearchStats:
     plan_shapes: int = 0     # distinct batch shapes: dual-tree leaf-pair
                              # batches; host loop: padded plan widths
     retested_pairs: int = 0  # dual-tree ops: pairs tested again directly
+    # the jit engine's rounds, counted on the device (replays included)
+    leaf_visits: int = 0     # queries placed into a round's plan
+    useful_pairs: int = 0    # (query, real row of its leaf) pairs of those
+    scan_pairs: int = 0      # pairs the leaf scan computes: units * TQ * L_pad
+    phase_s: Tuple[Tuple[str, float], ...] = ()   # (phase, device seconds)
+    call: int = 0            # the id the call's host spans carry (``tracing``)
     # operational events of the call (the mutable index's device loss and
     # re-placement; the facade adds them to ``Plan.reasons``)
     events: Tuple[str, ...] = ()
@@ -375,9 +382,10 @@ class BufferKDTree:
                 )
             self.tree = tree
         else:
-            self.tree = build_top_tree(
-                points, height if height is not None else suggest_height(n)
-            )
+            with tracing.span("build.tree"):
+                self.tree = build_top_tree(
+                    points, height if height is not None else suggest_height(n)
+                )
         # the caller's mask of the rows that can be answers (None: every
         # row); held, not copied, so the bound sees the bits deletes clear
         self._live = live
@@ -593,34 +601,48 @@ class JitTree:
         dev = kops.resolve_device(device)
         self.top = top
         self.backend = kops.resolve_backend(backend, dev)
-        self.tree = tree_arrays_from(top, dev)
+        with tracing.span("build.upload"):
+            self.tree = tree_arrays_from(top, dev)
         self.tq = kops.engine_tile_q(tile_q, self.backend)
         norms = np.sqrt(np.sum(top.points.astype(np.float64) ** 2, axis=1))
         self.x_norm_max = float(norms.max())   # bounds the fp32 rounding in certify
         self.rounds = RoundsCache()
 
     def query(self, queries: np.ndarray, k: int):
-        """(dists f32[m, k] ascending Euclidean, ids i64[m, k], SearchStats)."""
+        """(dists f32[m, k] ascending Euclidean, ids i64[m, k], SearchStats),
+        with a host span for each step (``query.rounds`` and
+        ``.rescore`` from ``lazy_knn_jit``, ``.readback``, ``.certify``,
+        ``.brute``)."""
         top, n = self.top, self.top.n
         m = queries.shape[0]
         k_eff = min(k + FP32_OVERFETCH, n)
-        q = kops.owned_tensor(queries, self.tree.slabs.device)
+        dev = self.tree.slabs.device
+        q = kops.owned_tensor(queries, dev)
         d2, oi, rounds = lazy_knn_jit(
             q, self.tree, k=k_eff, tq=self.tq, first_leaf_heap=top.first_leaf_heap,
             backend=self.backend, cache=self.rounds,
         )
-        raw = self.rounds[(m, k_eff)].knn_d[:m].cpu().numpy()
-        dists = np.sqrt(np.maximum(d2.cpu().numpy(), 0.0))
-        idx = oi.cpu().numpy()
-        ok = np.ones(m, bool) if k_eff >= n else certify(
-            queries, raw, dists, k, k_eff, eps=0.0, x_norm_max=self.x_norm_max)
-        dists, idx = dists[:, :k].copy(), idx[:, :k].copy()
-        rows = np.nonzero(~ok)[0]
+        r = self.rounds[(m, k_eff)]
+        with tracing.span("query.readback"):
+            raw = r.knn_d[:m].cpu().numpy()
+            d2, idx = d2.cpu().numpy(), oi.cpu().numpy()
+        with tracing.span("query.certify"):
+            dists = np.sqrt(np.maximum(d2, 0.0))
+            ok = np.ones(m, bool) if k_eff >= n else certify(
+                queries, raw, dists, k, k_eff, eps=0.0, x_norm_max=self.x_norm_max)
+            dists, idx = dists[:, :k].copy(), idx[:, :k].copy()
+            rows = np.nonzero(~ok)[0]
         if rows.size:
-            bd, bi = knn_brute(queries[rows], top.points, k, device=q.device)
-            dists[rows], idx[rows] = bd, orig_ids(top, bi)
+            with tracing.span("query.brute"):
+                bd, bi = knn_brute(queries[rows], top.points, k, device=dev)
+                dists[rows], idx[rows] = bd, orig_ids(top, bi)
+        w = r.last
         stats = SearchStats(iterations=rounds, queries_advanced=rounds * m,
-                            exact_rows=int(rows.size))
+                            exact_rows=int(rows.size), steady_rounds=w.executed,
+                            units_scanned=w.units_scanned, leaf_visits=w.leaf_visits,
+                            useful_pairs=w.useful_pairs,
+                            scan_pairs=w.units_scanned * self.tq * self.tree.slabs.shape[1],
+                            phase_s=w.phase_s)
         return dists.astype(np.float32), idx.astype(np.int64), stats
 
     def warm(self, m: int, k: int) -> None:

@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.lazysearch import JitTree, SearchStats
 from repro_torch.core.toptree import TopTree, build_top_tree, suggest_height
 from repro_torch.distributed.dynamic_shards import DeviceFanout
@@ -50,7 +51,8 @@ def build_forest(points: np.ndarray, n_shards: int,
         raise ValueError(f"n={n} must divide into {n_shards} equal shards")
     per = n // n_shards
     h = height if height is not None else suggest_height(per)
-    trees = [build_top_tree(points[s * per:(s + 1) * per], h) for s in range(n_shards)]
+    with tracing.span("build.tree"):
+        trees = [build_top_tree(points[s * per:(s + 1) * per], h) for s in range(n_shards)]
     return trees, np.arange(n_shards, dtype=np.int64) * per
 
 
@@ -109,15 +111,19 @@ def forest_knn(queries: np.ndarray, forest: Forest, *, k: int
     """Sharded-forest kNN: every slot answers every query against its
     shard at once, then one selection merges the lists on the lead slot.
     Returns (dists f32[m, k] ascending Euclidean, ids i64[m, k], stats:
-    the largest round count of a shard, ``exact_rows`` summed)."""
+    the largest round count of a shard; ``exact_rows``, the rounds run, the
+    device counts and the phases' seconds summed over the shards).  Each
+    slot's spans nest under the caller's open span."""
     queries = np.asarray(queries, np.float32)
     m = queries.shape[0]
     p = len(forest.shards)
+    here = tracing.current()
     with forest.lock:
         lists: List = [None] * p
 
         def run(s: int) -> None:
-            d, i, st = forest.shards[s].query(queries, k)
+            with tracing.inside(here):
+                d, i, st = forest.shards[s].query(queries, k)
             lists[s] = (d, np.where(i >= 0, i + forest.offsets[s], -1), st)
 
         forest.slot_seconds = run_on_slots(forest.fanout, forest.streams,
@@ -129,6 +135,15 @@ def forest_knn(queries: np.ndarray, forest: Forest, *, k: int
             sd, sel = smallest_k(cd, k)
             dists = sd.cpu().numpy()
             idx = torch.gather(ci, 1, sel).cpu().numpy()
-    stats = SearchStats(iterations=max(l[2].iterations for l in lists), queries_advanced=m,
-                        exact_rows=sum(l[2].exact_rows for l in lists))
+    shard = [l[2] for l in lists]
+    phases: Dict[str, float] = {}
+    for st in shard:
+        for name, sec in st.phase_s:
+            phases[name] = phases.get(name, 0.0) + sec
+    stats = SearchStats(
+        iterations=max(st.iterations for st in shard), queries_advanced=m,
+        **{f: sum(getattr(st, f) for st in shard)
+           for f in ("exact_rows", "steady_rounds", "units_scanned", "leaf_visits",
+                     "useful_pairs", "scan_pairs")},
+        phase_s=tuple(phases.items()))
     return dists, idx, stats

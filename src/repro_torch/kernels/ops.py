@@ -9,10 +9,14 @@ passes a CPU device, and without a card they raise instead of carrying on
 quietly on the CPU.  ``owned_tensor`` is how entry points take the
 caller's arrays: as a copy the port owns, on every device.  ``sqrt`` is
 the square root every distance and search radius of the port takes.
+``stamp`` times the phases of the jit engine's round and ``tally`` counts
+its work: the kernels of ``kernels/stamp.py`` on CUDA tensors, the host
+(its clock, plain PyTorch) on CPU ones.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Literal, Tuple
 
 import numpy as np
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.kernels import knn_scan as _knn_scan
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import stamp as _stamp
 
 __all__ = [
     "leaf_scan",
@@ -31,6 +36,8 @@ __all__ = [
     "visible_devices",
     "owned_tensor",
     "sqrt",
+    "stamp",
+    "tally",
     "PAD_COORD",
     "INVALID_DIST",
 ]
@@ -83,6 +90,37 @@ def sqrt(t: torch.Tensor) -> torch.Tensor:
     if t.device.type != "cpu":
         return torch.sqrt(t)
     return torch.from_numpy(np.sqrt(t.numpy()))
+
+
+def stamp(clock: torch.Tensor, phase: int) -> None:
+    """Add the nanoseconds since the previous stamp (``clock[0]``) into
+    ``clock[phase]`` (phase >= 1) and set ``clock[0]`` to now; phase 0 only
+    sets ``clock[0]``.  On CUDA the stamp kernel does it in stream order, on
+    the card's clock.  On the CPU, where every op before the call has run,
+    the host's monotonic clock does it at once."""
+    if clock.device.type != "cpu":
+        _stamp.stamp_cuda(clock, phase)
+        return
+    now = time.perf_counter_ns()
+    if phase > 0:
+        clock[phase] += now - int(clock[0])
+    clock[0] = now
+
+
+def tally(log: torch.Tensor, leaf: torch.Tensor, leaf_size: torch.Tensor,
+          n_units: torch.Tensor, rounds: torch.Tensor) -> None:
+    """Add one round's work into row min(``rounds``, rows - 1) of ``log``
+    i64[rows, 3]: its leaf visits (``leaf`` i32[m] >= 0), their (query,
+    real row) pairs (Σ ``leaf_size[leaf]`` over the visits) and the plan's
+    ``n_units``.  On CUDA the tally kernel does it in stream order."""
+    if log.device.type != "cpu":
+        _stamp.tally_cuda(log, leaf, leaf_size, n_units, rounds)
+        return
+    placed = leaf[leaf >= 0].long()
+    row = min(int(rounds), log.shape[0] - 1)
+    log[row, 0] += placed.numel()
+    log[row, 1] += int(leaf_size[placed].sum())
+    log[row, 2] += int(n_units)
 
 
 def resolve_backend(backend: str, device) -> str:

@@ -419,8 +419,8 @@ def test_buffer_kdtree_on_card_quantized_is_exact(precision, n_chunks):
 @pytest.mark.parametrize("m,k", [(3000, 14), (700, 40)])
 def test_captured_round_equals_eager_round_bit_for_bit(m, k):
     """``JitRounds`` on the card: the CUDA graph of one round, replayed,
-    leaves the state the eager round leaves, bit for bit, round by round;
-    its kernel launches come from the replays (the wrapper counts the eager
+    leaves the state and the round log the eager round leaves, bit for
+    bit, round by round; its kernel launches come from the replays (the wrapper counts the eager
     round and the capture only)."""
     from repro_torch.core.jitsearch import JitRounds, lazy_knn_jit, tree_arrays_from
     from repro_torch.core.toptree import build_top_tree
@@ -441,7 +441,7 @@ def test_captured_round_equals_eager_round_bit_for_bit(m, k):
     for _ in range(200):
         for a, b in ((graph.node, eager.node), (graph.fromc, eager.fromc),
                      (graph.knn_d[:m], eager.knn_d[:m]), (graph.knn_i[:m], eager.knn_i[:m]),
-                     (graph.rounds, eager.rounds)):
+                     (graph.rounds, eager.rounds), (graph._log, eager._log)):
             assert torch.equal(a, b)
         if not bool(eager.live):
             break
@@ -484,6 +484,146 @@ def test_jit_cache_bounds_device_memory():
     for alloc, reserved in held[CACHED_SHAPES:]:
         assert alloc <= 1.1 * full[0], (held, CACHED_SHAPES)
         assert reserved <= 1.1 * full[1], (held, CACHED_SHAPES)
+
+
+@pytest.mark.cuda
+def test_replayed_rounds_count_what_eager_rounds_count():
+    """After ``warm`` captured the round, a query's device counts (every
+    round a graph replay) equal those of the same queries run round by
+    round eagerly: the replays count.  The replays past the fixed point add
+    rounds run and no work."""
+    from repro_torch.api import IndexSpec, KNNIndex
+    from repro_torch.core.jitsearch import SYNC_EVERY, JitRounds
+    from repro_torch.core.lazysearch import FP32_OVERFETCH
+
+    from repro_torch.kernels import stamp
+
+    dev = _device()
+    rng = np.random.default_rng(8)
+    pts = rng.normal(size=(20000, 10)).astype(np.float32)
+    q = rng.normal(size=(3000, 10)).astype(np.float32)
+    index = KNNIndex.build(pts, IndexSpec(engine="jit", height=6, devices=(dev,)))
+    stamp.reset_launches()
+    index.warm(3000, 10)
+    # the eager round and the capture pass the wrappers: five stamps and a
+    # tally each; a replay passes none
+    assert stamp.launches == {"stamp": 10, "tally": 2}
+    state = index._state
+    graph = state.rounds[(3000, 10 + FP32_OVERFETCH)]
+    replays = graph.replays
+    st = index.query(q, 10).stats
+    assert graph.replays > replays and graph.eager_rounds == 1
+    assert stamp.launches == {"stamp": 10, "tally": 2}
+    eager = JitRounds(state.tree, 3000, 10 + FP32_OVERFETCH, tq=state.tq,
+                      first_leaf_heap=state.top.first_leaf_heap)
+    eager.reset(torch.from_numpy(q).to(dev))
+    executed = 0
+    while executed == 0 or bool(eager.live):
+        eager.round()
+        executed += 1
+    want = eager._read(executed)
+    got = graph.last
+    assert (st.leaf_visits, st.useful_pairs, st.units_scanned) == (
+        want.leaf_visits, want.useful_pairs, want.units_scanned)
+    assert want.leaf_visits > 0 and want.units_scanned > 0
+    np.testing.assert_array_equal(got.log, want.log)
+    assert st.iterations == len(want.log) == executed
+    assert executed <= st.steady_rounds < executed + SYNC_EVERY
+
+
+@pytest.mark.cuda
+def test_phase_stamps_lie_between_their_kernels_and_their_stamps():
+    """Each phase's device seconds of a replayed query, held against a
+    ``torch.profiler`` trace of the same rounds (``stamp.trace_bounds``):
+    summed over the rounds, no less than the span of the phase's own
+    kernels between its two stamps (first start to last end, the gaps
+    included) and no more than the span from the earlier stamp's start to
+    the later one's end, to within the clock's microsecond step at each
+    stamp.  The trace holds five stamps a round executed, replays included,
+    and the two bounds lie within 20 us of each other in every round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import IndexSpec, KNNIndex
+    from repro_torch.core.jitsearch import PHASES
+    from repro_torch.core.lazysearch import FP32_OVERFETCH
+    from repro_torch.kernels.stamp import trace_bounds
+
+    dev = _device()
+    rng = np.random.default_rng(9)
+    pts = rng.normal(size=(2 ** 18, 10)).astype(np.float32)
+    q = torch.from_numpy(rng.normal(size=(2 ** 15, 10)).astype(np.float32)).to(dev)
+    index = KNNIndex.build(pts, IndexSpec(engine="jit", devices=(dev,)))
+    index.warm(2 ** 15, 10)
+    rounds = index._state.rounds[(2 ** 15, 10 + FP32_OVERFETCH)]
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rounds.run(q)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    inner, outer = trace_bounds(events)
+    executed = rounds.last.executed
+    assert inner.shape == (executed, len(PHASES))
+    assert (outer - inner).max() < 20e-6, (outer - inner).max()
+    step = 1e-6 * executed
+    for p, (name, sec) in enumerate(rounds.last.phase_s):
+        assert name == PHASES[p]
+        lo, hi = inner[:, p].sum(), outer[:, p].sum()
+        assert lo - step <= sec <= hi + step, (name, lo, sec, hi)
+        assert lo > 0, name
+
+
+@pytest.mark.cuda
+def test_tally_kernel_equals_the_plain_tally():
+    """The tally kernel adds what ``kernels/ops.py::tally`` adds on the
+    CPU: the visits, the pairs and the units, into the row of the live
+    round, the last row once the rounds pass it; one launch each call."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import stamp
+
+    dev = _device()
+    rng = np.random.default_rng(10)
+    sizes = torch.from_numpy(rng.integers(0, 4097, size=4096).astype(np.int32))
+    want = torch.zeros((7, 3), dtype=torch.int64)
+    got = want.to(dev)
+    stamp.reset_launches()
+    for r, m in [(1, 1), (2, 1000), (3, 2 ** 20 + 3), (5, 2 ** 18), (9, 2 ** 20), (40, 77)]:
+        leaf = torch.from_numpy(rng.integers(-1, 4096, size=m).astype(np.int32))
+        leaf[rng.random(m) < 0.7] = -1
+        units = torch.tensor(int(rng.integers(0, 12288)), dtype=torch.int32)
+        rounds = torch.tensor(r, dtype=torch.int32)
+        kops.tally(want, leaf, sizes, units, rounds)
+        kops.tally(got, leaf.to(dev), sizes.to(dev), units.to(dev), rounds.to(dev))
+    torch.cuda.synchronize(dev)
+    assert torch.equal(got.cpu(), want) and int(want[6, 0]) > 0
+    assert stamp.launches == {"stamp": 0, "tally": 6}
+
+
+@pytest.mark.cuda
+def test_a_span_encloses_its_kernel_on_the_profilers_clock():
+    """A host span (``repro_torch.tracing``, Unix nanoseconds) around a
+    kernel and a synchronize holds the kernel's interval as
+    ``torch.profiler`` reports it: the two share a clock, so spans can be
+    laid over a device trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+
+    dev = _device()
+    a = torch.randn(4096, 4096, device=dev)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with tracing.span("probe") as opened:
+            (a @ a).sum()
+            torch.cuda.synchronize(dev)
+    (sp,) = [s for s in tracing.spans() if s.id == opened.id]
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda and not e.name().startswith(("Memcpy", "Memset"))]
+    assert kernels
+    for e in kernels:
+        assert sp.start_ns <= e.start_ns() and e.start_ns() + e.duration_ns() <= sp.end_ns, (
+            e.name(), sp.start_ns, e.start_ns(), e.duration_ns(), sp.end_ns)
 
 
 @pytest.mark.cuda
